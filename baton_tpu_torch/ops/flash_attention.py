@@ -1,0 +1,368 @@
+"""Flash attention — three hand-written CUDA kernels for Hopper
+(``csrc/flash_attention.cu``), each beside a plain PyTorch version of the
+same function (counterpart of ``baton_tpu/ops/flash_attention.py``).
+
+=================  ==========================  ===================================
+wrapper            CUDA kernel                 TPU kernel it replaces
+=================  ==========================  ===================================
+``_fwd``           ``fwd_kernel``              ``_fwd_kernel`` (:65-131)
+``_bwd_dkv``       ``dkv_kernel``              ``_bwd_dkv_kernel`` (:203-250)
+``_bwd_dq``        ``dq_kernel``               ``_bwd_dq_kernel`` (:253-290)
+=================  ==========================  ===================================
+
+A wrapper takes its plain version only because the tensor it was given
+lies on the CPU; a CUDA tensor goes to the kernel or raises. Each kernel
+launch adds one to ``launches[name]``, and nothing else does. The kernels
+are built with ``nvcc`` for ``sm_90a`` at the first CUDA launch (into
+``_build/`` beside this file, keyed by the source's hash) and bound with
+ctypes. The source notes what bounds each kernel on the card.
+
+Semantics are those of the JAX kernels: q [B, Hq, Lq, D], k/v
+[B, Hkv, Lk, D], an additive per-key bias [B, Lk] in fp32, fp32 softmax,
+``NEG_INF = -1e30`` (finite, so fully masked rows average uniformly
+instead of giving NaN), query head h reads kv head h // (Hq / Hkv).
+Keys past Lk count for nothing (the JAX wrapper pads them with -1e30
+bias; these kernels mask the ragged edge themselves, so no pad copies).
+The delta precompute ``rowsum(do·o)`` and the GQA fold of the per-head
+kv gradients are torch ops, outside the kernels, as in JAX.
+
+Training runs under ``torch.func.vmap(grad(...))`` over a client axis. A
+ctypes launch cannot read a batched tensor, so the forward and the
+backward are each a ``torch.autograd.Function`` whose ``vmap`` rule folds
+the client axis into the kernels' batch axis: one launch per layer per
+step covers every client of a wave.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel launches on CUDA tensors, by kernel; compare-with-plain runs in
+# chip_smoke.py reset them before the path they count
+launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def library_path() -> Path:
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"libflash_attention_{tag}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build the kernels (once per source version) and bind them."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = library_path()
+    if not so.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                              capture_output=True, text=True)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    lib = ctypes.CDLL(str(so))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [I, I] + [P] * 6 + [I] * 6 + [F, P]
+    lib.flash_bwd_dkv.argtypes = [I, I] + [P] * 10 + [I] * 6 + [F, P]
+    lib.flash_bwd_dq.argtypes = [I, I] + [P] * 8 + [I] * 6 + [F, P]
+    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        fn.restype = I
+    _lib = lib
+    return lib
+
+
+def _on_cpu(*xs) -> bool:
+    """True when the plain version applies; raises for a device that has
+    no kernel (there is no silent fallback from CUDA to the plain path)."""
+    kinds = {x.device.type for x in xs}
+    if kinds in ({"cpu"}, {"cuda"}):
+        return kinds == {"cpu"}
+    raise ValueError(f"flash attention needs all inputs on one CPU or CUDA device, got {kinds}")
+
+
+def _kernel_args(q, k, v):
+    """Validate what the kernels take; returns (bf16 flag, head dim)."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernels take fp32 or bf16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    d = q.shape[-1]
+    if d not in (64, 128):
+        raise ValueError(f"flash kernels take head dim 64 or 128, got {d}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("q, k and v must lie on one device")
+    return int(q.dtype == torch.bfloat16), d
+
+
+def _launch(fn_name: str, device, *args) -> None:
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err}")
+
+
+# ======================================================================
+# plain PyTorch versions: dense fp32 math with the kernels' rounding points
+
+
+def _expand_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
+    return x.repeat_interleave(hq // x.shape[1], dim=1)
+
+
+def _scores(q, k, bias2d, causal, scale):
+    """fp32 s = q·kᵀ·scale + bias, causal entries replaced by NEG_INF."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = s + bias2d.float()[:, None, None, :]
+    if causal:
+        lq, lk = s.shape[-2:]
+        qpos = torch.arange(lq, device=s.device)[:, None]
+        kpos = torch.arange(lk, device=s.device)[None, :]
+        s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def _fwd_plain(q, k, v, bias2d, causal, scale):
+    """out [B,Hq,Lq,D] in q's dtype, lse [B,Hq,Lq] fp32."""
+    hq = q.shape[1]
+    k, v = _expand_kv(k, hq), _expand_kv(v, hq)
+    s = _scores(q, k, bias2d, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _p_ds(q, k, v, bias2d, dout, lse, delta, causal, scale):
+    s = _scores(q, k, bias2d, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _bwd_dkv_plain(q, k, v, bias2d, dout, lse, delta, causal, scale):
+    """Per-query-head dk, dv [B,Hq,Lk,D] and db [B,Hq,Lk], all fp32."""
+    hq = q.shape[1]
+    k, v = _expand_kv(k, hq), _expand_kv(v, hq)
+    p, ds = _p_ds(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dout.float())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dk, dv, ds.sum(dim=2)
+
+
+def _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale):
+    """dq [B,Hq,Lq,D] fp32."""
+    hq = q.shape[1]
+    k, v = _expand_kv(k, hq), _expand_kv(v, hq)
+    _, ds = _p_ds(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    return scale * torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+
+
+# ======================================================================
+# wrappers: the kernel for CUDA tensors, the plain version for CPU ones
+
+
+def _fwd(q, k, v, bias2d, causal, scale):
+    if _on_cpu(q, k, v, bias2d):
+        return _fwd_plain(q, k, v, bias2d, causal, scale)
+    bf16, d = _kernel_args(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bias2d = bias2d.float().contiguous()
+    b, hq, lq, _ = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", q.device, bf16, d,
+            *(t.data_ptr() for t in (q, k, v, bias2d, out, lse)),
+            b, hq, hkv, lq, lk, int(causal), scale)
+    launches["fwd"] += 1
+    return out, lse
+
+
+def _bwd_inputs(q, k, v, bias2d, dout, lse, delta):
+    """The backward kernels' inputs as they read them: q, k, v, dout
+    contiguous in one dtype; bias, lse, delta contiguous fp32."""
+    _kernel_args(q, k, v)
+    if dout.dtype != q.dtype:
+        raise TypeError("dout must have q's dtype")
+    return ([t.contiguous() for t in (q, k, v)] + [bias2d.float().contiguous()]
+            + [dout.contiguous()] + [t.float().contiguous() for t in (lse, delta)])
+
+
+def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):
+    if _on_cpu(q, k, v, bias2d, dout, lse, delta):
+        return _bwd_dkv_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    dk = torch.empty((b, hq, lk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    db = torch.empty((b, hq, lk), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dkv", q.device, int(q.dtype == torch.bfloat16), d,
+            *(t.data_ptr() for t in (*inputs, dk, dv, db)),
+            b, hq, hkv, lq, lk, int(causal), scale)
+    launches["bwd_dkv"] += 1
+    return dk, dv, db
+
+
+def _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale):
+    if _on_cpu(q, k, v, bias2d, dout, lse, delta):
+        return _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dq", q.device, int(q.dtype == torch.bfloat16), d,
+            *(t.data_ptr() for t in (*inputs, dq)),
+            b, hq, hkv, lq, lk, int(causal), scale)
+    launches["bwd_dq"] += 1
+    return dq
+
+
+def _bwd(q, k, v, bias2d, out, dout, lse, causal, scale):
+    """(dq, dk, dv, dbias) in fp32: the two backward kernels plus the torch
+    glue around them (delta before, the GQA fold after)."""
+    b, hq, _, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dk_h, dv_h, db_h = _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    dq = _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    dk = dk_h.reshape(b, hkv, hq // hkv, lk, d).sum(dim=2)
+    dv = dv_h.reshape(b, hkv, hq // hkv, lk, d).sum(dim=2)
+    return dq, dk, dv, db_h.sum(dim=1)
+
+
+# ======================================================================
+# autograd: forward and backward are Functions with vmap rules that fold
+# the vmapped client axis into the kernels' batch axis
+
+
+def _fold(info, in_dims, *xs):
+    """[C, B, ...] (or an unbatched [B, ...]) -> [C·B, ...]."""
+    out = []
+    for x, dim in zip(xs, in_dims):
+        if dim is None:
+            x = x.unsqueeze(0).expand(info.batch_size, *x.shape)
+        else:
+            x = x.movedim(dim, 0)
+        out.append(x.reshape(-1, *x.shape[2:]))
+    return out
+
+
+def _unfold(c, xs):
+    return tuple(x.reshape(c, -1, *x.shape[1:]) for x in xs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, bias2d, causal, scale):
+        return _fwd(q, k, v, bias2d, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, bias2d, ctx.causal, ctx.scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, bias2d, out, lse)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias2d, out, lse = ctx.saved_tensors
+        dq, dk, dv, db = _FlashAttentionBackward.apply(
+            q, k, v, bias2d, out, dout, lse, ctx.causal, ctx.scale)
+        return dq, dk, dv, db, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias2d, causal, scale):
+        folded = _fold(info, in_dims[:4], q, k, v, bias2d)
+        out = _FlashAttention.apply(*folded, causal, scale)
+        return _unfold(info.batch_size, out), (0, 0)
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, bias2d, out, dout, lse, causal, scale):
+        dq, dk, dv, db = _bwd(q, k, v, bias2d, out, dout, lse, causal, scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db.to(bias2d.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias2d, out, dout, lse, causal, scale):
+        folded = _fold(info, in_dims[:7], q, k, v, bias2d, out, dout, lse)
+        grads = _FlashAttentionBackward.apply(*folded, causal, scale)
+        return _unfold(info.batch_size, grads), (0, 0, 0, 0)
+
+
+# ======================================================================
+# public API
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Flash attention with ``dot_product_attention`` semantics
+    (models/transformer.py): q [B, Hq, L, Dh], k/v [B, Hkv, L, Dh],
+    optional additive per-key ``bias`` [B, 1, 1, L]; returns
+    [B, Hq, L, Dh] in q's dtype. Differentiable (kernel backward), and
+    composes with ``torch.func.vmap``/``grad``. Any L works."""
+    b, hq, _, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {hq} % {hkv}")
+    if v.shape != k.shape:
+        raise ValueError(f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}")
+    if bias is None:
+        bias2d = torch.zeros((b, lk), dtype=torch.float32, device=q.device)
+    else:
+        if tuple(bias.shape) != (b, 1, 1, lk):
+            raise ValueError(f"bias must be [B,1,1,L], got {tuple(bias.shape)}")
+        bias2d = bias.reshape(b, lk).float()
+    out, _ = _FlashAttention.apply(q, k, v, bias2d, causal, d ** -0.5)
+    return out
+
+
+def make_flash_attention_fn():
+    """Seam-compatible ``attention_fn(q, k, v, bias, causal)`` for any
+    model: ``model(..., attention_fn=make_flash_attention_fn())``. The
+    kernels pick their own tiles, so there is nothing to configure."""
+    return flash_attention

@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``baton_tpu_torch``) on one GPU.
+
+Run from a checkout of the repository: ``python3 chip_smoke.py``. It needs
+one CUDA card and ``nvcc``; it builds the flash-attention kernels from
+``baton_tpu_torch/ops/csrc`` on first use. Phases, any failure of which
+exits non-zero:
+
+1. the card's name and power limit, and the kernels' build time;
+2. each kernel against its plain PyTorch version on the card: bf16 and
+   fp32, causal or not, fully masked rows, GQA, ragged L, D 64 and 128,
+   and BERT-base's own shape (tolerance fp32 1e-4, bf16 2e-2);
+3. the main path at full width: BERT-base (bf16 compute) FedSim rounds,
+   8 clients x 32 samples, L=128, one warm-up, three timed rounds, one
+   round under torch.profiler (device time by kind of kernel, and the
+   device's busy share) and a federated evaluation; every kernel must
+   launch exactly once per layer per round (the client axis folds into
+   one launch);
+4. a 2-layer fp32 BERT-base-width round on the card against the same
+   round of the port on the CPU (plain path), same weights and shuffles,
+   params within 1e-4;
+5. kernel times at BERT's shape beside their plain versions, PyTorch's
+   scaled_dot_product_attention and the card's bound, as one JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+or without the package beside this script, it exits non-zero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# kernel name -> (launch counter, TPU kernel it replaces)
+KERNELS = {
+    "flash_fwd": ("fwd", "baton_tpu/ops/flash_attention.py:65"),
+    "flash_bwd_dkv": ("bwd_dkv", "baton_tpu/ops/flash_attention.py:203"),
+    "flash_bwd_dq": ("bwd_dq", "baton_tpu/ops/flash_attention.py:253"),
+}
+SOURCE = "baton_tpu_torch/ops/csrc/flash_attention.cu"
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_peaks(name: str):
+    """(memory bytes/s, bf16 dense tensor FLOP/s) from NVIDIA's data
+    sheets, by card name."""
+    if "H200" in name:
+        return 4.8e12, 989e12
+    if "PCIe" in name:
+        return 2.0e12, 756e12
+    return 3.35e12, 989e12  # H100 SXM
+
+
+def time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of ``fn`` by CUDA events over ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_kind(name: str) -> str:
+    n = name.lower()
+    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)_kernel", n):
+        return "flash attention (this port)"
+    if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in n or "memset" in n:
+        return "memcpy/memset"
+    if "reduce" in n:
+        return "reductions"
+    if any(t in n for t in ("index", "scatter", "gather")):
+        return "index/gather/scatter"
+    return "elementwise and other"
+
+
+def device_breakdown(prof, wall_s):
+    """Device time of a profiled round, by kind and by kernel, and the
+    device's busy share of the round's wall time (one stream, so kernel
+    times do not overlap). None when the profiler saw no device time."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total_ms == 0:
+        print("  profiler saw no device time: breakdown not measured")
+        return None
+    kinds = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    busy = total_ms / (wall_s * 1e3)
+    print(f"  profiled round: wall {wall_s * 1e3:.1f} ms, device busy {total_ms:.1f} ms "
+          f"({100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%)")
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"    {kind:28s} {ms:9.2f} ms  {100 * ms / total_ms:5.1f}% of device time")
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} {e.key[:110]}")
+    return {"wall_ms": wall_s * 1e3, "device_ms": total_ms, "busy_share": busy,
+            "by_kind_ms": kinds,
+            "top": [[e.key[:110], e.count, e.self_device_time_total / 1e3] for e in top]}
+
+
+def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind):
+    """q, k, v, dout and a [B, L] bias made from a seed, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q, dout = (torch.randn(b, hq, l, d, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, hkv, l, d, generator=gen) for _ in range(2))
+    lengths = np.random.default_rng(seed).integers(16, l + 1, b)
+    valid = np.arange(l)[None, :] < lengths[:, None]
+    if bias_kind == "masked_rows":
+        valid[0] = False  # a zero-padded sample: every key masked
+    elif bias_kind is None:
+        valid[:] = True
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e30).astype(np.float32))
+    return [t.to("cuda", dtype) for t in (q, k, v, dout)] + [bias.cuda()]
+
+
+def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
+    """Each kernel against its plain version on the same inputs; returns
+    {kernel: max abs error}. The backward kernels get the plain forward's
+    out and lse, so each comparison holds one kernel alone."""
+    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind)
+    scale = d ** -0.5
+    tol = TOL[dtype]
+    out_p, lse_p = fa._fwd_plain(q, k, v, bias, causal, scale)
+    delta = (dout.float() * out_p.float()).sum(-1)
+    pairs = {
+        "flash_fwd": (fa._fwd(q, k, v, bias, causal, scale), (out_p, lse_p)),
+        "flash_bwd_dkv": (fa._bwd_dkv(q, k, v, bias, dout, lse_p, delta, causal, scale),
+                          fa._bwd_dkv_plain(q, k, v, bias, dout, lse_p, delta, causal, scale)),
+        "flash_bwd_dq": ((fa._bwd_dq(q, k, v, bias, dout, lse_p, delta, causal, scale),),
+                         (fa._bwd_dq_plain(q, k, v, bias, dout, lse_p, delta, causal, scale),)),
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for kname, (got, want) in pairs.items():
+        err = 0.0
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()), f"{name} {kname}: non-finite output")
+            err = max(err, (g - w).abs().max().item())
+            check(torch.allclose(g, w, rtol=tol, atol=tol),
+                  f"{name} {kname}: max abs err {(g - w).abs().max().item():.3e} "
+                  f"beyond rtol=atol={tol}")
+        errs[kname] = err
+    print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} {str(dtype)[6:]:8s} "
+          f"causal={int(causal)} bias={bias_kind}: "
+          + " ".join(f"{k}={e:.2e}" for k, e in errs.items()) + f" (tol {tol})")
+    return errs
+
+
+def kernel_phase(fa):
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("bert_base", 256, 12, 12, 128, 64, bf16, False, "lengths"),
+        ("fp32_d64", 4, 4, 4, 128, 64, f32, False, None),
+        ("fp32_causal_d128", 2, 4, 4, 128, 128, f32, True, "lengths"),
+        ("bf16_causal_d128", 2, 4, 4, 128, 128, bf16, True, "lengths"),
+        ("bf16_causal_d64", 2, 4, 4, 192, 64, bf16, True, None),
+        ("fp32_masked_rows", 3, 4, 4, 96, 64, f32, False, "masked_rows"),
+        ("bf16_masked_rows", 3, 4, 4, 96, 128, bf16, False, "masked_rows"),
+        ("fp32_gqa_causal", 2, 8, 2, 128, 64, f32, True, "lengths"),
+        ("bf16_gqa", 2, 8, 2, 128, 128, bf16, False, "lengths"),
+        ("fp32_ragged200_causal", 2, 4, 4, 200, 64, f32, True, "lengths"),
+        ("bf16_ragged200_gqa", 2, 4, 2, 200, 128, bf16, False, "masked_rows"),
+    ]
+    print("phase 2: kernels against their plain versions")
+    results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
+    return results["bert_base"]
+
+
+def bert_round_phase(fa):
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12,
+                     n_heads=12, d_ff=3072, n_classes=4)
+    n_clients, batch, seq = 8, 32, 128
+    rng = np.random.default_rng(0)
+    datasets = []
+    for _ in range(n_clients):
+        lengths = rng.integers(16, seq + 1, batch)
+        datasets.append({
+            "x": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32),
+            "attn_mask": (np.arange(seq)[None] < lengths[:, None]).astype(np.float32),
+            "y": rng.integers(0, cfg.n_classes, batch).astype(np.int32),
+        })
+    data, n_samples = stack_client_datasets(datasets, batch_size=batch)
+    model = bert_classifier_model(cfg, compute_dtype=torch.bfloat16, name="bert_base_bf16")
+    sim = FedSim(model, batch_size=batch, learning_rate=0.01)
+    params = sim.init(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in params.values())
+    first = {k: v.clone() for k, v in params.items()}
+    gen = torch.Generator().manual_seed(1)
+    print(f"phase 3: BERT-base FedSim rounds ({n_params / 1e6:.1f} M params, bf16 compute, "
+          f"{n_clients} clients x {batch} samples, L={seq})")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    times, losses, breakdown = [], [], None
+    # round 0 warms up, rounds 1-3 are timed, round 4 runs under the profiler
+    for r in range(5):
+        before = dict(fa.launches)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with (torch.profiler.profile(activities=activities) if r == 4
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sim.run_round(params, data, n_samples, gen)
+            loss = res.loss_history.tolist()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        params = res.params
+        losses.extend(loss)
+        delta = {k: fa.launches[k] - before[k] for k in fa.launches}
+        label = {0: " (warm-up)", 4: " (profiled)"}.get(r, "")
+        print(f"  round {r}{label}: loss {loss} {dt:.3f} s launches {delta}")
+        if r == 4:
+            breakdown = device_breakdown(prof, dt)
+        else:
+            times.append(dt)
+        check(all(math.isfinite(x) for x in loss), f"round {r}: non-finite loss")
+        check(all(n == cfg.n_layers for n in delta.values()),
+              f"round {r}: launches {delta}, want {cfg.n_layers} of each kernel")
+    ev = sim.evaluate_round(params, data, n_samples)
+    main_launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = max((params[k] - first[k]).abs().max().item() for k in params)
+    check(math.isfinite(ev["loss"]), "evaluation loss is not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite params")
+    check(changed > 0, "the round left the params unchanged")
+    s_round = sum(times[1:]) / 3
+    print(f"  evaluate_round: {ev}")
+    print(f"  s/round {s_round:.4f} (rounds 1-3: {', '.join(f'{t:.4f}' for t in times[1:])}); "
+          f"samples/s {n_clients * batch / s_round:.1f}; peak memory {peak_gb:.2f} GB; "
+          f"max |param change| {changed:.3e}; launches over the path {main_launches}")
+    return main_launches, {"breakdown": breakdown,
+                           "s_per_round": s_round, "samples_per_s": n_clients * batch / s_round,
+                           "peak_memory_gb": peak_gb, "losses": losses,
+                           "eval": ev, "n_params": n_params}
+
+
+def in_context_phase(fa):
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2,
+                     n_heads=12, d_ff=3072, n_classes=4)
+    batch, seq = 32, 128
+    rng = np.random.default_rng(2)
+    datasets = []
+    for n in (32, 20, 32, 0):
+        lengths = rng.integers(16, seq + 1, n)
+        datasets.append({
+            "x": rng.integers(0, cfg.vocab_size, (n, seq)).astype(np.int32),
+            "attn_mask": (np.arange(seq)[None] < lengths[:, None]).astype(np.float32),
+            "y": rng.integers(0, cfg.n_classes, n).astype(np.int32),
+        })
+    data, n_samples = stack_client_datasets(datasets, batch_size=batch)
+    perms = torch.from_numpy(np.stack([rng.permutation(batch)[None] for _ in datasets]))
+    model = bert_classifier_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    print("phase 4: 2-layer fp32 BERT round, card against the CPU (plain path)")
+    before = dict(fa.launches)
+    t0 = time.perf_counter()
+    gpu = FedSim(model, batch_size=batch, learning_rate=0.01).run_round(
+        {k: v.cuda() for k, v in params.items()}, data, n_samples, perms=perms)
+    gpu_params = {k: v.cpu() for k, v in gpu.params.items()}
+    t_gpu = time.perf_counter() - t0
+    delta = {k: fa.launches[k] - before[k] for k in fa.launches}
+    t0 = time.perf_counter()
+    cpu = FedSim(model, batch_size=batch, learning_rate=0.01, device="cpu").run_round(
+        params, data, n_samples, perms=perms)
+    t_cpu = time.perf_counter() - t0
+    err = max((gpu_params[k] - cpu.params[k]).abs().max().item() for k in params)
+    moved = max((cpu.params[k] - params[k]).abs().max().item() for k in params)
+    loss_err = (gpu.loss_history.cpu() - cpu.loss_history).abs().max().item()
+    print(f"  card {t_gpu:.2f} s, CPU {t_cpu:.2f} s; launches on the card {delta}; "
+          f"max |param diff| {err:.3e} (tol 1e-4; max |param change| {moved:.3e}); "
+          f"loss {gpu.loss_history.tolist()} vs {cpu.loss_history.tolist()}")
+    check(all(n == cfg.n_layers for n in delta.values()), f"card round launches {delta}")
+    check(err <= 1e-4, f"card and CPU params differ by {err:.3e}")
+    check(loss_err <= 1e-4, f"card and CPU losses differ by {loss_err:.3e}")
+
+
+def timing_phase(fa, name, main_launches, bert_errs):
+    """Kernel, plain and library times at BERT-base's shape (bf16, padding
+    bias), and the card's bound for the same work."""
+    import torch.nn.functional as F
+
+    b, h, l, d, dtype = 256, 12, 128, 64, torch.bfloat16
+    q, k, v, dout, bias = attention_inputs(7, b, h, h, l, d, dtype, "lengths")
+    scale = d ** -0.5
+    out, lse = fa._fwd_plain(q, k, v, bias, False, scale)
+    delta = (dout.float() * out.float()).sum(-1)
+    args = (q, k, v, bias, dout, lse, delta, False, scale)
+    mask4 = bias[:, None, None, :].to(dtype)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4)
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
+
+    timed = {
+        "flash_fwd": (lambda: fa._fwd(q, k, v, bias, False, scale),
+                      lambda: fa._fwd_plain(q, k, v, bias, False, scale), sdpa),
+        "flash_bwd_dkv": (lambda: fa._bwd_dkv(*args), lambda: fa._bwd_dkv_plain(*args),
+                          sdpa_bwd),
+        "flash_bwd_dq": (lambda: fa._bwd_dq(*args), lambda: fa._bwd_dq_plain(*args),
+                         sdpa_bwd),
+    }
+    el, n_bhld, n_bhl = q.element_size(), b * h * l * d, b * h * l
+    bias_b, mm = b * l * 4, 2 * b * h * l * l * d  # one L x L x D product
+    work = {  # bytes each input read once and each output written once, FLOPs
+        "flash_fwd": (4 * el * n_bhld + bias_b + 4 * n_bhl, 2 * mm),
+        "flash_bwd_dkv": (4 * el * n_bhld + 8 * n_bhl + bias_b + 8 * n_bhld + 4 * n_bhl,
+                          4 * mm),
+        "flash_bwd_dq": (4 * el * n_bhld + 8 * n_bhl + bias_b + 4 * n_bhld, 3 * mm),
+    }
+    bw, bf16_peak = card_peaks(name)
+    print(f"phase 5: times at BERT's shape (B={b}, H={h}, L={l}, D={d}, bf16, padding bias); "
+          f"bound from {bw / 1e12:.2f} TB/s and {bf16_peak / 1e12:.0f} TFLOP/s bf16")
+    rows = []
+    for kname, (kernel, plain, library) in timed.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        library_ms = time_ms(library)
+        ms2 = time_ms(kernel)  # a second reading shows the spread
+        nbytes, flops = work[kname]
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        counter, replaces = KERNELS[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": main_launches[counter], "launches_per_round": 12,
+            "max_abs_err": bert_errs[kname], "tol": TOL[dtype],
+            "ms": ms, "ms_repeat": ms2, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "library_call": ("scaled_dot_product_attention forward" if kname == "flash_fwd"
+                             else "scaled_dot_product_attention backward (dq, dk, dv)"),
+            "bytes": nbytes, "flops": flops,
+        })
+        print(f"  {kname}: {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from baton_tpu_torch.ops import flash_attention as fa
+
+    # fp32 comparisons hold full fp32 on the card: no TF32 in matmuls or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
+
+    t0 = time.perf_counter()
+    fa.load_library()
+    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({fa.library_path().name})")
+    for line in fa.library_path().with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print("  " + line.strip())
+
+    phases = time.perf_counter()
+    bert_errs = kernel_phase(fa)
+    main_launches, round_stats = bert_round_phase(fa)
+    in_context_phase(fa)
+    rows = timing_phase(fa, name, main_launches, bert_errs)
+    print(f"phases 2-5 took {time.perf_counter() - phases:.1f} s")
+
+    print(json.dumps({"round": round_stats}))
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
