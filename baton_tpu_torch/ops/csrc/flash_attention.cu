@@ -1,10 +1,13 @@
-// Flash attention for Hopper (sm_90a): the forward pass and the two passes
-// of the backward, each a hand-written kernel behind a plain C entry point
-// (bound with ctypes from baton_tpu_torch/ops/flash_attention.py).
+// Flash attention for Hopper (sm_90a), SIMT design: the forward pass and
+// the two passes of the backward on the CUDA cores, each behind a plain C
+// entry point (bound with ctypes from baton_tpu_torch/ops/flash_attention.py).
+// Since the tensor-core kernels of flash_attention_mma.cu took over every
+// bf16 forward and dkv call, fwd_kernel and dkv_kernel here serve fp32 only
+// (fp32 on the tensor cores would be TF32); dq_kernel serves both types.
 //
 // Replaces the three Pallas TPU kernels of baton_tpu/ops/flash_attention.py:
-//   fwd_kernel  <- _fwd_kernel      (:65-131, launched by _fwd :151-189)
-//   dkv_kernel  <- _bwd_dkv_kernel  (:203-250, pass 1 of _bwd_call :325-342)
+//   fwd_kernel  <- _fwd_kernel      (:65-131, launched by _fwd :151-189), fp32
+//   dkv_kernel  <- _bwd_dkv_kernel  (:203-250, pass 1 of _bwd_call :325-342), fp32
 //   dq_kernel   <- _bwd_dq_kernel   (:253-290, pass 2 of _bwd_call :344-358)
 //
 // Layout: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] (contiguous, fp32 or bf16),
@@ -14,15 +17,14 @@
 //
 // What bounds them on the H100: at BERT-base's shape (L = 128, D = 64, bf16)
 // each pass does ~64 FLOPs per byte it must move, below the card's ~295
-// bf16 FLOPs per byte, so a fast version is memory-bound. This first
-// version is the simple one: 64 x 64 tiles in shared memory (fp32, rows
-// padded by one word so a warp's column reads hit 16 different banks), and
-// scalar fp32 FMAs on the CUDA cores with a 4 x 4 (or 4 x D/16) register
-// micro-tile per thread. Each pair of FMAs costs two shared-memory loads,
-// so the kernels are bound by the rate of shared-memory loads, not by
-// device memory: about 10x over the memory bound at BERT-base's shape on
-// an H100 (PERF.md). Tensor-core tiles (wgmma) fed by TMA are the later
-// step.
+// bf16 FLOPs per byte, so a fast version is memory-bound. This version is
+// the simple one: 64 x 64 tiles in shared memory (fp32, rows padded by one
+// word so a warp's column reads hit 16 different banks), and scalar fp32
+// FMAs on the CUDA cores with a 4 x 4 (or 4 x D/16) register micro-tile per
+// thread. Each pair of FMAs costs two shared-memory loads, so the kernels
+// are bound by the rate of shared-memory loads, not by device memory:
+// about 10x over the memory bound at BERT-base's shape on an H100
+// (PERF.md). dq_kernel is next to move onto the tensor cores.
 //
 // Numerics follow the TPU kernels: scores, softmax statistics and every
 // accumulator in fp32; p is rounded to the input type before p.v and p^T.do
@@ -41,7 +43,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <type_traits>
+
+#include "dispatch.cuh"
 
 namespace {
 
@@ -462,51 +465,36 @@ cudaError_t launch(Kernel kernel, int blocks, size_t smem_floats, void* stream, 
   return cudaGetLastError();
 }
 
-// call f(T{}, std::integral_constant<int, D>{}) for the (dtype, head dim)
-// pair the caller names; anything else is refused
-template <typename F>
-int dispatch(int bf16, int d, F f) {
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (bf16 && d == 64) return (int)f(__nv_bfloat16{}, D64{});
-  if (bf16 && d == 128) return (int)f(__nv_bfloat16{}, D128{});
-  if (!bf16 && d == 64) return (int)f(float{}, D64{});
-  if (!bf16 && d == 128) return (int)f(float{}, D128{});
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
-// out [B,Hq,Lq,D] in the input type, lse [B,Hq,Lq] fp32
-int flash_fwd(int bf16, int d, const void* q, const void* k, const void* v, const void* bias,
-              void* out, void* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
-              float scale, void* stream) {
-  return dispatch(bf16, d, [&](auto t, auto dim) {
-    using T = decltype(t);
+// out [B,Hq,Lq,D] and lse [B,Hq,Lq], fp32
+int flash_fwd_simt(int d, const void* q, const void* k, const void* v, const void* bias,
+                   void* out, void* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+                   float scale, void* stream) {
+  return dispatch_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     const int nq = (Lq + TILE - 1) / TILE;
-    return launch(fwd_kernel<T, D>, B * Hq * nq, 3 * TILE * (D + 1) + TILE * SP, stream,
-                  (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-                  (float*)lse, Hq, Hkv, Lq, Lk, nq, causal, scale);
+    return launch(fwd_kernel<float, D>, B * Hq * nq, 3 * TILE * (D + 1) + TILE * SP, stream,
+                  (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+                  (float*)out, (float*)lse, Hq, Hkv, Lq, Lk, nq, causal, scale);
   });
 }
 
-// dk, dv [B,Hq,Lk,D] fp32 and db [B,Hq,Lk] fp32, per query head
-int flash_bwd_dkv(int bf16, int d, const void* q, const void* k, const void* v,
-                  const void* bias, const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, void* db, int B, int Hq, int Hkv, int Lq, int Lk,
-                  int causal, float scale, void* stream) {
-  return dispatch(bf16, d, [&](auto t, auto dim) {
-    using T = decltype(t);
+// dk, dv [B,Hq,Lk,D] and db [B,Hq,Lk] per query head, from fp32 inputs
+int flash_bwd_dkv_simt(int d, const void* q, const void* k, const void* v, const void* bias,
+                       const void* dout, const void* lse, const void* delta, void* dk,
+                       void* dv, void* db, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+                       float scale, void* stream) {
+  return dispatch_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     const int nk = (Lk + TILE - 1) / TILE;
-    return launch(dkv_kernel<T, D>, B * Hq * nk,
+    return launch(dkv_kernel<float, D>, B * Hq * nk,
                   4 * TILE * (D + 1) + 2 * TILE * SP + 16 * TILE + 2 * TILE, stream,
-                  (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (const T*)dout,
-                  (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, (float*)db,
-                  Hq, Hkv, Lq, Lk, nk, causal, scale);
+                  (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+                  (const float*)dout, (const float*)lse, (const float*)delta, (float*)dk,
+                  (float*)dv, (float*)db, Hq, Hkv, Lq, Lk, nk, causal, scale);
   });
 }
 
@@ -515,14 +503,17 @@ int flash_bwd_dq(int bf16, int d, const void* q, const void* k, const void* v,
                  const void* bias, const void* dout, const void* lse, const void* delta,
                  void* dq, int B, int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
                  void* stream) {
-  return dispatch(bf16, d, [&](auto t, auto dim) {
-    using T = decltype(t);
+  return dispatch_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     const int nq = (Lq + TILE - 1) / TILE;
-    return launch(dq_kernel<T, D>, B * Hq * nq, 4 * TILE * (D + 1) + TILE * SP + 2 * TILE,
-                  stream, (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-                  (const T*)dout, (const float*)lse, (const float*)delta, (float*)dq, Hq, Hkv,
-                  Lq, Lk, nq, causal, scale);
+    auto go = [&](auto t) {
+      using T = decltype(t);
+      return launch(dq_kernel<T, D>, B * Hq * nq, 4 * TILE * (D + 1) + TILE * SP + 2 * TILE,
+                    stream, (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+                    (const T*)dout, (const float*)lse, (const float*)delta, (float*)dq, Hq,
+                    Hkv, Lq, Lk, nq, causal, scale);
+    };
+    return bf16 ? go(__nv_bfloat16{}) : go(float{});
   });
 }
 

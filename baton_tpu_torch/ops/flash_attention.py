@@ -1,21 +1,33 @@
-"""Flash attention — three hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu``), each beside a plain PyTorch version of the
-same function (counterpart of ``baton_tpu/ops/flash_attention.py``).
+"""Flash attention — hand-written CUDA kernels for Hopper (``csrc/``),
+each beside a plain PyTorch version of the same function (counterpart of
+``baton_tpu/ops/flash_attention.py``).
 
-=================  ==========================  ===================================
-wrapper            CUDA kernel                 TPU kernel it replaces
-=================  ==========================  ===================================
-``_fwd``           ``fwd_kernel``              ``_fwd_kernel`` (:65-131)
-``_bwd_dkv``       ``dkv_kernel``              ``_bwd_dkv_kernel`` (:203-250)
-``_bwd_dq``        ``dq_kernel``               ``_bwd_dq_kernel`` (:253-290)
-=================  ==========================  ===================================
+Two designs, chosen by dtype (``_design``), not as a fallback:
+
+- ``mma`` (``csrc/flash_attention_mma.cu``): bf16 tiles in shared memory
+  filled by ``cp.async``, products on the tensor cores (``mma.sync``).
+  Every bf16 forward and dkv call.
+- ``simt`` (``csrc/flash_attention.cu``): fp32 tiles and scalar FMAs on
+  the CUDA cores. fp32 forward and dkv calls (the tensor cores would
+  round fp32 to TF32), and every dq call for now.
+
+=================  ================================  ===========================
+wrapper            CUDA kernel (design)              TPU kernel it replaces
+=================  ================================  ===========================
+``_fwd``           ``fwd_mma_kernel`` (mma, bf16)    ``_fwd_kernel`` (:65-131)
+                   ``fwd_kernel`` (simt, fp32)
+``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)    ``_bwd_dkv_kernel`` (:203-250)
+                   ``dkv_kernel`` (simt, fp32)
+``_bwd_dq``        ``dq_kernel`` (simt)              ``_bwd_dq_kernel`` (:253-290)
+=================  ================================  ===========================
 
 A wrapper takes its plain version only because the tensor it was given
-lies on the CPU; a CUDA tensor goes to the kernel or raises. Each kernel
-launch adds one to ``launches[name]``, and nothing else does. The kernels
-are built with ``nvcc`` for ``sm_90a`` at the first CUDA launch (into
-``_build/`` beside this file, keyed by the source's hash) and bound with
-ctypes. The source notes what bounds each kernel on the card.
+lies on the CPU; a CUDA tensor goes to a kernel or raises. Each kernel
+launch adds one to ``launches_by_design[pass_design]``, and nothing else
+does; ``launches()`` sums them by pass. The kernels are built with one
+``nvcc`` call for ``sm_90a`` at the first CUDA launch (into ``_build/``
+beside this file, keyed by the sources' hash) and bound with ctypes. The
+sources note what bounds each kernel on the card.
 
 Semantics are those of the JAX kernels: q [B, Hq, Lq, D], k/v
 [B, Hkv, Lk, D], an additive per-key bias [B, Lk] in fp32, fp32 softmax,
@@ -47,25 +59,50 @@ import torch
 
 NEG_INF = -1e30
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("flash_attention.cu", "flash_attention_mma.cu")
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches on CUDA tensors, by kernel; compare-with-plain runs in
-# chip_smoke.py reset them before the path they count
-launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+# kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
+# chip_smoke.py resets them before the path it counts
+launches_by_design = {"fwd_mma": 0, "fwd_simt": 0, "bwd_dkv_mma": 0, "bwd_dkv_simt": 0,
+                      "bwd_dq_simt": 0}
+
+# the C entry points and their ctypes argument types: a pointer (tensors,
+# the stream) is c_void_p, an int c_int, a float c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_fwd_mma": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dkv_mma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "flash_fwd_simt": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dkv_simt": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dq": [_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+}
 
 _lib = None
 
 
+def launches() -> dict:
+    """Kernel launches by pass (``fwd``, ``bwd_dkv``, ``bwd_dq``), over designs."""
+    by_pass = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    for key, n in launches_by_design.items():
+        by_pass[key.rsplit("_", 1)[0]] += n
+    return by_pass
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for name in launches_by_design:
+        launches_by_design[name] = 0
 
 
 def library_path() -> Path:
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for src in sorted(_CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            digest.update(src.name.encode() + src.read_bytes())
+    tag = digest.hexdigest()[:16]
     return _BUILD_DIR / f"libflash_attention_{tag}.so"
 
 
@@ -81,19 +118,18 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp),
+                               *(str(_CSRC / name) for name in _SOURCES)],
                               capture_output=True, text=True)
         so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd.argtypes = [I, I] + [P] * 6 + [I] * 6 + [F, P]
-    lib.flash_bwd_dkv.argtypes = [I, I] + [P] * 10 + [I] * 6 + [F, P]
-    lib.flash_bwd_dq.argtypes = [I, I] + [P] * 8 + [I] * 6 + [F, P]
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
-        fn.restype = I
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     _lib = lib
     return lib
 
@@ -107,18 +143,31 @@ def _on_cpu(*xs) -> bool:
     raise ValueError(f"flash attention needs all inputs on one CPU or CUDA device, got {kinds}")
 
 
-def _kernel_args(q, k, v):
-    """Validate what the kernels take; returns (bf16 flag, head dim)."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash kernels take fp32 or bf16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one dtype")
-    d = q.shape[-1]
+def _design(dtype: torch.dtype, d: int) -> str:
+    """The kernel design for a dtype and head dim: ``"mma"`` (tensor
+    cores) for bf16, ``"simt"`` (CUDA cores) for fp32; raises otherwise."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernels take fp32 or bf16, got {dtype}")
     if d not in (64, 128):
         raise ValueError(f"flash kernels take head dim 64 or 128, got {d}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _kernel_args(q, k, v):
+    """Validate what the kernels take; returns (design, head dim)."""
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v must lie on one device")
-    return int(q.dtype == torch.bfloat16), d
+    d = q.shape[-1]
+    return _design(q.dtype, d), d
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the mma kernels copy rows in
+    16-byte pieces); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(fn_name: str, device, *args) -> None:
@@ -194,49 +243,50 @@ def _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale):
 def _fwd(q, k, v, bias2d, causal, scale):
     if _on_cpu(q, k, v, bias2d):
         return _fwd_plain(q, k, v, bias2d, causal, scale)
-    bf16, d = _kernel_args(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    design, d = _kernel_args(q, k, v)
+    q, k, v = _dense(q), _dense(k), _dense(v)
     bias2d = bias2d.float().contiguous()
     b, hq, lq, _ = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.device, bf16, d,
+    _launch(f"flash_fwd_{design}", q.device, d,
             *(t.data_ptr() for t in (q, k, v, bias2d, out, lse)),
             b, hq, hkv, lq, lk, int(causal), scale)
-    launches["fwd"] += 1
+    launches_by_design[f"fwd_{design}"] += 1
     return out, lse
 
 
 def _bwd_inputs(q, k, v, bias2d, dout, lse, delta):
     """The backward kernels' inputs as they read them: q, k, v, dout
-    contiguous in one dtype; bias, lse, delta contiguous fp32."""
-    _kernel_args(q, k, v)
+    contiguous and aligned in one dtype; bias, lse, delta contiguous fp32."""
     if dout.dtype != q.dtype:
         raise TypeError("dout must have q's dtype")
-    return ([t.contiguous() for t in (q, k, v)] + [bias2d.float().contiguous()]
-            + [dout.contiguous()] + [t.float().contiguous() for t in (lse, delta)])
+    return ([_dense(t) for t in (q, k, v)] + [bias2d.float().contiguous()]
+            + [_dense(dout)] + [t.float().contiguous() for t in (lse, delta)])
 
 
 def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):
     if _on_cpu(q, k, v, bias2d, dout, lse, delta):
         return _bwd_dkv_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    design, _ = _kernel_args(q, k, v)
     inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     dk = torch.empty((b, hq, lk, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     db = torch.empty((b, hq, lk), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dkv", q.device, int(q.dtype == torch.bfloat16), d,
+    _launch(f"flash_bwd_dkv_{design}", q.device, d,
             *(t.data_ptr() for t in (*inputs, dk, dv, db)),
             b, hq, hkv, lq, lk, int(causal), scale)
-    launches["bwd_dkv"] += 1
+    launches_by_design[f"bwd_dkv_{design}"] += 1
     return dk, dv, db
 
 
 def _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale):
     if _on_cpu(q, k, v, bias2d, dout, lse, delta):
         return _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
+    _kernel_args(q, k, v)
     inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -244,7 +294,7 @@ def _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale):
     _launch("flash_bwd_dq", q.device, int(q.dtype == torch.bfloat16), d,
             *(t.data_ptr() for t in (*inputs, dq)),
             b, hq, hkv, lq, lk, int(causal), scale)
-    launches["bwd_dq"] += 1
+    launches_by_design["bwd_dq_simt"] += 1
     return dq
 
 

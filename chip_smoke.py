@@ -6,21 +6,32 @@ one CUDA card and ``nvcc``; it builds the flash-attention kernels from
 ``baton_tpu_torch/ops/csrc`` on first use. Phases, any failure of which
 exits non-zero:
 
-1. the card's name and power limit, and the kernels' build time;
+1. the card's name and power limit, and the kernels' build time with
+   ptxas's registers, shared memory and spills for each kernel;
 2. each kernel against its plain PyTorch version on the card: bf16 and
-   fp32, causal or not, fully masked rows, GQA, ragged L, D 64 and 128,
-   and BERT-base's own shape (tolerance fp32 1e-4, bf16 2e-2);
+   fp32, causal or not, fully masked rows, GQA, ragged L (a single
+   partial tile at L=40, L=200), D 64 and 128, and BERT-base's own shape
+   (tolerance fp32 1e-4, bf16 2e-2); bf16 forward and dkv calls must go
+   through the tensor-core design (mma), fp32 ones through the SIMT one;
+   in every bf16 case each element of the dkv kernel's gap from its plain
+   version must lie within what bf16 rounding flips of p and ds can give
+   (``dkv_flip_check``);
 3. the main path at full width: BERT-base (bf16 compute) FedSim rounds,
    8 clients x 32 samples, L=128, one warm-up, three timed rounds, one
    round under torch.profiler (device time by kind of kernel, and the
    device's busy share) and a federated evaluation; every kernel must
    launch exactly once per layer per round (the client axis folds into
-   one launch);
+   one launch), and every forward and dkv launch must be the mma design;
 4. a 2-layer fp32 BERT-base-width round on the card against the same
    round of the port on the CPU (plain path), same weights and shuffles,
    params within 1e-4;
 5. kernel times at BERT's shape beside their plain versions, PyTorch's
-   scaled_dot_product_attention and the card's bound, as one JSON line.
+   scaled_dot_product_attention and the card's bound, as one JSON line,
+   and the bytes/s of PyTorch's own copy as a yardstick.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
+short first call after a kernel changes (build, ptxas report, comparison
+at real widths, times). It prints no result line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
@@ -44,13 +55,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# kernel name -> (launch counter, TPU kernel it replaces)
+# kernel name -> (launch counter, design on the bf16 main path, its source,
+# TPU kernel it replaces)
+CSRC = "baton_tpu_torch/ops/csrc/"
 KERNELS = {
-    "flash_fwd": ("fwd", "baton_tpu/ops/flash_attention.py:65"),
-    "flash_bwd_dkv": ("bwd_dkv", "baton_tpu/ops/flash_attention.py:203"),
-    "flash_bwd_dq": ("bwd_dq", "baton_tpu/ops/flash_attention.py:253"),
+    "flash_fwd": ("fwd", "mma", CSRC + "flash_attention_mma.cu",
+                  "baton_tpu/ops/flash_attention.py:65"),
+    "flash_bwd_dkv": ("bwd_dkv", "mma", CSRC + "flash_attention_mma.cu",
+                      "baton_tpu/ops/flash_attention.py:203"),
+    "flash_bwd_dq": ("bwd_dq", "simt", CSRC + "flash_attention.cu",
+                     "baton_tpu/ops/flash_attention.py:253"),
 }
-SOURCE = "baton_tpu_torch/ops/csrc/flash_attention.cu"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -85,7 +100,7 @@ def time_ms(fn, iters=20, warmup=3) -> float:
 
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)_kernel", n):
+    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma)?_kernel", n):
         return "flash attention (this port)"
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul (cuBLAS)"
@@ -150,6 +165,8 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     tol = TOL[dtype]
     out_p, lse_p = fa._fwd_plain(q, k, v, bias, causal, scale)
     delta = (dout.float() * out_p.float()).sum(-1)
+    design = "mma" if dtype == torch.bfloat16 else "simt"
+    before = dict(fa.launches_by_design)
     pairs = {
         "flash_fwd": (fa._fwd(q, k, v, bias, causal, scale), (out_p, lse_p)),
         "flash_bwd_dkv": (fa._bwd_dkv(q, k, v, bias, dout, lse_p, delta, causal, scale),
@@ -158,6 +175,9 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
                          (fa._bwd_dq_plain(q, k, v, bias, dout, lse_p, delta, causal, scale),)),
     }
     torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in fa.launches_by_design.items() if n != before[k]}
+    check(ran == {f"fwd_{design}": 1, f"bwd_dkv_{design}": 1, "bwd_dq_simt": 1},
+          f"{name}: launches by design {ran}")
     errs = {}
     for kname, (got, want) in pairs.items():
         err = 0.0
@@ -170,8 +190,11 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
                   f"beyond rtol=atol={tol}")
         errs[kname] = err
     print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} {str(dtype)[6:]:8s} "
-          f"causal={int(causal)} bias={bias_kind}: "
+          f"causal={int(causal)} bias={bias_kind} fwd/dkv {design}: "
           + " ".join(f"{k}={e:.2e}" for k, e in errs.items()) + f" (tol {tol})")
+    if dtype == torch.bfloat16:
+        dkv_flip_check(fa, name, (q, k, v, bias, dout, lse_p, delta, causal, scale),
+                       *pairs["flash_bwd_dkv"])
     return errs
 
 
@@ -189,10 +212,71 @@ def kernel_phase(fa):
         ("bf16_gqa", 2, 8, 2, 128, 128, bf16, False, "lengths"),
         ("fp32_ragged200_causal", 2, 4, 4, 200, 64, f32, True, "lengths"),
         ("bf16_ragged200_gqa", 2, 4, 2, 200, 128, bf16, False, "masked_rows"),
+        ("bf16_l40_partial_tile", 3, 4, 4, 40, 64, bf16, False, "lengths"),
+        ("bf16_ragged200_causal", 2, 4, 4, 200, 64, bf16, True, "lengths"),
+        ("bf16_gqa_causal_d64", 2, 8, 2, 128, 64, bf16, True, "lengths"),
+        ("bf16_l40_causal_d128", 2, 4, 2, 40, 128, bf16, True, None),
     ]
     print("phase 2: kernels against their plain versions")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
     return results["bert_base"]
+
+
+def dkv_flip_check(fa, name, args, got, want):
+    """Accounts for a bf16 dkv kernel's gap from its plain version on
+    ``args``. The two form the fp32 p a few ulps apart (the kernel's fmaf,
+    __expf and tensor-core sums against torch's ops). Where p (ds) lies that
+    close to a bf16 rounding boundary the two round it to neighbouring bf16
+    values, and dv (dk) moves by one bf16 step of p (ds) times |do| (|q|).
+    The bound sums those steps over every such element, plus 2^-20 of each
+    sum's magnitude for the fp32 summation order; every element of dk, dv
+    and db must lie within it."""
+    q, k, v, bias, dout, lse, delta, causal, scale = args
+    k, v = fa._expand_kv(k, q.shape[1]), fa._expand_kv(v, q.shape[1])
+    p, ds = fa._p_ds(q, k, v, bias, dout, lse, delta, causal, scale)
+    qa, ka, va, oa = (t.float().abs() for t in (q, k, v, dout))
+    eps = 2.0 ** -20
+
+    def ein(a, x):
+        return torch.einsum("bhqk,bhqd->bhkd", a, x)
+
+    def finite_abs(t):
+        """|t|, but 0 for the -1e30 masking constant: in a fully masked row
+        x = lse = -1e30 in both, so x - lse = 0 exactly."""
+        return torch.where(t.abs() < 1e29, t.abs(), 0.0)
+
+    # fp32 uncertainty of p (score sum, argument, exp) and of ds (p's, and dp's sum)
+    arg_mag = (1 + scale * torch.einsum("bhqd,bhkd->bhqk", qa, ka)
+               + finite_abs(bias)[:, None, None, :] + finite_abs(lse)[..., None])
+    err_p = torch.where(p > 0, p * eps * arg_mag, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    dp_mag = torch.einsum("bhqd,bhkd->bhqk", oa, va)
+    err_ds = err_p * (dp - delta[..., None]).abs() + p * eps * dp_mag
+
+    def flip_steps(x, err):
+        """One bf16 step where x lies within err of a rounding boundary, else 0."""
+        step = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+        dist = step / 2 - (x - x.bfloat16().float()).abs()
+        return torch.where(dist <= err, step, 0.0)
+
+    fp, fds = flip_steps(p, err_p), flip_steps(ds, err_ds)
+    bounds = {
+        "dk": scale * (ein(fds, qa) + eps * ein(ds.bfloat16().float().abs(), qa)),
+        "dv": ein(fp, oa) + eps * ein(p.bfloat16().float().abs(), oa),
+        "db": err_ds.sum(2) + eps * ds.abs().sum(2),
+    }
+    over, parts = 0, []
+    for out, g, w in zip(bounds, got, want):
+        gap, bound = (g - w).abs(), bounds[out]
+        at = int(gap.argmax())
+        n_over = int((gap > bound).sum())
+        over += n_over
+        parts.append(f"{out} {gap.flatten()[at].item():.2e} (bound "
+                     f"{bound.flatten()[at].item():.2e}, |plain| {w.flatten()[at].abs().item():.2e}"
+                     f", {n_over} over)")
+    print(f"    dkv gap vs bf16 rounding flips: p near a boundary at {int((fp > 0).sum())} "
+          f"of {p.numel()}, ds at {int((fds > 0).sum())}; max gap " + ", ".join(parts))
+    check(over == 0, f"{name}: dkv gap beyond what bf16 rounding flips explain at {over} elements")
 
 
 def bert_round_phase(fa):
@@ -227,7 +311,8 @@ def bert_round_phase(fa):
     times, losses, breakdown = [], [], None
     # round 0 warms up, rounds 1-3 are timed, round 4 runs under the profiler
     for r in range(5):
-        before = dict(fa.launches)
+        before = fa.launches()
+        before_design = dict(fa.launches_by_design)
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with (torch.profiler.profile(activities=activities) if r == 4
               else contextlib.nullcontext()) as prof:
@@ -239,9 +324,11 @@ def bert_round_phase(fa):
             dt = time.perf_counter() - t0
         params = res.params
         losses.extend(loss)
-        delta = {k: fa.launches[k] - before[k] for k in fa.launches}
+        delta = {k: n - before[k] for k, n in fa.launches().items()}
+        by_design = {k: n - before_design[k] for k, n in fa.launches_by_design.items()
+                     if n != before_design[k]}
         label = {0: " (warm-up)", 4: " (profiled)"}.get(r, "")
-        print(f"  round {r}{label}: loss {loss} {dt:.3f} s launches {delta}")
+        print(f"  round {r}{label}: loss {loss} {dt:.3f} s launches {delta} by design {by_design}")
         if r == 4:
             breakdown = device_breakdown(prof, dt)
         else:
@@ -249,8 +336,13 @@ def bert_round_phase(fa):
         check(all(math.isfinite(x) for x in loss), f"round {r}: non-finite loss")
         check(all(n == cfg.n_layers for n in delta.values()),
               f"round {r}: launches {delta}, want {cfg.n_layers} of each kernel")
+        check(by_design == {"fwd_mma": cfg.n_layers, "bwd_dkv_mma": cfg.n_layers,
+                            "bwd_dq_simt": cfg.n_layers},
+              f"round {r}: launches by design {by_design}, want every fwd and dkv on mma")
+    per_round = delta  # every round's count was checked equal
     ev = sim.evaluate_round(params, data, n_samples)
-    main_launches = dict(fa.launches)
+    main_launches = fa.launches()
+    main_by_design = dict(fa.launches_by_design)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     changed = max((params[k] - first[k]).abs().max().item() for k in params)
     check(math.isfinite(ev["loss"]), "evaluation loss is not finite")
@@ -260,8 +352,9 @@ def bert_round_phase(fa):
     print(f"  evaluate_round: {ev}")
     print(f"  s/round {s_round:.4f} (rounds 1-3: {', '.join(f'{t:.4f}' for t in times[1:])}); "
           f"samples/s {n_clients * batch / s_round:.1f}; peak memory {peak_gb:.2f} GB; "
-          f"max |param change| {changed:.3e}; launches over the path {main_launches}")
-    return main_launches, {"breakdown": breakdown,
+          f"max |param change| {changed:.3e}; launches over the path {main_launches}, "
+          f"by design {main_by_design}")
+    return main_launches, per_round, {"breakdown": breakdown,
                            "s_per_round": s_round, "samples_per_s": n_clients * batch / s_round,
                            "peak_memory_gb": peak_gb, "losses": losses,
                            "eval": ev, "n_params": n_params}
@@ -289,13 +382,16 @@ def in_context_phase(fa):
     model = bert_classifier_model(cfg)
     params = model.init(torch.Generator().manual_seed(3))
     print("phase 4: 2-layer fp32 BERT round, card against the CPU (plain path)")
-    before = dict(fa.launches)
+    before = fa.launches()
+    before_design = dict(fa.launches_by_design)
     t0 = time.perf_counter()
     gpu = FedSim(model, batch_size=batch, learning_rate=0.01).run_round(
         {k: v.cuda() for k, v in params.items()}, data, n_samples, perms=perms)
     gpu_params = {k: v.cpu() for k, v in gpu.params.items()}
     t_gpu = time.perf_counter() - t0
-    delta = {k: fa.launches[k] - before[k] for k in fa.launches}
+    delta = {k: n - before[k] for k, n in fa.launches().items()}
+    by_design = {k: n - before_design[k] for k, n in fa.launches_by_design.items()
+                 if n != before_design[k]}
     t0 = time.perf_counter()
     cpu = FedSim(model, batch_size=batch, learning_rate=0.01, device="cpu").run_round(
         params, data, n_samples, perms=perms)
@@ -307,13 +403,17 @@ def in_context_phase(fa):
           f"max |param diff| {err:.3e} (tol 1e-4; max |param change| {moved:.3e}); "
           f"loss {gpu.loss_history.tolist()} vs {cpu.loss_history.tolist()}")
     check(all(n == cfg.n_layers for n in delta.values()), f"card round launches {delta}")
+    check(by_design == {"fwd_simt": cfg.n_layers, "bwd_dkv_simt": cfg.n_layers,
+                        "bwd_dq_simt": cfg.n_layers}, f"fp32 round launches by design {by_design}")
     check(err <= 1e-4, f"card and CPU params differ by {err:.3e}")
     check(loss_err <= 1e-4, f"card and CPU losses differ by {loss_err:.3e}")
 
 
-def timing_phase(fa, name, main_launches, bert_errs):
+def timing_phase(fa, name, main_launches, per_round, bert_errs):
     """Kernel, plain and library times at BERT-base's shape (bf16, padding
-    bias), and the card's bound for the same work."""
+    bias), and the card's bound for the same work. ``main_launches`` and
+    ``per_round`` (launches by pass over the main path and in one of its
+    rounds) are None when the main path did not run (--kernels-only)."""
     import torch.nn.functional as F
 
     b, h, l, d, dtype = 256, 12, 128, 64, torch.bfloat16
@@ -360,10 +460,12 @@ def timing_phase(fa, name, main_launches, bert_errs):
         ms2 = time_ms(kernel)  # a second reading shows the spread
         nbytes, flops = work[kname]
         t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-        counter, replaces = KERNELS[kname]
+        counter, design, source, replaces = KERNELS[kname]
         rows.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": main_launches[counter], "launches_per_round": 12,
+            "name": kname, "route": "cuda", "design": design, "source": source,
+            "replaces": replaces,
+            "launches": main_launches[counter] if main_launches else None,
+            "launches_per_round": per_round[counter] if per_round else None,
             "max_abs_err": bert_errs[kname], "tol": TOL[dtype],
             "ms": ms, "ms_repeat": ms2, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -371,15 +473,33 @@ def timing_phase(fa, name, main_launches, bert_errs):
             "library_ms": library_ms,
             "library_call": ("scaled_dot_product_attention forward" if kname == "flash_fwd"
                              else "scaled_dot_product_attention backward (dq, dk, dv)"),
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "achieved_tb_s": nbytes / ms / 1e9,
+            "bound_share": max(t_bytes, t_ops) / ms,
         })
-        print(f"  {kname}: {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
+        print(f"  {kname} ({design}): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return rows
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+              f"{nbytes / ms / 1e9:.2f} TB/s achieved, {100 * max(t_bytes, t_ops) / ms:.1f}% "
+              f"of the bound)")
+
+    # the fp32 SIMT forward and dkv (phase 4's path, not the main one)
+    q32, k32, v32, dout32 = (t.float() for t in (q, k, v, dout))
+    args32 = (q32, k32, v32, bias, dout32, lse, delta, False, scale)
+    simt = {"flash_fwd_simt_fp32": time_ms(lambda: fa._fwd(q32, k32, v32, bias, False, scale)),
+            "flash_bwd_dkv_simt_fp32": time_ms(lambda: fa._bwd_dkv(*args32))}
+    print("  fp32 SIMT at the same shape: "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in simt.items()))
+    # a yardstick for the kernels' bytes/s: PyTorch's copy of q reads and writes it once
+    clone_tb_s = 2 * q.numel() * el / time_ms(q.clone) / 1e9
+    print(f"  q.clone() moves {clone_tb_s:.3f} TB/s on this card")
+    return rows, dict(simt, clone_tb_s=clone_tb_s)
 
 
 def main() -> int:
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        print(f"usage: {sys.argv[0]} [--kernels-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -406,12 +526,18 @@ def main() -> int:
 
     phases = time.perf_counter()
     bert_errs = kernel_phase(fa)
-    main_launches, round_stats = bert_round_phase(fa)
+    if kernels_only:
+        rows, extra = timing_phase(fa, name, None, None, bert_errs)
+        print(json.dumps({"kernels": rows, "extra": extra}))
+        print(f"phases 2 and 5 took {time.perf_counter() - phases:.1f} s; no result line "
+              "(--kernels-only)")
+        return 0
+    main_launches, per_round, round_stats = bert_round_phase(fa)
     in_context_phase(fa)
-    rows = timing_phase(fa, name, main_launches, bert_errs)
+    rows, extra = timing_phase(fa, name, main_launches, per_round, bert_errs)
     print(f"phases 2-5 took {time.perf_counter() - phases:.1f} s")
 
-    print(json.dumps({"round": round_stats}))
+    print(json.dumps({"round": round_stats, "extra": extra}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

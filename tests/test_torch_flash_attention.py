@@ -181,4 +181,4 @@ def test_no_fallback_for_other_devices():
         fa.flash_attention(q, q, q)
     x = torch.randn(1, 1, 8, 64)
     fa.flash_attention(x, x, x)
-    assert fa.launches == {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    assert fa.launches() == {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
