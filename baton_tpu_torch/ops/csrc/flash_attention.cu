@@ -2,33 +2,35 @@
 // the two passes of the backward on the CUDA cores, each behind a plain C
 // entry point (bound with ctypes from baton_tpu_torch/ops/flash_attention.py).
 // Since the tensor-core kernels of flash_attention_mma.cu took over every
-// bf16 forward and dkv call, fwd_kernel and dkv_kernel here serve fp32 only
-// (fp32 on the tensor cores would be TF32); dq_kernel serves both types.
+// bf16 call, the three kernels here serve fp32 only (fp32 on the tensor
+// cores would be TF32). They keep the element type as a template
+// parameter, which marks the TPU kernels' rounding points (round_to<T>),
+// and only their fp32 instances are built.
 //
 // Replaces the three Pallas TPU kernels of baton_tpu/ops/flash_attention.py:
 //   fwd_kernel  <- _fwd_kernel      (:65-131, launched by _fwd :151-189), fp32
 //   dkv_kernel  <- _bwd_dkv_kernel  (:203-250, pass 1 of _bwd_call :325-342), fp32
-//   dq_kernel   <- _bwd_dq_kernel   (:253-290, pass 2 of _bwd_call :344-358)
+//   dq_kernel   <- _bwd_dq_kernel   (:253-290, pass 2 of _bwd_call :344-358), fp32
 //
-// Layout: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] (contiguous, fp32 or bf16),
+// Layout: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] (contiguous),
 // bias [B, Lk] fp32 (additive, per key), lse/delta [B, Hq, Lq] fp32.
 // Query head h reads kv head h / (Hq / Hkv) (GQA). D is 64 or 128; any L
 // (the ragged edge is masked in the kernel, padded keys get p = 0).
 //
-// What bounds them on the H100: at BERT-base's shape (L = 128, D = 64, bf16)
-// each pass does ~64 FLOPs per byte it must move, below the card's ~295
-// bf16 FLOPs per byte, so a fast version is memory-bound. This version is
-// the simple one: 64 x 64 tiles in shared memory (fp32, rows padded by one
-// word so a warp's column reads hit 16 different banks), and scalar fp32
-// FMAs on the CUDA cores with a 4 x 4 (or 4 x D/16) register micro-tile per
-// thread. Each pair of FMAs costs two shared-memory loads, so the kernels
-// are bound by the rate of shared-memory loads, not by device memory:
-// about 10x over the memory bound at BERT-base's shape on an H100
-// (PERF.md). dq_kernel is next to move onto the tensor cores.
+// What bounds them on the H100: in fp32 at BERT-base's shape (L = 128,
+// D = 64) each pass does ~32 FLOPs per byte it must move, above the ~20 of
+// the CUDA cores' 67 TFLOP/s over 3.35 TB/s, so a fast fp32 version is
+// bound by the FMA rate. This version is the simple one: 64 x 64 tiles in
+// shared memory (fp32, rows padded by one word so a warp's column reads hit
+// 16 different banks), and scalar fp32 FMAs with a 4 x 4 (or 4 x D/16)
+// register micro-tile per thread. Each pair of FMAs costs two shared-memory
+// loads, so the kernels are bound by the rate of shared-memory loads
+// (times in PERF.md).
 //
 // Numerics follow the TPU kernels: scores, softmax statistics and every
 // accumulator in fp32; p is rounded to the input type before p.v and p^T.do
-// and ds before ds^T.q and ds.k; scale is applied after the dot and before
+// and ds before ds^T.q and ds.k (round_to<T>: nothing to do in fp32, the
+// only type built); scale is applied after the dot and before
 // the bias; masked scores are the finite -1e30 (never -inf), so a row whose
 // keys are all masked averages uniformly instead of producing NaN.
 //
@@ -39,7 +41,6 @@
 // no block shares an output and no atomics are needed. Each entry point
 // returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -53,14 +54,11 @@ constexpr int NT = 256;         // threads per block: a 16 x 16 grid
 constexpr int SP = TILE + 1;    // padded row stride of the 64 x 64 tiles
 constexpr float NEG_INF = -1e30f;
 
+// conversions between the element type and fp32 (fp32 is the one type built)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // x rounded to T's precision, kept as fp32 (the TPU kernels' astype before a dot)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -498,22 +496,17 @@ int flash_bwd_dkv_simt(int d, const void* q, const void* k, const void* v, const
   });
 }
 
-// dq [B,Hq,Lq,D] fp32
-int flash_bwd_dq(int bf16, int d, const void* q, const void* k, const void* v,
-                 const void* bias, const void* dout, const void* lse, const void* delta,
-                 void* dq, int B, int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
-                 void* stream) {
+// dq [B,Hq,Lq,D] from fp32 inputs
+int flash_bwd_dq_simt(int d, const void* q, const void* k, const void* v, const void* bias,
+                      const void* dout, const void* lse, const void* delta, void* dq, int B,
+                      int Hq, int Hkv, int Lq, int Lk, int causal, float scale, void* stream) {
   return dispatch_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     const int nq = (Lq + TILE - 1) / TILE;
-    auto go = [&](auto t) {
-      using T = decltype(t);
-      return launch(dq_kernel<T, D>, B * Hq * nq, 4 * TILE * (D + 1) + TILE * SP + 2 * TILE,
-                    stream, (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-                    (const T*)dout, (const float*)lse, (const float*)delta, (float*)dq, Hq,
-                    Hkv, Lq, Lk, nq, causal, scale);
-    };
-    return bf16 ? go(__nv_bfloat16{}) : go(float{});
+    return launch(dq_kernel<float, D>, B * Hq * nq, 4 * TILE * (D + 1) + TILE * SP + 2 * TILE,
+                  stream, (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+                  (const float*)dout, (const float*)lse, (const float*)delta, (float*)dq, Hq,
+                  Hkv, Lq, Lk, nq, causal, scale);
   });
 }
 

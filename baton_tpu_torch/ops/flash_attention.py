@@ -6,10 +6,10 @@ Two designs, chosen by dtype (``_design``), not as a fallback:
 
 - ``mma`` (``csrc/flash_attention_mma.cu``): bf16 tiles in shared memory
   filled by ``cp.async``, products on the tensor cores (``mma.sync``).
-  Every bf16 forward and dkv call.
+  Every bf16 call.
 - ``simt`` (``csrc/flash_attention.cu``): fp32 tiles and scalar FMAs on
-  the CUDA cores. fp32 forward and dkv calls (the tensor cores would
-  round fp32 to TF32), and every dq call for now.
+  the CUDA cores. Every fp32 call (the tensor cores would round fp32 to
+  TF32).
 
 =================  ================================  ===========================
 wrapper            CUDA kernel (design)              TPU kernel it replaces
@@ -18,7 +18,8 @@ wrapper            CUDA kernel (design)              TPU kernel it replaces
                    ``fwd_kernel`` (simt, fp32)
 ``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)    ``_bwd_dkv_kernel`` (:203-250)
                    ``dkv_kernel`` (simt, fp32)
-``_bwd_dq``        ``dq_kernel`` (simt)              ``_bwd_dq_kernel`` (:253-290)
+``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)     ``_bwd_dq_kernel`` (:253-290)
+                   ``dq_kernel`` (simt, fp32)
 =================  ================================  ===========================
 
 A wrapper takes its plain version only because the tensor it was given
@@ -68,7 +69,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
 # chip_smoke.py resets them before the path it counts
 launches_by_design = {"fwd_mma": 0, "fwd_simt": 0, "bwd_dkv_mma": 0, "bwd_dkv_simt": 0,
-                      "bwd_dq_simt": 0}
+                      "bwd_dq_mma": 0, "bwd_dq_simt": 0}
 
 # the C entry points and their ctypes argument types: a pointer (tensors,
 # the stream) is c_void_p, an int c_int, a float c_float
@@ -78,7 +79,8 @@ SIGNATURES = {
     "flash_bwd_dkv_mma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_fwd_simt": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_simt": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dq": [_I, _I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dq_mma": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dq_simt": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 _lib = None
@@ -286,15 +288,15 @@ def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):
 def _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale):
     if _on_cpu(q, k, v, bias2d, dout, lse, delta):
         return _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
-    _kernel_args(q, k, v)
+    design, _ = _kernel_args(q, k, v)
     inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     dq = torch.empty((b, hq, lq, d), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dq", q.device, int(q.dtype == torch.bfloat16), d,
+    _launch(f"flash_bwd_dq_{design}", q.device, d,
             *(t.data_ptr() for t in (*inputs, dq)),
             b, hq, hkv, lq, lk, int(causal), scale)
-    launches_by_design["bwd_dq_simt"] += 1
+    launches_by_design[f"bwd_dq_{design}"] += 1
     return dq
 
 

@@ -11,21 +11,23 @@ exits non-zero:
 2. each kernel against its plain PyTorch version on the card: bf16 and
    fp32, causal or not, fully masked rows, GQA, ragged L (a single
    partial tile at L=40, L=200), D 64 and 128, and BERT-base's own shape
-   (tolerance fp32 1e-4, bf16 2e-2); bf16 forward and dkv calls must go
-   through the tensor-core design (mma), fp32 ones through the SIMT one;
-   in every bf16 case each element of the dkv kernel's gap from its plain
-   version must lie within what bf16 rounding flips of p and ds can give
-   (``dkv_flip_check``);
+   (tolerance fp32 1e-4, bf16 2e-2); every bf16 call must go through
+   the tensor-core design (mma), every fp32 one through the SIMT one; in
+   every bf16 case each element of the dkv and dq kernels' gaps from
+   their plain versions must lie within what bf16 rounding flips of p and
+   ds can give (``flip_check``);
 3. the main path at full width: BERT-base (bf16 compute) FedSim rounds,
-   8 clients x 32 samples, L=128, one warm-up, three timed rounds, one
+   8 clients x 32 samples, L=128, one warm-up, ten timed rounds (mean and
+   median: the host shares its cores, so single rounds vary), one
    round under torch.profiler (device time by kind of kernel, and the
    device's busy share) and a federated evaluation; every kernel must
    launch exactly once per layer per round (the client axis folds into
-   one launch), and every forward and dkv launch must be the mma design;
+   one launch), every launch the mma design;
 4. a 2-layer fp32 BERT-base-width round on the card against the same
    round of the port on the CPU (plain path), same weights and shuffles,
    params within 1e-4;
-5. kernel times at BERT's shape beside their plain versions, PyTorch's
+5. kernel times at BERT's shape (each the median of 5 readings of 20
+   launches) beside their plain versions, PyTorch's
    scaled_dot_product_attention and the card's bound, as one JSON line,
    and the bytes/s of PyTorch's own copy as a yardstick.
 
@@ -63,7 +65,7 @@ KERNELS = {
                   "baton_tpu/ops/flash_attention.py:65"),
     "flash_bwd_dkv": ("bwd_dkv", "mma", CSRC + "flash_attention_mma.cu",
                       "baton_tpu/ops/flash_attention.py:203"),
-    "flash_bwd_dq": ("bwd_dq", "simt", CSRC + "flash_attention.cu",
+    "flash_bwd_dq": ("bwd_dq", "mma", CSRC + "flash_attention_mma.cu",
                      "baton_tpu/ops/flash_attention.py:253"),
 }
 
@@ -83,19 +85,24 @@ def card_peaks(name: str):
     return 3.35e12, 989e12  # H100 SXM
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` by CUDA events over ``iters`` calls."""
+def time_ms(fn, iters=20, warmup=3, readings=5) -> float:
+    """Device time of one call of ``fn``: the median over ``readings`` of
+    the mean by CUDA events over ``iters`` calls (one reading alone can
+    catch a transient of the shared machine, 1.8x seen)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(readings):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return float(np.median(means))
 
 
 def kernel_kind(name: str) -> str:
@@ -176,7 +183,7 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     }
     torch.cuda.synchronize()
     ran = {k: n - before[k] for k, n in fa.launches_by_design.items() if n != before[k]}
-    check(ran == {f"fwd_{design}": 1, f"bwd_dkv_{design}": 1, "bwd_dq_simt": 1},
+    check(ran == {f"fwd_{design}": 1, f"bwd_dkv_{design}": 1, f"bwd_dq_{design}": 1},
           f"{name}: launches by design {ran}")
     errs = {}
     for kname, (got, want) in pairs.items():
@@ -190,11 +197,13 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
                   f"beyond rtol=atol={tol}")
         errs[kname] = err
     print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} {str(dtype)[6:]:8s} "
-          f"causal={int(causal)} bias={bias_kind} fwd/dkv {design}: "
+          f"causal={int(causal)} bias={bias_kind} {design}: "
           + " ".join(f"{k}={e:.2e}" for k, e in errs.items()) + f" (tol {tol})")
     if dtype == torch.bfloat16:
-        dkv_flip_check(fa, name, (q, k, v, bias, dout, lse_p, delta, causal, scale),
-                       *pairs["flash_bwd_dkv"])
+        got, want = (dict(zip(("dk", "dv", "db", "dq"),
+                              (*pairs["flash_bwd_dkv"][i], *pairs["flash_bwd_dq"][i])))
+                     for i in (0, 1))
+        flip_check(fa, name, (q, k, v, bias, dout, lse_p, delta, causal, scale), got, want)
     return errs
 
 
@@ -222,23 +231,28 @@ def kernel_phase(fa):
     return results["bert_base"]
 
 
-def dkv_flip_check(fa, name, args, got, want):
-    """Accounts for a bf16 dkv kernel's gap from its plain version on
-    ``args``. The two form the fp32 p a few ulps apart (the kernel's fmaf,
-    __expf and tensor-core sums against torch's ops). Where p (ds) lies that
-    close to a bf16 rounding boundary the two round it to neighbouring bf16
-    values, and dv (dk) moves by one bf16 step of p (ds) times |do| (|q|).
-    The bound sums those steps over every such element, plus 2^-20 of each
-    sum's magnitude for the fp32 summation order; every element of dk, dv
-    and db must lie within it."""
+def flip_check(fa, name, args, got, want):
+    """Accounts for the bf16 backward kernels' gaps from their plain
+    versions on ``args``; ``got`` and ``want`` map outputs (``dk``, ``dv``,
+    ``db``, ``dq``) to the kernel's and the plain version's values. The two
+    form the fp32 p a few ulps apart (the kernel's fmaf, __expf and
+    tensor-core sums against torch's ops). Where p (ds) lies that close to
+    a bf16 rounding boundary the two round it to neighbouring bf16 values,
+    and dv (dk, dq) moves by one bf16 step of p (ds), plus that fp32
+    uncertainty, times |do| (|q|, |k|). The bound sums those moves over
+    every such element, plus 2^-20 of each sum's magnitude for the fp32
+    summation order; every element of each output must lie within it."""
     q, k, v, bias, dout, lse, delta, causal, scale = args
     k, v = fa._expand_kv(k, q.shape[1]), fa._expand_kv(v, q.shape[1])
     p, ds = fa._p_ds(q, k, v, bias, dout, lse, delta, causal, scale)
     qa, ka, va, oa = (t.float().abs() for t in (q, k, v, dout))
     eps = 2.0 ** -20
 
-    def ein(a, x):
+    def ein(a, x):  # contract the queries (dk, dv)
         return torch.einsum("bhqk,bhqd->bhkd", a, x)
+
+    def ein_q(a, x):  # contract the keys (dq)
+        return torch.einsum("bhqk,bhkd->bhqd", a, x)
 
     def finite_abs(t):
         """|t|, but 0 for the -1e30 masking constant: in a fully masked row
@@ -254,29 +268,38 @@ def dkv_flip_check(fa, name, args, got, want):
     err_ds = err_p * (dp - delta[..., None]).abs() + p * eps * dp_mag
 
     def flip_steps(x, err):
-        """One bf16 step where x lies within err of a rounding boundary, else 0."""
+        """Where x lies within err of a rounding boundary, one bf16 step plus
+        err, else 0: two values err apart that round apart differ after
+        rounding by at most that (err is what counts where x cancelled to
+        near 0, as ds in a causal row that sees one key; at 0 itself every
+        nonzero neighbour rounds apart, and the step is 0)."""
         step = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+        step = torch.where(x == 0, 0.0, step)
         dist = step / 2 - (x - x.bfloat16().float()).abs()
-        return torch.where(dist <= err, step, 0.0)
+        return torch.where(dist <= err, step + err, 0.0)
 
     fp, fds = flip_steps(p, err_p), flip_steps(ds, err_ds)
+    dsr = ds.bfloat16().float().abs()
     bounds = {
-        "dk": scale * (ein(fds, qa) + eps * ein(ds.bfloat16().float().abs(), qa)),
-        "dv": ein(fp, oa) + eps * ein(p.bfloat16().float().abs(), oa),
-        "db": err_ds.sum(2) + eps * ds.abs().sum(2),
+        "dk": lambda: scale * (ein(fds, qa) + eps * ein(dsr, qa)),
+        "dv": lambda: ein(fp, oa) + eps * ein(p.bfloat16().float().abs(), oa),
+        "db": lambda: err_ds.sum(2) + eps * ds.abs().sum(2),
+        "dq": lambda: scale * (ein_q(fds, ka) + eps * ein_q(dsr, ka)),
     }
     over, parts = 0, []
-    for out, g, w in zip(bounds, got, want):
-        gap, bound = (g - w).abs(), bounds[out]
+    for out in got:
+        g, w = got[out], want[out]
+        gap, bound = (g - w).abs(), bounds[out]()
         at = int(gap.argmax())
         n_over = int((gap > bound).sum())
         over += n_over
         parts.append(f"{out} {gap.flatten()[at].item():.2e} (bound "
                      f"{bound.flatten()[at].item():.2e}, |plain| {w.flatten()[at].abs().item():.2e}"
                      f", {n_over} over)")
-    print(f"    dkv gap vs bf16 rounding flips: p near a boundary at {int((fp > 0).sum())} "
+    print(f"    gap vs bf16 rounding flips: p near a boundary at {int((fp > 0).sum())} "
           f"of {p.numel()}, ds at {int((fds > 0).sum())}; max gap " + ", ".join(parts))
-    check(over == 0, f"{name}: dkv gap beyond what bf16 rounding flips explain at {over} elements")
+    check(over == 0, f"{name}: {'/'.join(got)} gap beyond what bf16 rounding flips explain "
+          f"at {over} elements")
 
 
 def bert_round_phase(fa):
@@ -309,12 +332,14 @@ def bert_round_phase(fa):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     times, losses, breakdown = [], [], None
-    # round 0 warms up, rounds 1-3 are timed, round 4 runs under the profiler
-    for r in range(5):
+    n_timed = 10
+    profiled = n_timed + 1
+    # round 0 warms up, rounds 1..n_timed are timed, the last runs under the profiler
+    for r in range(profiled + 1):
         before = fa.launches()
         before_design = dict(fa.launches_by_design)
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with (torch.profiler.profile(activities=activities) if r == 4
+        with (torch.profiler.profile(activities=activities) if r == profiled
               else contextlib.nullcontext()) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -327,18 +352,18 @@ def bert_round_phase(fa):
         delta = {k: n - before[k] for k, n in fa.launches().items()}
         by_design = {k: n - before_design[k] for k, n in fa.launches_by_design.items()
                      if n != before_design[k]}
-        label = {0: " (warm-up)", 4: " (profiled)"}.get(r, "")
-        print(f"  round {r}{label}: loss {loss} {dt:.3f} s launches {delta} by design {by_design}")
-        if r == 4:
+        label = {0: " (warm-up)", profiled: " (profiled)"}.get(r, "")
+        print(f"  round {r}{label}: loss {loss} {dt:.4f} s launches {delta} by design {by_design}")
+        if r == profiled:
             breakdown = device_breakdown(prof, dt)
-        else:
+        elif r > 0:
             times.append(dt)
         check(all(math.isfinite(x) for x in loss), f"round {r}: non-finite loss")
         check(all(n == cfg.n_layers for n in delta.values()),
               f"round {r}: launches {delta}, want {cfg.n_layers} of each kernel")
         check(by_design == {"fwd_mma": cfg.n_layers, "bwd_dkv_mma": cfg.n_layers,
-                            "bwd_dq_simt": cfg.n_layers},
-              f"round {r}: launches by design {by_design}, want every fwd and dkv on mma")
+                            "bwd_dq_mma": cfg.n_layers},
+              f"round {r}: launches by design {by_design}, want every launch on mma")
     per_round = delta  # every round's count was checked equal
     ev = sim.evaluate_round(params, data, n_samples)
     main_launches = fa.launches()
@@ -348,14 +373,21 @@ def bert_round_phase(fa):
     check(math.isfinite(ev["loss"]), "evaluation loss is not finite")
     check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite params")
     check(changed > 0, "the round left the params unchanged")
-    s_round = sum(times[1:]) / 3
+    s_round, s_median = sum(times) / n_timed, float(np.median(times))
     print(f"  evaluate_round: {ev}")
-    print(f"  s/round {s_round:.4f} (rounds 1-3: {', '.join(f'{t:.4f}' for t in times[1:])}); "
-          f"samples/s {n_clients * batch / s_round:.1f}; peak memory {peak_gb:.2f} GB; "
+    print(f"  s/round mean {s_round:.4f}, median {s_median:.4f}, min {min(times):.4f} "
+          f"(rounds 1-{n_timed}: {', '.join(f'{t:.4f}' for t in times)}); "
+          f"samples/s {n_clients * batch / s_round:.1f} (at the median "
+          f"{n_clients * batch / s_median:.1f}); peak memory {peak_gb:.2f} GB; "
           f"max |param change| {changed:.3e}; launches over the path {main_launches}, "
           f"by design {main_by_design}")
-    return main_launches, per_round, {"breakdown": breakdown,
-                           "s_per_round": s_round, "samples_per_s": n_clients * batch / s_round,
+    if breakdown:
+        busy = breakdown["device_ms"] / 1e3 / s_median
+        print(f"  device busy share of a median round: {busy:.3f} (profiled round's device "
+              "time over the unprofiled median wall)")
+    return main_launches, per_round, {"breakdown": breakdown, "round_s": times,
+                           "s_per_round": s_round, "s_per_round_median": s_median,
+                           "samples_per_s": n_clients * batch / s_round,
                            "peak_memory_gb": peak_gb, "losses": losses,
                            "eval": ev, "n_params": n_params}
 
@@ -482,11 +514,12 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
               f"{nbytes / ms / 1e9:.2f} TB/s achieved, {100 * max(t_bytes, t_ops) / ms:.1f}% "
               f"of the bound)")
 
-    # the fp32 SIMT forward and dkv (phase 4's path, not the main one)
+    # the fp32 SIMT kernels (phase 4's path, not the main one)
     q32, k32, v32, dout32 = (t.float() for t in (q, k, v, dout))
     args32 = (q32, k32, v32, bias, dout32, lse, delta, False, scale)
     simt = {"flash_fwd_simt_fp32": time_ms(lambda: fa._fwd(q32, k32, v32, bias, False, scale)),
-            "flash_bwd_dkv_simt_fp32": time_ms(lambda: fa._bwd_dkv(*args32))}
+            "flash_bwd_dkv_simt_fp32": time_ms(lambda: fa._bwd_dkv(*args32)),
+            "flash_bwd_dq_simt_fp32": time_ms(lambda: fa._bwd_dq(*args32))}
     print("  fp32 SIMT at the same shape: "
           + ", ".join(f"{k} {ms:.4f} ms" for k, ms in simt.items()))
     # a yardstick for the kernels' bytes/s: PyTorch's copy of q reads and writes it once
