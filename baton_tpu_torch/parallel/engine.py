@@ -2,22 +2,33 @@
 
 A round broadcasts the global params, trains every client of a wave in
 lockstep (``LocalTrainer.train_clients``: a ``torch.func.vmap`` over the
-client axis per SGD step), and folds each wave into fp32 sample-weighted
-sums (Σ w·params, Σ w·losses, Σ w) that are divided once at the end —
-the same FedAvg as one big wave, since the weighted mean is associative
-in its sums. A short wave is padded with zero-weight phantom clients.
+client axis per SGD step), and combines the clients by the aggregator:
+
+* ``"mean"`` folds each wave into fp32 sample-weighted sums (Σ w·params,
+  Σ w·losses, Σ w) that are divided once at the end — the same FedAvg as
+  one big wave, since the weighted mean is associative in its sums;
+* ``"trimmed:<ratio>"`` and ``"median"`` keep every client's params
+  ([C, model] on the device, the price of an order statistic) and take
+  the coordinate-wise trimmed mean or median of the clients that hold
+  samples (``ops/aggregation.py``), unweighted.
+
+The loss history stays sample-weighted under every aggregator. A short
+wave is padded with zero-weight phantom clients. Each round leaves its
+compute record (throughput, MFU, peak memory; ``obs/compute.py``) in
+``last_compute``.
 
 Ported: ``run_round`` (vmap mode, waves), ``run_rounds``,
 ``evaluate_round``. Not ported yet, and refused with NotImplementedError:
 a device mesh, regularizers (FedProx), DP-SGD, trainable partitions
-(LoRA), robust aggregators, server optimizers (FedOpt), non-SGD local
-optimizers, checkpointing and ``run_rounds_fused``. The compute probe is
-not ported: ``last_compute`` stays None.
+(LoRA), server optimizers (FedOpt), non-SGD local optimizers,
+checkpointing and ``run_rounds_fused``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -26,7 +37,10 @@ import torch
 from baton_tpu_torch import resolve_device
 from baton_tpu_torch.core.model import FedModel, Params
 from baton_tpu_torch.core.training import LocalTrainer, make_local_trainer, random_perms
+from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -57,7 +71,8 @@ class FedSim:
     ``data`` is a dict of ``[C, capacity, ...]`` arrays (numpy or tensors;
     see :func:`baton_tpu_torch.ops.padding.stack_client_datasets`) and
     ``n_samples`` is ``[C]``: each client's true row count and FedAvg
-    weight.
+    weight. ``aggregator`` is ``"mean"`` (sample-weighted FedAvg),
+    ``"trimmed:<ratio>"`` or ``"median"`` (module docstring).
     """
 
     def __init__(
@@ -79,13 +94,13 @@ class FedSim:
         for name, value in not_ported.items():
             if value is not None:
                 raise NotImplementedError(f"FedSim({name}=...) is not ported yet")
-        if aggregator != "mean":
-            raise NotImplementedError(f"aggregator {aggregator!r} is not ported yet")
+        self.aggregator = agg.parse_aggregator(aggregator)
         self.device = resolve_device(device)
         self.model = model
         self.trainer: LocalTrainer = make_local_trainer(
             model, optimizer=optimizer, batch_size=batch_size,
             learning_rate=learning_rate)
+        self.compute_probe = ComputeProbe(model)
         self.last_compute: Optional[dict] = None
 
     def init(self, generator: torch.Generator) -> Params:
@@ -142,9 +157,12 @@ class FedSim:
         perms = perms.to(self.device)
         wave_size = c if wave_size is None else wave_size
 
+        robust = self.aggregator[0] != "mean"
         psum_acc = lsum_acc = w_acc = None
+        stacked_parts = []
         per_client = [] if collect_client_losses else None
         n_waves = -(-c // wave_size)
+        t0 = time.perf_counter()
         for start in range(0, c, wave_size):
             stop = min(start + wave_size, c)
             d, n, pm = self._pad_wave(
@@ -153,29 +171,57 @@ class FedSim:
             client_params, client_losses = self.trainer.train_clients(
                 params, d, n, n_epochs, pm)
             w = n.float()
-            psum = agg.weighted_tree_sum(client_params, w)
             lsum = w @ client_losses.float()
-            if psum_acc is None:
-                psum_acc, lsum_acc, w_acc = psum, lsum, w.sum()
+            if robust:
+                stacked_parts.append({k: v[: stop - start] for k, v in client_params.items()})
             else:
-                for k in psum_acc:
-                    psum_acc[k] += psum[k]
-                lsum_acc = lsum_acc + lsum
-                w_acc = w_acc + w.sum()
+                psum = agg.weighted_tree_sum(client_params, w)
+                if psum_acc is None:
+                    psum_acc = psum
+                else:
+                    for k in psum_acc:
+                        psum_acc[k] += psum[k]
+            lsum_acc = lsum if lsum_acc is None else lsum_acc + lsum
+            w_acc = w.sum() if w_acc is None else w_acc + w.sum()
             if per_client is not None:
                 per_client.append(client_losses[: stop - start])
             if progress_fn is not None:
                 lsum.sum().item()  # wait for the wave's device work
                 progress_fn(start // wave_size + 1, n_waves)
 
+        # the round's one device sync closes the timed window over the waves
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._record_compute(time.perf_counter() - t0, data, n_samples, capacity, wave_size,
+                             n_epochs, robust)
+
         denom = w_acc.clamp_min(1e-9)
-        new_params = {k: (s / denom).to(params[k].dtype) for k, s in psum_acc.items()}
+        if robust:
+            stacked = {k: torch.cat([part[k] for part in stacked_parts]) for k in params}
+            new_params = agg.aggregate_stacked(self.aggregator, stacked, n_samples, params)
+        else:
+            new_params = {k: (s / denom).to(params[k].dtype) for k, s in psum_acc.items()}
         return RoundResult(
             params=new_params,
             loss_history=lsum_acc / denom,
             client_losses=torch.cat(per_client) if per_client else None,
             n_samples_total=w_acc,
         )
+
+    def _record_compute(self, train_s, data, n_samples, capacity, wave_size, n_epochs, robust):
+        """Set ``last_compute`` to the round's compute record. A probe
+        failure is logged and leaves it None: it never fails the round."""
+        try:
+            c = int(n_samples.shape[0])
+            sig = (c, int(wave_size), int(n_epochs), robust,
+                   tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in data.items())))
+            self.last_compute = self.compute_probe.record_round(
+                key="run_round", signature=sig, train_s=train_s,
+                n_samples=float(n_samples.sum()), device=self.device, n_epochs=n_epochs,
+                steps=c * n_epochs * -(-capacity // self.trainer.batch_size))
+        except Exception:
+            log.exception("compute probe failed; last_compute is None for this round")
+            self.last_compute = None
 
     def run_rounds(self, params: Params, data, n_samples,
                    generator: Optional[torch.Generator] = None, n_rounds: int = 1,

@@ -29,7 +29,24 @@ exits non-zero:
 5. kernel times at BERT's shape (each the median of 5 readings of 20
    launches) beside their plain versions, PyTorch's
    scaled_dot_product_attention and the card's bound, as one JSON line,
-   and the bytes/s of PyTorch's own copy as a yardstick.
+   and the bytes/s of PyTorch's own copy as a yardstick;
+6. the vision path at full width: ``bench.py``'s round, ResNet-18 with
+   GroupNorm (bf16 compute), 32 clients x 48 CIFAR-shaped samples, batch
+   32, lr 0.05, one wave, data drawn as ``bench.py`` draws it; one
+   warm-up, ten timed rounds, one profiled round (device time by kind),
+   peak memory, the round's compute record (MFU against the card's peak)
+   and a federated evaluation; no flash kernel may launch in it. The
+   round (clients vmapped, convs grouped by client) against every client
+   trained alone without vmap on the same inputs, at these shapes, in
+   bf16 and in fp32: per client and for the weighted mean, the round's
+   distance from fp32 within ``BF16_GAP_RATIO_TOL`` times the bf16
+   clients alone's, and a mixed-up pairing of clients outside it. Then 3 timed
+   rounds (after a warm-up) each with the ``im2col`` and ``shift`` conv
+   lowerings, beside ``direct``;
+7. a 2-stage fp32 ResNet round on the card against the same round of the
+   port on the CPU, 4 clients (one without samples), same weights and
+   shuffles, once per conv lowering and once with the ``median``
+   aggregator: params and losses within 1e-4.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -75,16 +92,6 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def card_peaks(name: str):
-    """(memory bytes/s, bf16 dense tensor FLOP/s) from NVIDIA's data
-    sheets, by card name."""
-    if "H200" in name:
-        return 4.8e12, 989e12
-    if "PCIe" in name:
-        return 2.0e12, 756e12
-    return 3.35e12, 989e12  # H100 SXM
-
-
 def time_ms(fn, iters=20, warmup=3, readings=5) -> float:
     """Device time of one call of ``fn``: the median over ``readings`` of
     the mean by CUDA events over ``iters`` calls (one reading alone can
@@ -105,10 +112,22 @@ def time_ms(fn, iters=20, warmup=3, readings=5) -> float:
     return float(np.median(means))
 
 
+# no bare "conv": it would match elementwise "convert" kernels
+CONV_TOKENS = ("convolution", "conv2d", "fprop", "dgrad", "wgrad", "cudnn", "winograd",
+               "implicit_gemm", "nchwtonhwc", "nhwctonchw")
+NORM_TOKENS = ("groupnorm", "group_norm", "rowwisemoments", "fusedparams",
+               "internalgradients", "gammabeta")
+
+
 def kernel_kind(name: str) -> str:
     n = name.lower()
     if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma)?_kernel", n):
         return "flash attention (this port)"
+    # before matmul: cuDNN's implicit-GEMM conv kernels carry gemm/xmma too
+    if any(t in n for t in CONV_TOKENS):
+        return "convolution (cuDNN)"
+    if any(t in n for t in NORM_TOKENS):
+        return "group norm"
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -382,9 +401,9 @@ def bert_round_phase(fa):
           f"max |param change| {changed:.3e}; launches over the path {main_launches}, "
           f"by design {main_by_design}")
     if breakdown:
-        busy = breakdown["device_ms"] / 1e3 / s_median
-        print(f"  device busy share of a median round: {busy:.3f} (profiled round's device "
-              "time over the unprofiled median wall)")
+        ratio = breakdown["device_ms"] / 1e3 / s_median
+        print(f"  profiled device time over the unprofiled median wall: {ratio:.3f} (not a busy "
+              "share: the profiler lengthens kernels)")
     return main_launches, per_round, {"breakdown": breakdown, "round_s": times,
                            "s_per_round": s_round, "s_per_round_median": s_median,
                            "samples_per_s": n_clients * batch / s_round,
@@ -481,7 +500,11 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
                           4 * mm),
         "flash_bwd_dq": (4 * el * n_bhld + 8 * n_bhl + bias_b + 4 * n_bhld, 3 * mm),
     }
-    bw, bf16_peak = card_peaks(name)
+    from baton_tpu_torch.obs.compute import card_peaks
+
+    peaks = card_peaks(name)
+    check(peaks is not None, f"no data-sheet peaks for {name!r}")
+    bw, bf16_peak = peaks
     print(f"phase 5: times at BERT's shape (B={b}, H={h}, L={l}, D={d}, bf16, padding bias); "
           f"bound from {bw / 1e12:.2f} TB/s and {bf16_peak / 1e12:.0f} TFLOP/s bf16")
     rows = []
@@ -528,6 +551,272 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
     return rows, dict(simt, clone_tb_s=clone_tb_s)
 
 
+def time_round(sim, params, data, n_samples, gen):
+    """One round to its end on the card: (result, wall seconds, losses)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run_round(params, data, n_samples, gen)
+    loss = res.loss_history.tolist()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, loss
+
+
+# Phase 6's reference check. At init, bf16 rounding alone moves a
+# ResNet-18's updates far from fp32 (tens of percent in the first layers)
+# on either path, so the vmapped bf16 round is held to the distance from
+# fp32 of every client trained alone in bf16: at most this many times it.
+# Set from the card's readings in PERF.md (1.22 at most; a mixed-up client 3.2 or more).
+BF16_GAP_RATIO_TOL = 1.6
+LOSS_REL_TOL = 2e-2  # per-client losses, vmapped against alone, both bf16
+
+
+def train_each_client_alone(model, params, data, n_samples, perms, batch, lr):
+    """Every client trained alone, without vmap: plain autograd SGD over
+    its batches in the order of ``perms`` [C, 1, capacity], the steps that
+    ``LocalTrainer.train_clients`` takes for all clients at once (a batch
+    without samples is skipped). Returns the per-client params (leaves
+    [C, ...]) and losses [C]."""
+    clients, losses = [], []
+    for c in range(perms.shape[0]):
+        perm = perms[c, 0].to(n_samples.device)
+        rows = {k: v[c][perm] for k, v in data.items()}
+        mask = (perm < n_samples[c]).float()
+        rows["mask"] = mask * rows["mask"].float() if "mask" in rows else mask
+        p = dict(params)
+        loss_sum = count = 0.0
+        for s in range(0, perm.shape[0], batch):
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            ls, n = model.loss_and_count(leaves, {k: v[s:s + batch] for k, v in rows.items()})
+            if n.item() > 0:
+                grads = torch.autograd.grad(ls / n, list(leaves.values()))
+                p = {k: (v + g * -lr).detach() for (k, v), g in zip(leaves.items(), grads)}
+            loss_sum, count = loss_sum + ls.item(), count + n.item()
+        clients.append(p)
+        losses.append(loss_sum / max(count, 1.0))
+    stacked = {k: torch.stack([p[k] for p in clients]) for k in params}
+    return stacked, torch.tensor(losses)
+
+
+def update_gaps(start, got, want):
+    """Per client (leading axis), the largest over tensors of
+    ||got - want|| / ||want - start||: two updates' gap relative to the
+    reference's update."""
+    gaps = []
+    for k, s in start.items():
+        g, w = got[k].float(), want[k].float()
+        c = g.shape[0]
+        num = (g - w).reshape(c, -1).norm(dim=1)
+        gaps.append(num / (w - s.float()).reshape(c, -1).norm(dim=1).clamp_min(1e-30))
+    return torch.stack(gaps).max(0).values
+
+
+def vmap_against_clients_alone(sim, reference_model, params, data, n_samples, gen):
+    """The bf16 round (the clients vmapped: convs grouped by client)
+    against every client trained alone (plain convs) on the same inputs
+    and shuffles, once in the round's dtype and once in fp32
+    (``reference_model``). Each vmapped client's update and the round's
+    mean update must lie within ``BF16_GAP_RATIO_TOL`` times the bf16
+    clients alone's distance from fp32 (``update_gaps``), and per-client
+    losses within ``LOSS_REL_TOL``. A control pairs each vmapped client
+    with the next client's fp32 reference: the check must reject it."""
+    from baton_tpu_torch.core.training import random_perms
+
+    data = {k: torch.as_tensor(v, device=sim.device) for k, v in data.items()}
+    n = torch.as_tensor(n_samples, device=sim.device)
+    capacity = next(iter(data.values())).shape[1]
+    perms = random_perms(n.shape[0], 1, capacity, gen)
+    trainer = sim.trainer
+    alone, alone_losses = train_each_client_alone(sim.model, params, data, n, perms,
+                                                  trainer.batch_size, trainer.learning_rate)
+    ref, _ = train_each_client_alone(reference_model, params, data, n, perms,
+                                     trainer.batch_size, trainer.learning_rate)
+    vmapped, _ = trainer.train_clients(params, data, n, 1, perms.to(sim.device))
+    res = sim.run_round(params, data, n_samples, perms=perms)
+    w = n.float()
+
+    def mean(t):
+        return {k: (torch.tensordot(w, v.float(), dims=([0], [0])) / w.sum())[None]
+                for k, v in t.items()}
+
+    round_ratio = (update_gaps(params, {k: v[None] for k, v in res.params.items()}, mean(ref))
+                   / update_gaps(params, mean(alone), mean(ref))).item()
+    has = (n > 0).nonzero()[:, 0]  # a client without samples does not move
+    vmapped, alone, ref = ({k: v[has] for k, v in t.items()} for t in (vmapped, alone, ref))
+    noise = update_gaps(params, alone, ref)
+    ratio = update_gaps(params, vmapped, ref) / noise
+    control = update_gaps(params, vmapped, {k: v.roll(-1, 0) for k, v in ref.items()}) / noise
+    same_dtype = update_gaps(params, vmapped, alone)
+    has = has.cpu()
+    loss_gap = ((res.client_losses[:, 0].cpu()[has] - alone_losses[has]).abs()
+                / alone_losses[has].abs()).max().item()
+    stats = {"bf16_alone_from_fp32_max": noise.max().item(),
+             "bf16_alone_from_fp32_median": noise.median().item(),
+             "client_ratio_max": ratio.max().item(), "client_ratio_median": ratio.median().item(),
+             "round_ratio": round_ratio, "vmapped_from_alone_max": same_dtype.max().item(),
+             "loss_rel_gap_max": loss_gap, "mixed_up_control_ratio_min": control.min().item(),
+             "ratio_tol": BF16_GAP_RATIO_TOL, "loss_tol": LOSS_REL_TOL}
+    print("  the round against every client alone (relative L2 of the updates, worst tensor):"
+          f" bf16 alone from fp32 max {stats['bf16_alone_from_fp32_max']:.3e}, median "
+          f"{stats['bf16_alone_from_fp32_median']:.3e}; vmapped from fp32 over that: per client"
+          f" max {stats['client_ratio_max']:.3f}, median {stats['client_ratio_median']:.3f}, the"
+          f" round's mean {round_ratio:.3f} (tol {BF16_GAP_RATIO_TOL}); vmapped from bf16 alone"
+          f" max {stats['vmapped_from_alone_max']:.3e}; per-client losses {loss_gap:.3e} relative"
+          f" (tol {LOSS_REL_TOL}); mixed-up control ratio min "
+          f"{stats['mixed_up_control_ratio_min']:.3f}")
+    check(max(stats["client_ratio_max"], round_ratio) <= BF16_GAP_RATIO_TOL
+          and loss_gap <= LOSS_REL_TOL, f"vmapped round and clients alone differ: {stats}")
+    check(stats["mixed_up_control_ratio_min"] > BF16_GAP_RATIO_TOL,
+          f"the check cannot tell mixed-up clients apart: {stats}")
+    return stats
+
+
+def resnet_round_phase(fa):
+    """``bench.py``'s round (bench.py:32-41, 430-461) on the port."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.obs.compute import validate_record
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    n_clients, per_client, batch, lr = 32, 48, 32, 0.05
+    rng = np.random.default_rng(0)
+    datasets = [{"x": rng.normal(size=(per_client, 32, 32, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, size=(per_client,)).astype(np.int32)}
+                for _ in range(n_clients)]
+    data, n_samples = stack_client_datasets(datasets, batch_size=batch)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}  # staged, as bench
+    n_total = int(n_samples.sum())
+
+    def make_sim(impl):
+        model = resnet18_cifar_model(compute_dtype=torch.bfloat16, conv_impl=impl)
+        return FedSim(model, batch_size=batch, learning_rate=lr)
+
+    sim = make_sim("direct")
+    params = sim.init(torch.Generator().manual_seed(0))
+    first = {k: v.clone() for k, v in params.items()}
+    n_params = sum(p.numel() for p in params.values())
+    gen = torch.Generator().manual_seed(1)
+    print(f"phase 6: ResNet-18 FedSim rounds as bench.py ({n_params / 1e6:.2f} M params, bf16 "
+          f"compute, {n_clients} clients x {per_client} samples, capacity "
+          f"{data['x'].shape[1]}, batch {batch}, lr {lr}, conv direct)")
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    times, losses, records, breakdown = [], [], [], None
+    n_timed = 10
+    profiled = n_timed + 1
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for r in range(profiled + 1):
+        with (torch.profiler.profile(activities=activities) if r == profiled
+              else contextlib.nullcontext()) as prof:
+            res, dt, loss = time_round(sim, params, data, n_samples, gen)
+        params = res.params
+        losses.extend(loss)
+        rec = sim.last_compute
+        check(rec is not None and validate_record(rec) == [],
+              f"round {r}: compute record {rec} breaks null-with-reason")
+        label = {0: " (warm-up)", profiled: " (profiled)"}.get(r, "")
+        print(f"  round {r}{label}: loss {loss} {dt:.4f} s; record train_s {rec['train_s']} "
+              f"mfu {rec['mfu']} cache_hit {rec['cache_hit']}")
+        if r == profiled:
+            breakdown = device_breakdown(prof, dt)
+        elif r > 0:
+            times.append(dt)
+            records.append(rec)
+        check(all(math.isfinite(x) for x in loss), f"round {r}: non-finite loss")
+    ev = sim.evaluate_round(params, data, n_samples)
+    flash = fa.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = max((params[k] - first[k]).abs().max().item() for k in params)
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched in the ResNet round: {flash}")
+    check(math.isfinite(ev["loss"]), "evaluation loss is not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite params")
+    check(changed > 0, "the rounds left the params unchanged")
+    check(all(r["mfu"] is not None for r in records), "no MFU on this card")
+    reference = vmap_against_clients_alone(sim, resnet18_cifar_model(), first, data, n_samples,
+                                           torch.Generator().manual_seed(2))
+    s_mean, s_median = sum(times) / n_timed, float(np.median(times))
+    mfus = [r["mfu"] for r in records]
+    print(f"  evaluate_round: {ev}")
+    print(f"  s/round mean {s_mean:.4f}, median {s_median:.4f}, min {min(times):.4f} "
+          f"(rounds 1-{n_timed}: {', '.join(f'{t:.4f}' for t in times)}); samples/s "
+          f"{n_total / s_mean:.1f} (at the median {n_total / s_median:.1f}); peak memory "
+          f"{peak_gb:.2f} GB; max |param change| {changed:.3e}; flash launches {flash}")
+    print(f"  MFU (compute record, {records[0]['flops_per_sample']:.3g} FLOP/sample, peak of "
+          f"{records[0]['device_kind']}): median {float(np.median(mfus)):.4f}, "
+          f"min {min(mfus):.4f}, max {max(mfus):.4f}")
+    print(f"  last_compute: {json.dumps(records[-1])}")
+    if breakdown:
+        print(f"  profiled device time over the unprofiled median wall: "
+              f"{breakdown['device_ms'] / 1e3 / s_median:.3f} (not a busy share: the profiler "
+              "lengthens kernels)")
+
+    lowerings = {"direct": {"round_s": times, "s_per_round_median": s_median,
+                            "peak_memory_gb": peak_gb}}
+    for impl in ("im2col", "shift"):
+        del sim, res
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = make_sim(impl)
+        p = {k: v.clone() for k, v in first.items()}
+        g = torch.Generator().manual_seed(1)
+        _, warm, loss = time_round(sim, p, data, n_samples, g)
+        check(all(math.isfinite(x) for x in loss), f"{impl}: non-finite loss")
+        impl_times = []
+        for _ in range(3):
+            res, dt, loss = time_round(sim, p, data, n_samples, g)
+            p = res.params
+            impl_times.append(dt)
+            check(all(math.isfinite(x) for x in loss), f"{impl}: non-finite loss")
+        lowerings[impl] = {"round_s": impl_times, "warm_up_s": warm,
+                           "s_per_round_median": float(np.median(impl_times)),
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("  conv lowerings, s/round (median; rounds) and peak memory:")
+    for impl, st in lowerings.items():
+        print(f"    {impl:7s} {st['s_per_round_median']:.4f} s "
+              f"({', '.join(f'{t:.4f}' for t in st['round_s'])}), "
+              f"{n_total / st['s_per_round_median']:.1f} samples/s, "
+              f"peak {st['peak_memory_gb']:.2f} GB")
+    return {"breakdown": breakdown, "round_s": times, "s_per_round": s_mean,
+            "s_per_round_median": s_median, "samples_per_s": n_total / s_mean,
+            "peak_memory_gb": peak_gb, "losses": losses, "eval": ev, "n_params": n_params,
+            "mfu_median": float(np.median(mfus)), "last_compute": records[-1],
+            "against_clients_alone": reference, "lowerings": lowerings}
+
+
+def vision_parity_phase():
+    """A 2-stage fp32 ResNet round, card against the port's CPU round."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    batch = 8
+    rng = np.random.default_rng(4)
+    datasets = [{"x": rng.normal(size=(n, 16, 16, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, n).astype(np.int32)} for n in (16, 0, 11, 13)]
+    data, n_samples = stack_client_datasets(datasets, batch_size=batch)
+    perms = torch.from_numpy(np.stack([rng.permutation(data["x"].shape[1])[None]
+                                       for _ in datasets]))
+    print("phase 7: 2-stage fp32 ResNet round, card against the CPU, per conv lowering "
+          "and with the median aggregator (tol 1e-4)")
+    for impl, aggregator in (("direct", "mean"), ("im2col", "mean"), ("shift", "mean"),
+                             ("direct", "median")):
+        model = resnet_model(blocks_per_stage=(1, 1), n_groups=8, conv_impl=impl)
+        params = model.init(torch.Generator().manual_seed(3))
+        kw = dict(batch_size=batch, learning_rate=0.05, aggregator=aggregator)
+        gpu = FedSim(model, **kw).run_round({k: v.cuda() for k, v in params.items()}, data,
+                                            n_samples, perms=perms)
+        cpu = FedSim(model, device="cpu", **kw).run_round(params, data, n_samples, perms=perms)
+        err = max((gpu.params[k].cpu() - cpu.params[k]).abs().max().item() for k in params)
+        moved = max((cpu.params[k] - params[k]).abs().max().item() for k in params)
+        loss_err = (gpu.loss_history.cpu() - cpu.loss_history).abs().max().item()
+        print(f"  {impl:7s} {aggregator:7s} max |param diff| {err:.3e} (max |param change| "
+              f"{moved:.3e}), max |loss diff| {loss_err:.3e}")
+        check(moved > 0, f"{impl}/{aggregator}: the CPU round left the params unchanged")
+        check(err <= 1e-4, f"{impl}/{aggregator}: card and CPU params differ by {err:.3e}")
+        check(loss_err <= 1e-4, f"{impl}/{aggregator}: card and CPU losses differ by "
+              f"{loss_err:.3e}")
+
+
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -569,8 +858,12 @@ def main() -> int:
     in_context_phase(fa)
     rows, extra = timing_phase(fa, name, main_launches, per_round, bert_errs)
     print(f"phases 2-5 took {time.perf_counter() - phases:.1f} s")
+    vision = time.perf_counter()
+    resnet_stats = resnet_round_phase(fa)
+    vision_parity_phase()
+    print(f"phases 6-7 took {time.perf_counter() - vision:.1f} s")
 
-    print(json.dumps({"round": round_stats, "extra": extra}))
+    print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

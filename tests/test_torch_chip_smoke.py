@@ -4,7 +4,15 @@ rounding flips of p and ds they can come from. Here each plain version is
 evaluated a second way that forms p and ds as the tensor-core kernels do
 (the score rounded once, as by ``fmaf``, then ``exp2``). That gap must lie
 within the bound at every element. An error in p of 3e-4, far below
-bf16's resolution, must not."""
+bf16's resolution, must not.
+
+Then ``kernel_kind`` on kernel names of cuDNN convolutions, GroupNorm,
+cuBLAS and the port; phase 6's check of the vmapped round against every
+client trained alone, on a tiny ResNet, passing and failing a trainer
+that mixes the clients up; and ``main`` with every phase, the card and
+nvidia-smi stubbed: it runs phases 2-7 in order and ends with the card's
+name and power limit, the kernels line and the ok/device line; a failing
+vision phase fails it before any result line."""
 
 import importlib.util
 from pathlib import Path
@@ -99,3 +107,135 @@ def test_dkv_flip_check(b, hq, hkv, l, causal, bias_kind, p_error):
 def test_dq_flip_check(b, hq, hkv, l, causal, bias_kind, p_error):
     _check(_dq_as_the_kernel_forms_ds, lambda *a: (fa._bwd_dq_plain(*a),), b, hq, hkv, l,
            causal, bias_kind, p_error)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64",
+     "convolution (cuDNN)"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "convolution (cuDNN)"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_wo_smem_bf16bf16_bf16f32_f32", "convolution (cuDNN)"),
+    ("cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16_64x64_64x4>",
+     "convolution (cuDNN)"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, float>",
+     "convolution (cuDNN)"),
+    ("void cudnn::winograd_nonfused::winogradForwardData4x4<float, float>",
+     "convolution (cuDNN)"),
+    ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>", "group norm"),
+    ("void at::native::(anonymous namespace)::ComputeFusedParamsCUDAKernel<float>", "group norm"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1",
+     "matmul (cuBLAS)"),
+    ("nvjet_hsh_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul (cuBLAS)"),
+    ("void fwd_mma_kernel<64, false>(FwdArgs)", "flash attention (this port)"),
+    ("void at::native::elementwise_kernel<128, 2, ...>", "elementwise and other"),
+    ("_ZN17cutlass__5x_cudnn6KernelINS_4conv6kernel23ImplicitGemmConvolutionINS1_11thread",
+     "convolution (cuDNN)"),
+    ("void at::native::vectorized_elementwise_kernel<4, convert_kernel<float>>",
+     "elementwise and other"),
+])
+def test_kernel_kind_classifies_convolutions(name, kind):
+    assert chip_smoke.kernel_kind(name) == kind
+
+
+def _tiny_resnet_round():
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    rng = np.random.default_rng(0)
+    datasets = [{"x": rng.normal(size=(n, 8, 8, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, n).astype(np.int32)} for n in (12, 6, 0, 9)]
+    data, n_samples = stack_client_datasets(datasets, batch_size=8)
+    model = resnet_model(blocks_per_stage=(1, 1), n_groups=4, compute_dtype=torch.bfloat16)
+    sim = FedSim(model, batch_size=8, learning_rate=0.05, device="cpu")
+    reference = resnet_model(blocks_per_stage=(1, 1), n_groups=4)
+    return sim, reference, sim.init(torch.Generator().manual_seed(0)), data, n_samples
+
+
+def test_vmapped_round_agrees_with_each_client_alone():
+    """Phase 6's reference check at a tiny size: the vmapped bf16 round
+    lies as close to fp32 as the bf16 clients alone do."""
+    stats = chip_smoke.vmap_against_clients_alone(*_tiny_resnet_round(),
+                                                  torch.Generator().manual_seed(2))
+    assert stats["client_ratio_max"] <= chip_smoke.BF16_GAP_RATIO_TOL
+    assert stats["mixed_up_control_ratio_min"] > chip_smoke.BF16_GAP_RATIO_TOL
+
+
+@pytest.mark.parametrize("fault", ["mixed_up", "update_scaled"])
+def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
+    """A trainer that hands every client the next one's params, or takes
+    1.5x the step, fails it."""
+    from baton_tpu_torch.core.training import LocalTrainer
+
+    train_clients = LocalTrainer.train_clients
+
+    def faulty(self, params, *args, **kw):
+        p, losses = train_clients(self, params, *args, **kw)
+        if fault == "mixed_up":
+            return {k: v.roll(1, 0) for k, v in p.items()}, losses
+        return {k: params[k] + 1.5 * (v - params[k]) for k, v in p.items()}, losses
+
+    monkeypatch.setattr(LocalTrainer, "train_clients", faulty)
+    with pytest.raises(RuntimeError, match="vmapped round and clients alone differ"):
+        chip_smoke.vmap_against_clients_alone(*_tiny_resnet_round(),
+                                              torch.Generator().manual_seed(2))
+
+
+PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
+          "resnet_round_phase", "vision_parity_phase")
+
+
+def _stub_main(monkeypatch, tmp_path, fail=None):
+    """``chip_smoke.main`` with every phase, the card and nvidia-smi
+    replaced by stubs; returns the list the phases append their names to."""
+    import subprocess
+    import sys
+
+    called = []
+
+    def stub(phase):
+        def run(*args, **kw):
+            called.append(phase)
+            if phase == fail:
+                raise RuntimeError(f"check failed: {phase}")
+            return {"bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {}),
+                    "timing_phase": ([{"name": "flash_fwd"}], {}),
+                    "resnet_round_phase": {}}.get(phase)
+        return run
+
+    for phase in PHASES:
+        monkeypatch.setattr(chip_smoke, phase, stub(phase))
+    library = tmp_path / "libflash.so"
+    library.with_suffix(".log").write_text("ptxas info: Used 128 registers\n")
+    monkeypatch.setattr(fa, "load_library", lambda: None)
+    monkeypatch.setattr(fa, "library_path", lambda: library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(subprocess, "run", lambda *a, **kw: subprocess.CompletedProcess(
+        a, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n", stderr=""))
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return called
+
+
+def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_path, capsys):
+    import json
+
+    called = _stub_main(monkeypatch, tmp_path)
+    assert chip_smoke.main() == 0
+    assert called == list(PHASES)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+    assert json.loads(lines[-2]) == {"kernels": [{"name": "flash_fwd"}]}
+    assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+@pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase"])
+def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
+    called = _stub_main(monkeypatch, tmp_path, fail=failing)
+    with pytest.raises(RuntimeError, match=failing):
+        chip_smoke.main()
+    assert called[-1] == failing
+    assert '"ok": true' not in capsys.readouterr().out

@@ -54,9 +54,11 @@ def test_unported_options_are_refused():
     model = bert_classifier_model(BertConfig.tiny())
     for kw in ({"mesh": object()}, {"dp": object()}, {"regularizer": object()},
                {"trainable": object()}, {"server_optimizer": object()},
-               {"optimizer": object()}, {"aggregator": "median"}):
+               {"optimizer": object()}):
         with pytest.raises(NotImplementedError):
             FedSim(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        FedSim(model, device="cpu", aggregator="krum")
     with pytest.raises(NotImplementedError):
         FedSim(model, device="cpu").run_rounds_fused()
 

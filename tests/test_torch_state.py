@@ -1,6 +1,7 @@
 """The weights bridge: a JAX BERT-tiny init crosses into the port's params
 and back with equal names, shapes and bytes; the port's own init has the
-JAX package's names and shapes."""
+JAX package's names and shapes. The same for the vision models (HWIO conv
+kernels, ``[d_in, d_out]`` dense weights, list-indexed MLP layers)."""
 
 import jax
 import numpy as np
@@ -9,7 +10,9 @@ import torch
 
 from baton_tpu.models.bert import BertConfig as JaxBertConfig
 from baton_tpu.models.bert import bert_classifier_model as jax_bert
+from baton_tpu import models as jax_models
 from baton_tpu.server.state import params_to_state_dict as jax_to_state
+from baton_tpu_torch import models
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.server.state import params_to_state_dict, state_dict_to_params
 
@@ -56,3 +59,23 @@ def test_malformed_state_is_refused(jax_state, template):
     wrong["head/w"] = np.zeros((3, 3), np.float32)
     with pytest.raises(ValueError):
         state_dict_to_params(template, wrong, device="cpu")
+
+
+VISION = {
+    "resnet_imagenet_stem": (lambda m: m.resnet_model(blocks_per_stage=(1, 2), n_groups=8,
+                                                      imagenet_stem=True, n_classes=7)),
+    "cnn": lambda m: m.cnn_mnist_model(image_size=12, channels=3, width=4),
+    "mlp": lambda m: m.mlp_classifier_model(6, hidden=(5, 4), n_classes=3),
+    "linear": lambda m: m.linear_regression_model(4),
+}
+
+
+@pytest.mark.parametrize("name", VISION)
+def test_vision_models_cross_the_bridge(name):
+    state = jax_to_state(VISION[name](jax_models).init(jax.random.key(0)))
+    template = VISION[name](models).init(torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in template.items()} == {
+        k: v.shape for k, v in state.items()}
+    back = params_to_state_dict(state_dict_to_params(template, state, device="cpu"))
+    for k, arr in state.items():
+        assert back[k].tobytes() == np.asarray(arr).tobytes(), k
