@@ -17,11 +17,19 @@ wave is padded with zero-weight phantom clients. Each round leaves its
 compute record (throughput, MFU, peak memory; ``obs/compute.py``) in
 ``last_compute``.
 
-Ported: ``run_round`` (vmap mode, waves), ``run_rounds``,
-``evaluate_round``. Not ported yet, and refused with NotImplementedError:
-a device mesh, regularizers (FedProx), DP-SGD, trainable partitions
-(LoRA), server optimizers (FedOpt), non-SGD local optimizers,
-checkpointing and ``run_rounds_fused``.
+Options, as in the JAX engine: a local ``optimizer`` (``core/optim.py``;
+plain SGD by default), a ``regularizer`` (FedProx: its anchor is the
+round's global trainable params), a ``trainable`` predicate (only those
+params are trained, folded and aggregated; the frozen rest is held once
+and never repeated per client) and a ``server_optimizer`` (FedOpt: the
+fp32 pseudo-gradient ``global - aggregate`` goes through it after the
+aggregator; ``optim.sgd(1.0)`` is exactly FedAvg).
+
+Ported: ``run_round`` (vmap mode, waves), ``run_rounds`` (with the
+server optimizer's state), ``evaluate_round``, ``evaluate_clients``.
+Not ported yet, and refused with NotImplementedError: a device mesh,
+DP-SGD, ``auto_wave_size`` (``wave_size="auto"``), checkpointing and
+``run_rounds_fused``.
 """
 
 from __future__ import annotations
@@ -29,13 +37,15 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from baton_tpu_torch import resolve_device
+from baton_tpu_torch.core import optim
 from baton_tpu_torch.core.model import FedModel, Params
+from baton_tpu_torch.core.partition import PathPredicate, make_partition
 from baton_tpu_torch.core.training import LocalTrainer, make_local_trainer, random_perms
 from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
@@ -49,6 +59,7 @@ class RoundResult:
     loss_history: torch.Tensor  # [n_epochs], sample-weighted across clients
     client_losses: Optional[torch.Tensor]  # [C, n_epochs]
     n_samples_total: torch.Tensor
+    server_opt_state: Any = None
 
 
 def client_eval_sums(model: FedModel, params, d, n):
@@ -78,30 +89,54 @@ class FedSim:
     def __init__(
         self,
         model: FedModel,
-        optimizer=None,
+        optimizer: Optional[optim.GradientTransformation] = None,
         batch_size: int = 32,
         learning_rate: float = 1e-3,
-        server_optimizer=None,
+        server_optimizer: Optional[optim.GradientTransformation] = None,
         mesh=None,
         regularizer=None,
-        trainable=None,
+        trainable: Optional[PathPredicate] = None,
         dp=None,
         aggregator: str = "mean",
         device="cuda",
     ):
-        not_ported = {"server_optimizer": server_optimizer, "mesh": mesh,
-                      "regularizer": regularizer, "trainable": trainable, "dp": dp}
-        for name, value in not_ported.items():
-            if value is not None:
-                raise NotImplementedError(f"FedSim({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("FedSim(mesh=...) is not ported yet")
         self.aggregator = agg.parse_aggregator(aggregator)
         self.device = resolve_device(device)
         self.model = model
         self.trainer: LocalTrainer = make_local_trainer(
             model, optimizer=optimizer, batch_size=batch_size,
-            learning_rate=learning_rate)
+            learning_rate=learning_rate, regularizer=regularizer, dp=dp)
+        self.server_optimizer = server_optimizer
+        # ``trainable(name, leaf) -> bool`` restricts training and
+        # aggregation to those params; the partition is built from the
+        # first params seen
+        self.trainable_predicate = trainable
+        self.partition = None
         self.compute_probe = ComputeProbe(model)
         self.last_compute: Optional[dict] = None
+
+    def _split(self, params: Params):
+        """(trainable, frozen); (params, None) without a partition."""
+        if self.trainable_predicate is None:
+            return params, None
+        if self.partition is None:
+            self.partition = make_partition(params, self.trainable_predicate)
+            self.trainer = dataclasses.replace(self.trainer, partition=self.partition)
+        return self.partition.split(params)
+
+    def init_server_opt_state(self, params: Params):
+        """The server optimizer's state over the trainable params, or None."""
+        if self.server_optimizer is None:
+            return None
+        trainable, _ = self._split(params)
+        return self.server_optimizer.init(trainable)
+
+    def auto_wave_size(self, *args, **kw):
+        raise NotImplementedError(
+            "auto_wave_size is not ported yet: it reads XLA's static memory plan, which "
+            "torch has no counterpart of; pass an explicit wave_size")
 
     def init(self, generator: torch.Generator) -> Params:
         return {k: v.to(self.device) for k, v in self.model.init(generator).items()}
@@ -132,12 +167,15 @@ class FedSim:
         generator: Optional[torch.Generator] = None,
         n_epochs: int = 1,
         wave_size: Optional[int] = None,
+        server_opt_state=None,
         client_indices: Optional[np.ndarray] = None,
         collect_client_losses: bool = True,
         progress_fn=None,
         perms: Optional[torch.Tensor] = None,
     ) -> RoundResult:
-        """One FedAvg round; returns the new global params.
+        """One federated round; returns the new global params (all of
+        them, frozen ones included) and, with a server optimizer, its new
+        state (``server_opt_state`` None starts from its init).
 
         ``perms`` [C, n_epochs, capacity] injects every client's
         per-epoch shuffle (for the selected cohort, after
@@ -145,6 +183,10 @@ class FedSim:
         ``progress_fn(waves_done, n_waves)`` runs on the host after each
         wave and waits for the device to finish it.
         """
+        if wave_size == "auto":
+            self.auto_wave_size()
+        trainable, frozen = self._split(params)
+        anchor = trainable if self.trainer.regularizer is not None else None
         data, n_samples = self._to_device(data, n_samples)
         if client_indices is not None:
             idx = torch.as_tensor(client_indices, device=self.device)
@@ -169,7 +211,7 @@ class FedSim:
                 {k: v[start:stop] for k, v in data.items()},
                 n_samples[start:stop], perms[start:stop], wave_size)
             client_params, client_losses = self.trainer.train_clients(
-                params, d, n, n_epochs, pm)
+                trainable, d, n, n_epochs, pm, anchor=anchor, frozen=frozen)
             w = n.float()
             lsum = w @ client_losses.float()
             if robust:
@@ -197,15 +239,25 @@ class FedSim:
 
         denom = w_acc.clamp_min(1e-9)
         if robust:
-            stacked = {k: torch.cat([part[k] for part in stacked_parts]) for k in params}
-            new_params = agg.aggregate_stacked(self.aggregator, stacked, n_samples, params)
+            stacked = {k: torch.cat([part[k] for part in stacked_parts]) for k in trainable}
+            aggregate = agg.aggregate_stacked(self.aggregator, stacked, n_samples, trainable)
         else:
-            new_params = {k: (s / denom).to(params[k].dtype) for k, s in psum_acc.items()}
+            aggregate = {k: (s / denom).to(trainable[k].dtype) for k, s in psum_acc.items()}
+        if self.server_optimizer is not None:
+            if server_opt_state is None:
+                server_opt_state = self.server_optimizer.init(trainable)
+            new_params, server_opt_state = server_update(
+                self.server_optimizer, trainable, aggregate, server_opt_state)
+        else:
+            new_params = aggregate
+        if self.partition is not None:
+            new_params = self.partition.merge(new_params, frozen)
         return RoundResult(
             params=new_params,
             loss_history=lsum_acc / denom,
             client_losses=torch.cat(per_client) if per_client else None,
             n_samples_total=w_acc,
+            server_opt_state=server_opt_state,
         )
 
     def _record_compute(self, train_s, data, n_samples, capacity, wave_size, n_epochs, robust):
@@ -225,42 +277,105 @@ class FedSim:
 
     def run_rounds(self, params: Params, data, n_samples,
                    generator: Optional[torch.Generator] = None, n_rounds: int = 1,
-                   n_epochs: int = 1, checkpointer=None, **kw):
-        """Loop over rounds; returns ``(params, loss_history list)``."""
+                   n_epochs: int = 1, checkpointer=None,
+                   return_server_opt_state: bool = False, **kw):
+        """Loop over rounds; returns ``(params, loss_history list)``, plus
+        the server optimizer's final state when ``return_server_opt_state``
+        is set, so that a chained call continues it (pass it back as
+        ``server_opt_state=``)."""
         if checkpointer is not None:
             raise NotImplementedError("checkpointing is not ported yet")
         data, n_samples = self._to_device(data, n_samples)
+        server_opt_state = kw.pop("server_opt_state", None)
         history = []
         for _ in range(n_rounds):
-            res = self.run_round(params, data, n_samples, generator,
-                                 n_epochs=n_epochs, **kw)
-            params = res.params
+            res = self.run_round(params, data, n_samples, generator, n_epochs=n_epochs,
+                                 server_opt_state=server_opt_state, **kw)
+            params, server_opt_state = res.params, res.server_opt_state
             history.extend(res.loss_history.tolist())
+        if return_server_opt_state:
+            return params, history, server_opt_state
         return params, history
 
     def run_rounds_fused(self, *args, **kw):
         raise NotImplementedError("run_rounds_fused is not ported yet")
 
     @torch.no_grad()
-    def evaluate_round(self, params: Params, data: Dict, n_samples,
-                       wave_size: Optional[int] = None) -> Dict[str, float]:
-        """Example-weighted federation-wide ``{"loss", "n", "accuracy"}``
-        of ``params`` over every client's local data, ``wave_size``
-        clients at a time."""
+    def _client_eval_sums(self, params: Params, data: Dict, n_samples,
+                          wave_size: Optional[int]) -> Dict[str, torch.Tensor]:
+        """Every client's evaluation sums (``client_eval_sums``), each
+        [C], ``wave_size`` clients at a time."""
         data, n_samples = self._to_device(data, n_samples)
         c = int(n_samples.shape[0])
         wave = c if wave_size is None else wave_size
         sums_fn = torch.func.vmap(
             lambda d, n: client_eval_sums(self.model, params, d, n))
-        totals: Dict[str, float] = {}
+        parts = []
         for start in range(0, c, wave):
             stop = min(start + wave, c)
             d, n, _ = self._pad_wave({k: v[start:stop] for k, v in data.items()},
                                      n_samples[start:stop], None, wave)
-            for k, v in sums_fn(d, n).items():
-                totals[k] = totals.get(k, 0.0) + float(v.sum())
+            parts.append({k: v[: stop - start] for k, v in sums_fn(d, n).items()})
+        return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+
+    def evaluate_round(self, params: Params, data: Dict, n_samples,
+                       wave_size: Optional[int] = None) -> Dict[str, float]:
+        """Example-weighted federation-wide ``{"loss", "n", "accuracy"}``
+        of ``params`` over every client's local data, ``wave_size``
+        clients at a time."""
+        totals = {k: float(v.sum())
+                  for k, v in self._client_eval_sums(params, data, n_samples, wave_size).items()}
         denom = max(totals.get("n", 0.0), 1.0)
         out = {"loss": totals.get("loss_sum", 0.0) / denom, "n": denom}
         if "correct_sum" in totals:
             out["accuracy"] = totals["correct_sum"] / denom
         return out
+
+    def evaluate_clients(self, params: Params, data: Dict, n_samples,
+                         wave_size: Optional[int] = None) -> Dict[str, Any]:
+        """Per-client evaluation and a fairness summary. ``per_client``
+        holds numpy arrays of loss, accuracy (for integer labels) and n,
+        NaN for a client without samples; ``fairness`` the mean and std
+        of the metric over the clients with samples, and its tail:
+        ``worst`` and ``worst_decile`` are min and p10 for accuracy but
+        max and p90 for loss, so they always describe the struggling
+        clients."""
+        sums = {k: v.cpu().numpy() for k, v in
+                self._client_eval_sums(params, data, n_samples, wave_size).items()}
+        n_arr = sums["n"]
+        valid = n_arr > 0
+        denom = np.where(valid, n_arr, 1.0)
+        per_client: Dict[str, Any] = {
+            "loss": np.where(valid, sums["loss_sum"] / denom, np.nan), "n": n_arr}
+        metric = "loss"
+        if "correct_sum" in sums:
+            per_client["accuracy"] = np.where(valid, sums["correct_sum"] / denom, np.nan)
+            metric = "accuracy"
+        vals = per_client[metric][valid]
+        higher_is_better = metric == "accuracy"
+        if vals.size:
+            worst = float(np.min(vals) if higher_is_better else np.max(vals))
+            worst_decile = float(np.percentile(vals, 10 if higher_is_better else 90))
+        else:
+            worst = worst_decile = float("nan")
+        fairness = {
+            "metric": metric,
+            "mean": float(np.mean(vals)) if vals.size else float("nan"),
+            "std": float(np.std(vals)) if vals.size else float("nan"),
+            "worst": worst,
+            "worst_decile": worst_decile,
+            "n_clients": int(valid.sum()),
+        }
+        return {"per_client": per_client, "fairness": fairness}
+
+
+def server_update(server_optimizer: optim.GradientTransformation, params: Params,
+                  aggregate: Params, opt_state):
+    """FedOpt: the pseudo-gradient ``global - aggregate`` (formed in fp32,
+    cast to the param dtype) goes through the server optimizer. With
+    ``optim.sgd(1.0)`` this is exactly the FedAvg assignment."""
+    fp32 = {k: v.float() for k, v in params.items()}
+    pseudo_grad = agg.tree_cast_like(
+        agg.tree_sub(fp32, {k: v.float() for k, v in aggregate.items()}), params)
+    updates, opt_state = server_optimizer.update(pseudo_grad, opt_state, params)
+    return optim.apply_updates(params, updates), opt_state

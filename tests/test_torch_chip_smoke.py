@@ -9,11 +9,15 @@ bf16's resolution, must not.
 Then ``kernel_kind`` on kernel names of cuDNN convolutions, GroupNorm,
 cuBLAS and the port; phase 6's check of the vmapped round against every
 client trained alone, on a tiny ResNet, passing and failing a trainer
-that mixes the clients up; and ``main`` with every phase, the card and
-nvidia-smi stubbed: it runs phases 2-7 in order and ends with the card's
-name and power limit, the kernels line and the ok/device line; a failing
-vision phase fails it before any result line."""
+that mixes the clients up; phases 8-10's checks at a tiny size (FedProx's
+drift, the frozen tensors of a partitioned round, the card-against-CPU
+comparator), each passing and failing a broken input; and ``main`` with
+every phase, the card and nvidia-smi stubbed: it runs phases 2-10 in
+order and ends with the card's name and power limit, the kernels line and
+the ok/device line; a failing phase from 6 on fails it before any result
+line."""
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -181,7 +185,9 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 
 
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
-          "resnet_round_phase", "vision_parity_phase")
+          "resnet_round_phase", "vision_parity_phase", "fedprox_bert_phase",
+          "resnet_optimizer_phase", "options_parity_phase")
+COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -199,7 +205,9 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                 raise RuntimeError(f"check failed: {phase}")
             return {"bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {}),
                     "timing_phase": ([{"name": "flash_fwd"}], {}),
-                    "resnet_round_phase": {}}.get(phase)
+                    "resnet_round_phase": {},
+                    "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
+                    "resnet_optimizer_phase": {}, "options_parity_phase": {}}.get(phase)
         return run
 
     for phase in PHASES:
@@ -228,14 +236,128 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
-    assert json.loads(lines[-2]) == {"kernels": [{"name": "flash_fwd"}]}
+    assert json.loads(lines[-2]) == {"kernels": [{
+        "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
-@pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase"])
+@pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
+                                     "fedprox_bert_phase", "resnet_optimizer_phase",
+                                     "options_parity_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
         chip_smoke.main()
     assert called[-1] == failing
     assert '"ok": true' not in capsys.readouterr().out
+
+
+def _tiny_bert_cohort():
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = BertConfig.tiny()
+    datasets = chip_smoke.config3_datasets(np.random.default_rng(0), cfg, 4, 8)
+    datasets[2] = {k: v[:0] for k, v in datasets[2].items()}  # a client without samples
+    data, n_samples = stack_client_datasets(datasets, batch_size=4)
+    model = bert_classifier_model(cfg)
+    return model, model.init(torch.Generator().manual_seed(0)), data, n_samples
+
+
+def test_config3_data_is_the_examples():
+    """Phase 8's copy of ``make_data`` (examples/03_bert_fedprox.py) draws
+    the example's arrays bit for bit: each client skewed to two classes."""
+    from baton_tpu_torch.models.bert import BertConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "bert_fedprox_example",
+        Path(__file__).resolve().parents[1] / "examples" / "03_bert_fedprox.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = BertConfig.tiny()
+    datasets = chip_smoke.config3_datasets(np.random.default_rng(0), cfg, 6, 16)
+    want = example.make_data(np.random.default_rng(0), example.BertConfig.tiny(), 6, 16)
+    for d, w in zip(datasets, want, strict=True):
+        assert d.keys() == w.keys()
+        for k in d:
+            np.testing.assert_array_equal(d[k], w[k])
+            assert d[k].dtype == w[k].dtype == np.int32
+        assert d["x"].shape == (16, cfg.max_len)
+        assert len(set(d["y"].tolist())) <= 2 and d["x"].max() < cfg.vocab_size
+
+
+@pytest.mark.parametrize("swapped", [False, True], ids=["mu_as_set", "mu_swapped"])
+def test_fedprox_drift_check(swapped):
+    """Phase 8's drift comparison on tiny BERT: FedProx (mu 0.1) keeps the
+    clients nearer the global params; the sims swapped must fail."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core.regularizers import fedprox
+    from baton_tpu_torch.core.training import random_perms
+
+    model, params, data, n_samples = _tiny_bert_cohort()
+    perms = random_perms(4, 2, data["x"].shape[1], torch.Generator().manual_seed(1))
+    sims = [FedSim(model, batch_size=4, learning_rate=0.05, device="cpu", **kw)
+            for kw in ({}, {"regularizer": fedprox(0.1)})]
+    free, prox = (chip_smoke.mean_client_drift(sim, params, data, n_samples, 2, perms)
+                  for sim in (sims[::-1] if swapped else sims))
+    if swapped:
+        with pytest.raises(RuntimeError, match="did not reduce the client drift"):
+            chip_smoke.check_fedprox_drift(free, prox)
+    else:
+        chip_smoke.check_fedprox_drift(free, prox)
+
+
+@pytest.mark.parametrize("fault", [None, "frozen_perturbed", "trainable_still"])
+def test_partition_round_check(fault):
+    """Phase 8's check of a trainable-head round: frozen tensors
+    bit-equal, trainable ones moved; a frozen tensor off by one ulp, or a
+    trainable one left as it was, fails it."""
+    from baton_tpu_torch import FedSim
+
+    model, params, data, n_samples = _tiny_bert_cohort()
+    sim = FedSim(model, batch_size=4, learning_rate=0.05, device="cpu",
+                 trainable=lambda name, leaf: name.startswith(chip_smoke.CONFIG3_HEAD))
+    end = dict(sim.run_round(params, data, n_samples, torch.Generator().manual_seed(0)).params)
+    trainable = sim.partition.trainable_paths
+    if fault == "frozen_perturbed":
+        scale = end["ln_f/scale"]
+        end["ln_f/scale"] = torch.nextafter(scale, torch.full_like(scale, 2))
+    elif fault == "trainable_still":
+        end["head/b"] = params["head/b"].clone()
+    if fault is None:
+        chip_smoke.check_partition_round(params, end, trainable)
+    else:
+        with pytest.raises(RuntimeError, match="frozen params changed|did not move"):
+            chip_smoke.check_partition_round(params, end, trainable)
+
+
+def test_options_against_cpu_at_a_tiny_size():
+    """Phase 10's comparator runs every option; with the CPU on both sides
+    every gap is 0."""
+    model, params, data, n_samples = _tiny_bert_cohort()
+    perms = torch.stack([torch.randperm(8, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(4)])
+    errs = chip_smoke.options_against_cpu("tiny", model, params, data, n_samples, perms, 4,
+                                          0.05, ("pooler/", "head/"), device="cpu")
+    assert set(errs) == set(chip_smoke.option_variants(("pooler/", "head/")))
+    assert all(e == 0.0 for e in errs.values())
+
+
+@pytest.mark.parametrize("gap", [5e-5, 2e-4])
+def test_compare_rounds_holds_the_tolerance(gap):
+    """The card-against-CPU comparator passes a gap within 1e-4 and fails
+    one beyond it, in the params and in the losses."""
+    from baton_tpu_torch import FedSim
+
+    model, params, data, n_samples = _tiny_bert_cohort()
+    res = FedSim(model, batch_size=4, learning_rate=0.05, device="cpu").run_round(
+        params, data, n_samples, torch.Generator().manual_seed(0))
+    shifted = dataclasses.replace(res, params={k: v + gap for k, v in res.params.items()})
+    lossy = dataclasses.replace(res, loss_history=res.loss_history + gap)
+    for card in (shifted, lossy):
+        if gap <= 1e-4:
+            chip_smoke.compare_rounds("tiny", card, res, params)
+        else:
+            with pytest.raises(RuntimeError, match="card and CPU"):
+                chip_smoke.compare_rounds("tiny", card, res, params)
+    assert chip_smoke.compare_rounds("tiny", lossy, res, params, hold=False) == 0.0

@@ -52,15 +52,20 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 def test_unported_options_are_refused():
     model = bert_classifier_model(BertConfig.tiny())
-    for kw in ({"mesh": object()}, {"dp": object()}, {"regularizer": object()},
-               {"trainable": object()}, {"server_optimizer": object()},
-               {"optimizer": object()}):
+    for kw in ({"mesh": object()}, {"dp": object()}):
         with pytest.raises(NotImplementedError):
             FedSim(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown aggregator"):
         FedSim(model, device="cpu", aggregator="krum")
+    sim = FedSim(model, device="cpu")
     with pytest.raises(NotImplementedError):
-        FedSim(model, device="cpu").run_rounds_fused()
+        sim.run_rounds_fused()
+    with pytest.raises(NotImplementedError):
+        sim.auto_wave_size()
+    with pytest.raises(NotImplementedError):
+        sim.run_round({}, {}, [], wave_size="auto")
+    with pytest.raises(NotImplementedError):
+        sim.run_rounds({}, {}, [], checkpointer=object())
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -61,7 +61,7 @@ def _run_both(models, capacity, n, n_epochs):
         jparams, {k: jnp.asarray(v) for k, v in data.items()}, jnp.asarray(n), rng,
         n_epochs)
     perm = torch.from_numpy(jax_perms(rng, n_epochs, capacity))
-    tp, tloss = make_local_trainer(tmodel, batch_size=BATCH, learning_rate=0.05).train(
+    tp, _, tloss = make_local_trainer(tmodel, batch_size=BATCH, learning_rate=0.05).train(
         tparams, {k: torch.from_numpy(v) for k, v in data.items()}, n, n_epochs, perm=perm)
     return jax_to_state(jp), tp, np.asarray(jloss), tloss.numpy()
 
@@ -81,7 +81,7 @@ def test_matches_jax_trainer(models, capacity, n, n_epochs, tol):
 def test_zero_sample_client_is_exact_noop(models):
     _, _, tmodel, tparams = models
     data = {k: torch.from_numpy(v) for k, v in client_data(3, 2 * BATCH, 0).items()}
-    tp, tloss = make_local_trainer(tmodel, batch_size=BATCH, learning_rate=0.05).train(
+    tp, _, tloss = make_local_trainer(tmodel, batch_size=BATCH, learning_rate=0.05).train(
         tparams, data, 0, 2, generator=torch.Generator().manual_seed(0))
     assert torch.equal(tloss, torch.zeros(2))
     for name, v in tparams.items():
