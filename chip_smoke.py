@@ -65,7 +65,23 @@ exits non-zero:
    (phase 7's), two rounds each with local momentum, local Adam, FedProx,
    a FedAdam server, a trainable part, then all of them at once, card
    against the CPU: params and losses within 1e-4 (``option_variants``
-   says why Adam's eps is raised there).
+   says why Adam's eps is raised there);
+11. the reference's HTTP round on the card: a ``Manager`` and 8
+   ``ExperimentWorker``s in this process over loopback (BTW1 uploads,
+   the mean aggregator), each worker training phase 6's ResNet-18 (bf16
+   compute) on 48 samples drawn as phase 6 draws them, batch 32, 1 epoch,
+   lr 0.05: a warm-up and 5 timed rounds (from ``start_round`` until the
+   round count advances), samples/s, the split of a round from the
+   manager's and workers' spans, each worker's compute record as it
+   reached the manager and ``rounds.jsonl``, and peak memory. The global
+   params equal the sample-weighted mean of the bodies the manager
+   received (1e-6), no flash kernel launches, and every trainer is handed
+   tensors on the card. Then an fp32 variant, 2 workers (20 and 48
+   samples) for 2 rounds, against each worker's local train replayed in
+   this process from the broadcast and merged by the port's aggregator:
+   params within 1e-4 and within a hundredth of the round's largest
+   param change, while a replay with the 20-sample worker counted as 32,
+   or with its upload dropped, must fail that check.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -79,6 +95,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -1240,6 +1257,369 @@ def options_parity_phase():
     return errs
 
 
+# phase 11: the reference's HTTP round. A Manager and ExperimentWorkers in
+# this process, over loopback, speaking the BTW1 wire; every worker trains
+# bench.py's ResNet-18 on the card from its own thread.
+
+HTTP_FOLD_TOL = 1e-6  # global params against the fold of the bodies the manager received
+HTTP_REPLAY_TOL = 1e-4  # the fp32 HTTP round against its in-process replay (as phases 4, 7, 10)
+REPLAY_MOVE_SHARE = 1e-2  # ... and the gap within this share of the round's largest param change
+ROUND_LIMIT_S = 120.0  # one HTTP round, from start_round until every worker is idle again
+
+
+def fold_of_uploads(bodies):
+    """The sample-weighted mean of BTW1 upload bodies, recomputed from the
+    bodies in fp64: ``({name: fp32 array}, total weight)``."""
+    from baton_tpu_torch.server import wire
+
+    sums, total = {}, 0.0
+    for body in bodies:
+        tensors, meta = wire.decode(body)
+        w = float(meta["n_samples"])
+        for k, v in tensors.items():
+            sums[k] = sums.get(k, 0.0) + np.asarray(v, np.float64) * w
+        total += w
+    return {k: (v / total).astype(np.float32) for k, v in sums.items()}, total
+
+
+def max_gap(a, b) -> float:
+    """Largest absolute difference between two dicts of same-named arrays
+    or tensors."""
+    check(set(a) == set(b), f"different tensors: {sorted(set(a) ^ set(b))}")
+    as_np = lambda v: v.detach().cpu().double().numpy() if torch.is_tensor(v) else np.asarray(  # noqa: E731
+        v, np.float64)
+    return max(float(np.max(np.abs(as_np(a[k]) - as_np(b[k])))) for k in a)
+
+
+SPLIT_NEEDS = ("round_setup", "local_train", "encode_update", "upload", "ingest_fold", "aggregate")
+
+
+def round_split(spans):
+    """A round's split from its trace (the manager's spans and those its
+    workers shipped), in seconds: the manager's setup (the blob's encode
+    and the notify fan-out, the workers' blob fetch and load included),
+    the workers' local train (mean and max), upload encode, transfer +
+    decode (the worker's upload less the manager's fold: its 200 means
+    folded) with the decode alone, the fold of one upload, and the merge."""
+    by = {}
+    for s in spans:
+        by.setdefault(s["name"], []).append(s["end"] - s["start"])
+    missing = [n for n in SPLIT_NEEDS if not by.get(n)]
+    check(not missing, f"spans missing from the round's trace: {missing} (has {sorted(by)})")
+    mean = {n: float(np.mean(v)) for n, v in by.items()}
+    return {"setup": mean["round_setup"], "local_train": mean["local_train"],
+            "local_train_max": max(by["local_train"]), "upload_encode": mean["encode_update"],
+            "transfer_decode": mean["upload"] - mean["ingest_fold"],
+            "decode": mean.get("ingest_decode", 0.0), "fold": mean["ingest_fold"],
+            "merge": mean["aggregate"], "uploads": len(by["upload"])}
+
+
+def mean_split(splits):
+    """The per-key mean of several rounds' splits."""
+    return {k: float(np.mean([s[k] for s in splits])) for k in splits[0]}
+
+
+def recording_trainer(trainer, seen):
+    """``trainer`` whose ``train`` first notes the devices of the params
+    and data it is handed in ``seen``."""
+    from baton_tpu_torch.core.training import LocalTrainer
+
+    class Recording(LocalTrainer):
+        def train(self, params, data, *args, **kw):
+            seen.append(sorted({v.device.type for v in [*params.values(), *data.values()]}))
+            return super().train(params, data, *args, **kw)
+
+    return Recording(**{f.name: getattr(trainer, f.name)
+                        for f in dataclasses.fields(LocalTrainer)})
+
+
+async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds):
+    """A Manager and one ExperimentWorker per dataset on loopback, all on
+    the card; ``rounds(exp, workers, drive)`` runs the rounds, where
+    ``await drive()`` starts one and returns its seconds from
+    ``start_round`` until ``rounds.n_rounds`` advances. Returns what
+    ``rounds`` returns, with the bodies the manager received, the devices
+    the trainers were handed and the compute records."""
+    import asyncio
+    import socket
+
+    import aiohttp
+    from aiohttp import web
+
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.server.http_manager import Manager
+    from baton_tpu_torch.server.http_worker import ExperimentWorker
+
+    def listen():
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        return sock, sock.getsockname()[1]
+
+    async def serve(app, sock):
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.SockSite(runner, sock).start()
+        return runner
+
+    sock, mport = listen()
+    app = web.Application()
+    exp = Manager(app).register_experiment(
+        model, name="httpround", round_timeout=300.0, rng_seed=0,
+        rounds_log_path=str(Path(log_dir) / "rounds.jsonl"))
+    bodies, seen = [], []
+    decoder = exp._make_upload_decoder
+
+    def recording_decoder(body, content_type):
+        bodies.append(bytes(body))
+        return decoder(body, content_type)
+
+    exp._make_upload_decoder = recording_decoder
+    runners, workers = [await serve(app, sock)], []
+    for d, seed in zip(datasets, seeds):
+        wsock, wport = listen()
+        wapp = web.Application()
+        trainer = recording_trainer(make_local_trainer(model, batch_size=batch,
+                                                       learning_rate=lr), seen)
+        workers.append(ExperimentWorker(
+            wapp, model, f"127.0.0.1:{mport}", name="httpround", port=wport,
+            heartbeat_time=30.0, rng_seed=seed, trainer=trainer,
+            get_data=lambda d=d: (d, d["x"].shape[0])))
+        runners.append(await serve(wapp, wsock))
+    for _ in range(3000):
+        if len(exp.registry) == len(workers):
+            break
+        await asyncio.sleep(0.01)
+    check(len(exp.registry) == len(workers), f"{len(exp.registry)} of {len(workers)} registered")
+    session = aiohttp.ClientSession()
+    url = f"http://127.0.0.1:{mport}/httpround/start_round?n_epoch=1"
+    # the timer waits on the manager's end_round, not on a busy poll of the
+    # event loop that the manager and every worker share
+    round_ended, end_round, loop = asyncio.Event(), exp.end_round, asyncio.get_running_loop()
+
+    def end_round_and_signal():
+        end_round()
+        loop.call_soon_threadsafe(round_ended.set)
+
+    exp.end_round = end_round_and_signal
+
+    async def drive():
+        n0 = exp.rounds.n_rounds
+        round_ended.clear()
+        t0 = time.perf_counter()
+        async with session.get(url) as resp:
+            check(resp.status == 200, f"start_round answered {resp.status}")
+            acks = await resp.json()
+        check(len(acks) == len(workers) and all(acks.values()), f"acks {acks}")
+        while exp.rounds.n_rounds == n0:
+            left = ROUND_LIMIT_S - (time.perf_counter() - t0)
+            check(left > 0, f"the round did not complete in {ROUND_LIMIT_S} s")
+            with contextlib.suppress(TimeoutError):
+                await asyncio.wait_for(round_ended.wait(), left)
+            round_ended.clear()
+        dt = time.perf_counter() - t0
+        # a worker still flagged mid-round would 409 the next broadcast
+        while any(w.round_in_progress for w in workers):
+            check(time.perf_counter() - t0 < ROUND_LIMIT_S, "a worker stayed mid-round")
+            await asyncio.sleep(0.02)
+        return dt
+
+    try:
+        out = await rounds(exp, workers, drive)
+        # the workers ship their spans after each delivery
+        for w in workers:
+            if w._ship_task is not None:
+                await w._ship_task
+    finally:
+        await session.close()
+        for r in runners[1:] + runners[:1]:
+            await r.cleanup()
+    return out, bodies, seen
+
+
+def http_round_phase(fa):
+    """Phase 11: ``bench.py``'s ResNet-18 (bf16 compute) on 8 HTTP workers
+    under one Manager, all on the card in this process; then an fp32
+    variant held against its in-process replay."""
+    import asyncio
+    import tempfile
+
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.obs.compute import validate_record
+    from baton_tpu_torch.server import wire
+    from baton_tpu_torch.server.state import params_to_state_dict
+    from baton_tpu_torch.utils import tracing
+    from baton_tpu_torch.utils.slog import read_rounds_jsonl
+
+    n_workers, per_worker, batch, lr, n_timed = 8, 48, 32, 0.05, 5
+    rng = np.random.default_rng(0)  # drawn as phase 6 draws its clients
+    datasets = [{"x": rng.normal(size=(per_worker, 32, 32, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, size=(per_worker,)).astype(np.int32)}
+                for _ in range(n_workers)]
+    model = resnet18_cifar_model(compute_dtype=torch.bfloat16, conv_impl="direct")
+    n_total = n_workers * per_worker
+    print(f"phase 11: the HTTP round: a Manager and {n_workers} ExperimentWorkers on loopback, "
+          f"ResNet-18 as bench.py (bf16 compute, conv direct), {per_worker} samples a worker, "
+          f"batch {batch}, 1 epoch, lr {lr}, mean aggregator, BTW1 uploads")
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    async def rounds(exp, workers, drive):
+        n_params = sum(v.numel() for v in exp.params.values())
+        check(all(v.device.type == "cuda" for v in exp.params.values()),
+              "the manager's params are not on the card")
+        warm = await drive()
+        times = [await drive() for _ in range(n_timed)]
+        return {"n_params": n_params, "warm_up_s": warm, "round_s": times,
+                "params": params_to_state_dict(exp.params), "exp": exp}
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        out, bodies, seen = asyncio.run(http_federation(
+            model, datasets, seeds=range(n_workers), lr=lr, batch=batch, log_dir=log_dir,
+            rounds=rounds))
+        records, torn = read_rounds_jsonl(str(Path(log_dir) / "rounds.jsonl"))
+    exp = out.pop("exp")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = out["round_s"]
+    check(len(bodies) == n_workers * (n_timed + 1), f"{len(bodies)} uploads received")
+    last_round = {wire.decode(b)[1]["update_name"] for b in bodies[-n_workers:]}
+    check(last_round == {records[-1]["round"]}, f"the last uploads belong to {last_round}")
+    fold, weight = fold_of_uploads(bodies[-n_workers:])
+    fold_gap = max_gap(out["params"], fold)
+    check(weight == n_total, f"the last round's uploads weigh {weight}, not {n_total}")
+    check(fold_gap <= HTTP_FOLD_TOL,
+          f"global params differ from the fold of the uploads by {fold_gap:.3e}")
+    check(all(devs == ["cuda"] for devs in seen), f"a trainer was handed CPU tensors: {seen}")
+    check(all(np.isfinite(v).all() for v in out["params"].values()), "non-finite params")
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched in the HTTP round: {flash}")
+    check(torn == 0 and len(records) == n_timed + 1, f"rounds.jsonl: {len(records)} records, "
+          f"{torn} torn")
+    check(all(r["outcome"] == "completed" and r["reporters"] == n_workers for r in records),
+          "a round in rounds.jsonl did not complete with every worker")
+    splits = [round_split(exp.tracer.spans_for(tracing.make_trace_id(exp.name, r["round"])))
+              for r in records[1:]]
+    split = mean_split(splits)
+    s_mean, s_median = float(np.mean(times)), float(np.median(times))
+    print(f"  {out['n_params'] / 1e6:.2f} M params a worker, {len(bodies[-1]) / 1e6:.1f} MB an "
+          f"upload; warm-up round {out['warm_up_s']:.4f} s")
+    print(f"  s/round mean {s_mean:.4f}, median {s_median:.4f} (rounds 1-{n_timed}: "
+          f"{', '.join(f'{t:.4f}' for t in times)}); samples/s {n_total / s_mean:.1f} (at the "
+          f"median {n_total / s_median:.1f}); peak memory {peak_gb:.2f} GB (the card, every "
+          f"worker and the manager)")
+    print("  split of a round (mean of the timed rounds, s; from the manager's and workers' "
+          "spans): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"  aggregate against the fold of the last round's {n_workers} uploads: max |diff| "
+          f"{fold_gap:.3e} (tol {HTTP_FOLD_TOL}); trainers handed {seen[0]} tensors; flash "
+          f"launches {flash}")
+    last = [wire.decode(b)[1].get("compute") or {} for b in bodies[-n_workers:]]
+    check(all(validate_record(c) == [] for c in last), "a worker's compute record is invalid")
+    print("  compute records of the last round, as they reached the manager (samples/s, peak "
+          "GB, mfu): " + "; ".join(f"{c.get('samples_per_sec')}, {c.get('peak_hbm_gb')}, "
+                                   f"{c.get('mfu')}" for c in last))
+    for r in records:
+        c = r["compute"]
+        print(f"  rounds.jsonl {r['round']}: duration {r['duration_s']} s, compute: reporters "
+              f"{c['reporters']}, samples/s per chip {c.get('samples_per_sec_per_chip')}, peak "
+              f"{c.get('peak_hbm_gb')} GB, mfu {c.get('mfu')}")
+    stats = {"round_s": times, "s_per_round": s_mean, "s_per_round_median": s_median,
+             "samples_per_s": n_total / s_mean, "warm_up_s": out["warm_up_s"],
+             "peak_memory_gb": peak_gb, "split": split, "split_by_round": splits,
+             "fold_gap": fold_gap, "worker_compute": last}
+    stats["replay"] = http_replay_phase()
+    return stats
+
+
+def replay_merge(trained, counts, like):
+    """The port's mean aggregator over the replayed workers' params,
+    weighted by their sample ``counts`` and cast like ``like``."""
+    from baton_tpu_torch.ops import aggregation as agg
+
+    device = next(iter(like.values())).device
+    weights = torch.tensor([float(n) for n in counts], device=device)
+    return agg.tree_cast_like(agg.apply_aggregator(
+        agg.parse_aggregator("mean"), agg.tree_stack(trained), weights), like)
+
+
+def replay_holds(gap: float, moved: float) -> bool:
+    """The replay check: the gap within ``HTTP_REPLAY_TOL`` and within
+    ``REPLAY_MOVE_SHARE`` of the round's largest param change."""
+    return gap <= HTTP_REPLAY_TOL and gap <= REPLAY_MOVE_SHARE * moved
+
+
+def hold_replay(name, start, end, trained, counts, batch):
+    """One fp32 HTTP round, from ``start`` to the manager's ``end``,
+    against its replay: the workers' replayed params ``trained`` merged
+    with their sample ``counts``. Two planted faults must fail the same
+    check: the last worker's samples counted as its padded batches, and
+    its upload dropped. Returns the gap and the largest param change."""
+    gap, moved = max_gap(end, replay_merge(trained, counts, start)), max_gap(end, start)
+    padded = -(-counts[-1] // batch) * batch
+    faults = {
+        f"the last worker's {counts[-1]} samples counted as {padded}":
+            replay_merge(trained, [*counts[:-1], padded], start),
+        "the last worker's upload dropped": replay_merge(trained[:-1], counts[:-1], start),
+    }
+    controls = {fault: max_gap(end, want) for fault, want in faults.items()}
+    print(f"  {name}: manager against the replay max |diff| {gap:.3e} (tol {HTTP_REPLAY_TOL} and "
+          f"{REPLAY_MOVE_SHARE} x the max |param change| {moved:.3e}); against planted faults: "
+          + ", ".join(f"{fault} {g:.3e}" for fault, g in controls.items()))
+    check(moved > 0, f"{name} left the params unchanged")
+    check(replay_holds(gap, moved), f"{name}: the HTTP round and its replay differ by {gap:.3e} "
+          f"(max |param change| {moved:.3e})")
+    for fault, g in controls.items():
+        check(not replay_holds(g, moved), f"{name}: the replay check cannot see {fault} "
+              f"({g:.3e})")
+    return gap, moved
+
+
+def http_replay_phase():
+    """Phase 11's fp32 variant: 2 workers (one with fewer samples than a
+    batch), 2 rounds; each worker's local train replayed in-process with
+    ``LocalTrainer.train`` from the broadcast params, its data and a
+    generator seeded as the worker seeds it, merged by the port's
+    aggregator (``hold_replay``)."""
+    import asyncio
+    import tempfile
+
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.ops.padding import pad_dataset, round_up
+
+    batch, lr, seeds = 32, 0.05, (11, 12)
+    rng = np.random.default_rng(5)
+    datasets = [{"x": rng.normal(size=(n, 32, 32, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, size=(n,)).astype(np.int32)} for n in (48, 20)]
+    model = resnet18_cifar_model(compute_dtype=torch.float32, conv_impl="direct")
+
+    async def rounds(exp, workers, drive):
+        starts, ends = [], []
+        for _ in range(2):
+            starts.append({k: v.clone() for k, v in exp.params.items()})
+            await drive()
+            ends.append({k: v.clone() for k, v in exp.params.items()})
+        return starts, ends
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        (starts, ends), _, seen = asyncio.run(http_federation(
+            model, datasets, seeds=seeds, lr=lr, batch=batch, log_dir=log_dir, rounds=rounds))
+    check(all(devs == ["cuda"] for devs in seen), f"a trainer was handed CPU tensors: {seen}")
+    trainer = make_local_trainer(model, batch_size=batch, learning_rate=lr)
+    gens = [torch.Generator().manual_seed(s + 1) for s in seeds]
+    padded = []
+    for d in datasets:
+        p, n = pad_dataset(d, round_up(d["x"].shape[0], batch))
+        padded.append(({k: torch.as_tensor(v, device="cuda") for k, v in p.items()}, n))
+    readings = []
+    for r, (start, end) in enumerate(zip(starts, ends)):
+        trained = [trainer.train(start, d, n, 1, generator=g)[0]
+                   for (d, n), g in zip(padded, gens)]
+        gap, moved = hold_replay(f"fp32 variant, round {r}", start, end, trained,
+                                 [n for _, n in padded], batch)
+        readings.append({"gap": gap, "moved": moved})
+    return readings
+
+
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -1290,6 +1670,9 @@ def main() -> int:
     optimizer_stats = resnet_optimizer_phase(resnet_stats)
     parity_errs = options_parity_phase()
     print(f"phases 8-10 took {time.perf_counter() - options:.1f} s")
+    http = time.perf_counter()
+    http_stats = http_round_phase(fa)
+    print(f"phase 11 took {time.perf_counter() - http:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -1297,7 +1680,7 @@ def main() -> int:
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
-                      "options_parity": parity_errs}))
+                      "options_parity": parity_errs, "http_round": http_stats}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

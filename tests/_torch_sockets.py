@@ -1,0 +1,81 @@
+"""Helpers for the port's socket tests (not a test module).
+
+* :func:`run_bounded` runs a test's coroutine under its own wall-clock
+  limit: ``asyncio.run`` in a daemon thread, joined with a timeout. At the
+  limit the test fails with every thread's stack
+  (``faulthandler.dump_traceback(all_threads=True)``), so a hang names
+  where it blocks instead of stalling the whole run.
+* :func:`listen` binds an ephemeral port and keeps the socket open;
+  :func:`serve` hands that very socket to aiohttp (``web.SockSite``). No
+  port is closed and re-bound, so parallel test processes cannot race
+  for it.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import faulthandler
+import socket
+import tempfile
+import threading
+
+import pytest
+from aiohttp import web
+
+# A federation round of the linear model takes well under a second on one
+# core; a test here runs a few. The limit only bounds a hang.
+LIMIT_S = 60.0
+
+
+def run_bounded(coro_fn, limit_s: float = LIMIT_S):
+    """Run ``coro_fn()`` to completion in its own event loop within
+    ``limit_s`` seconds; return its result or raise its exception."""
+    out = {}
+
+    def target():
+        try:
+            out["value"] = asyncio.run(coro_fn())
+        except BaseException as exc:  # handed to the test thread below
+            out["error"] = exc
+
+    thread = threading.Thread(target=target, name="bounded-test", daemon=True)
+    thread.start()
+    thread.join(limit_s)
+    if thread.is_alive():
+        with tempfile.TemporaryFile("w+") as fh:
+            faulthandler.dump_traceback(file=fh, all_threads=True)
+            fh.seek(0)
+            stacks = fh.read()
+        pytest.fail(f"the test passed its {limit_s:.0f} s limit; every thread's "
+                    f"stack:\n{stacks}", pytrace=False)
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+def listen():
+    """``(socket, port)``: a TCP socket bound to an ephemeral loopback
+    port, kept open for :func:`serve`."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.bind(("127.0.0.1", 0))
+    return sock, sock.getsockname()[1]
+
+
+async def serve(app: web.Application, sock) -> web.AppRunner:
+    """Serve ``app`` on the already bound ``sock``; returns the runner
+    (``await runner.cleanup()`` stops it)."""
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.SockSite(runner, sock).start()
+    return runner
+
+
+async def wait_until(cond, timeout_s: float = 20.0, dt: float = 0.02) -> bool:
+    """Poll ``cond()`` until it holds or ``timeout_s`` passes."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout_s
+    while loop.time() < deadline:
+        if cond():
+            return True
+        await asyncio.sleep(dt)
+    return cond()

@@ -11,11 +11,12 @@ cuBLAS and the port; phase 6's check of the vmapped round against every
 client trained alone, on a tiny ResNet, passing and failing a trainer
 that mixes the clients up; phases 8-10's checks at a tiny size (FedProx's
 drift, the frozen tensors of a partitioned round, the card-against-CPU
-comparator), each passing and failing a broken input; and ``main`` with
-every phase, the card and nvidia-smi stubbed: it runs phases 2-10 in
-order and ends with the card's name and power limit, the kernels line and
-the ok/device line; a failing phase from 6 on fails it before any result
-line."""
+comparator), each passing and failing a broken input; phase 11's fold of
+the uploads, the split of a round from its spans and the trainer that
+notes its devices; and ``main`` with every phase, the card and nvidia-smi
+stubbed: it runs phases 2-11 in order and ends with the card's name and
+power limit, the kernels line and the ok/device line; a failing phase from
+6 on fails it before any result line."""
 
 import dataclasses
 import importlib.util
@@ -186,7 +187,7 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
           "resnet_round_phase", "vision_parity_phase", "fedprox_bert_phase",
-          "resnet_optimizer_phase", "options_parity_phase")
+          "resnet_optimizer_phase", "options_parity_phase", "http_round_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 
 
@@ -207,7 +208,8 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "timing_phase": ([{"name": "flash_fwd"}], {}),
                     "resnet_round_phase": {},
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
-                    "resnet_optimizer_phase": {}, "options_parity_phase": {}}.get(phase)
+                    "resnet_optimizer_phase": {}, "options_parity_phase": {},
+                    "http_round_phase": {}}.get(phase)
         return run
 
     for phase in PHASES:
@@ -243,7 +245,7 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
 
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
                                      "fedprox_bert_phase", "resnet_optimizer_phase",
-                                     "options_parity_phase"])
+                                     "options_parity_phase", "http_round_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -361,3 +363,132 @@ def test_compare_rounds_holds_the_tolerance(gap):
             with pytest.raises(RuntimeError, match="card and CPU"):
                 chip_smoke.compare_rounds("tiny", card, res, params)
     assert chip_smoke.compare_rounds("tiny", lossy, res, params, hold=False) == 0.0
+
+
+def _uploads(n_samples, seed=0):
+    from baton_tpu_torch.server import wire
+
+    rng = np.random.default_rng(seed)
+    sds = [{"w": rng.normal(size=(3, 2)).astype(np.float32),
+            "b": rng.normal(size=(2,)).astype(np.float32)} for _ in n_samples]
+    bodies = [wire.encode(sd, {"update_name": "u", "n_samples": n, "loss_history": [1.0]})
+              for sd, n in zip(sds, n_samples)]
+    return sds, bodies
+
+
+@pytest.mark.parametrize("weights_as_sent", [True, False], ids=["as_sent", "reweighted"])
+def test_fold_of_uploads_against_the_aggregate(weights_as_sent):
+    """Phase 11's fold check: the sample-weighted mean recomputed from the
+    bodies equals a mean folded from the same uploads within the
+    tolerance; a mean folded with other weights does not."""
+    n_samples = [48, 20, 7]
+    sds, bodies = _uploads(n_samples)
+    fold, total = chip_smoke.fold_of_uploads(bodies)
+    assert total == sum(n_samples)
+    weights = n_samples if weights_as_sent else [1, 1, 1]
+    aggregate = {k: sum(np.float32(w) * sd[k] for w, sd in zip(weights, sds))
+                 / np.float32(sum(weights)) for k in sds[0]}
+    gap = chip_smoke.max_gap(aggregate, fold)
+    if weights_as_sent:
+        assert gap <= chip_smoke.HTTP_FOLD_TOL
+    else:
+        assert gap > 100 * chip_smoke.HTTP_FOLD_TOL
+    with pytest.raises(RuntimeError, match="different tensors"):
+        chip_smoke.max_gap({"w": fold["w"]}, fold)
+
+
+def _replayed_workers():
+    """Two linear workers (48 and 20 samples, batch 32) trained one epoch
+    from the same start, as phase 11's replay trains its two workers."""
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.linear import linear_regression_model
+    from baton_tpu_torch.ops.padding import pad_dataset, round_up
+
+    model = linear_regression_model(10)
+    trainer = make_local_trainer(model, batch_size=32, learning_rate=0.05)
+    start = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    trained, counts = [], []
+    for i, n in enumerate((48, 20)):
+        data = {"x": rng.normal(size=(n, 10)).astype(np.float32),
+                "y": rng.normal(size=(n, 1)).astype(np.float32)}
+        padded, n = pad_dataset(data, round_up(n, 32))
+        padded = {k: torch.as_tensor(v) for k, v in padded.items()}
+        trained.append(trainer.train(start, padded, n, 1,
+                                     generator=torch.Generator().manual_seed(i))[0])
+        counts.append(n)
+    return start, trained, counts
+
+
+@pytest.mark.parametrize("merged", ["as_sent", "miscounted", "dropped"])
+def test_replay_check_sees_a_misweighted_or_dropped_upload(merged):
+    """Phase 11's replay check at a tiny size: a round merged from the
+    uploads as sent holds; merged with the 20-sample worker counted as 32,
+    or without that worker's upload, it fails."""
+    start, trained, counts = _replayed_workers()
+    assert counts == [48, 20]
+    end = {"as_sent": lambda: chip_smoke.replay_merge(trained, counts, start),
+           "miscounted": lambda: chip_smoke.replay_merge(trained, [48, 32], start),
+           "dropped": lambda: chip_smoke.replay_merge(trained[:1], [48], start)}[merged]()
+    if merged == "as_sent":
+        gap, moved = chip_smoke.hold_replay("tiny", start, end, trained, counts, 32)
+        assert gap == 0.0 and moved > 0
+    else:
+        with pytest.raises(RuntimeError, match="the HTTP round and its replay differ"):
+            chip_smoke.hold_replay("tiny", start, end, trained, counts, 32)
+
+
+def test_replay_check_fails_when_it_cannot_see_the_planted_faults():
+    """Workers whose params came back alike make a miscounted or partial
+    merge equal the right one: the planted-fault control must then fail
+    the phase."""
+    start, trained, counts = _replayed_workers()
+    trained = [trained[0], trained[0]]
+    end = chip_smoke.replay_merge(trained, counts, start)
+    with pytest.raises(RuntimeError, match="cannot see the last worker's 20 samples counted as 32"):
+        chip_smoke.hold_replay("tiny", start, end, trained, counts, 32)
+
+
+def _span(name, start, end, service="manager#1"):
+    return {"name": name, "start": start, "end": end, "service": service}
+
+
+def test_round_split_from_the_spans_of_a_round():
+    spans = [_span("round_setup", 0.0, 0.5), _span("broadcast", 0.1, 0.5),
+             _span("local_train", 0.5, 1.5, "worker:a"), _span("local_train", 0.5, 2.5, "worker:b"),
+             _span("encode_update", 1.5, 1.6, "worker:a"),
+             _span("encode_update", 2.5, 2.8, "worker:b"),
+             _span("upload", 1.6, 2.0, "worker:a"), _span("upload", 2.8, 3.4, "worker:b"),
+             _span("ingest_decode", 1.7, 1.8), _span("ingest_decode", 2.9, 3.0),
+             _span("ingest_fold", 1.8, 1.9), _span("ingest_fold", 3.0, 3.3),
+             _span("aggregate", 3.4, 3.5), _span("round", 0.0, 3.5)]
+    split = chip_smoke.round_split(spans)
+    want = {"setup": 0.5, "local_train": 1.5, "local_train_max": 2.0, "upload_encode": 0.2,
+            "transfer_decode": 0.5 - 0.2, "decode": 0.1, "fold": 0.2, "merge": 0.1, "uploads": 2}
+    assert split.keys() == want.keys()
+    for k, v in want.items():
+        assert split[k] == pytest.approx(v), k
+    both = chip_smoke.mean_split([split, dict(split, setup=1.5)])
+    assert both["setup"] == pytest.approx(1.0) and both["merge"] == pytest.approx(0.1)
+    with pytest.raises(RuntimeError, match="encode_update"):
+        chip_smoke.round_split([s for s in spans if s["name"] != "encode_update"])
+
+
+def test_recording_trainer_notes_its_devices_and_trains_alike():
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.linear import linear_regression_model
+
+    model = linear_regression_model(3)
+    base = make_local_trainer(model, batch_size=4, learning_rate=0.1)
+    seen = []
+    trainer = chip_smoke.recording_trainer(base, seen)
+    params = model.init(torch.Generator().manual_seed(0))
+    data = {"x": torch.randn(8, 3, generator=torch.Generator().manual_seed(1)),
+            "y": torch.randn(8, 1, generator=torch.Generator().manual_seed(2))}
+    got = trainer.train(params, data, 8, 2, generator=torch.Generator().manual_seed(3))
+    want = base.train(params, data, 8, 2, generator=torch.Generator().manual_seed(3))
+    assert seen == [["cpu"]]
+    for k in params:
+        assert torch.equal(got[0][k], want[0][k])
+    assert trainer.batch_size == base.batch_size and trainer.optimizer is base.optimizer
+

@@ -1,8 +1,11 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
-points refuse to run without a GPU unless asked for the CPU, and the chip
-smoke test has no CPU fallback."""
+points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
+demo) refuse to run without a GPU unless asked for the CPU, every option
+not ported yet raises ``NotImplementedError``, and the chip smoke test has
+no CPU fallback."""
 
 import ast
+import asyncio
 import os
 import subprocess
 import sys
@@ -10,10 +13,15 @@ from pathlib import Path
 
 import pytest
 import torch
+from aiohttp import web
 
 import baton_tpu_torch
-from baton_tpu_torch import FedSim
+from baton_tpu_torch import FedSim, demo
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+from baton_tpu_torch.models.linear import linear_regression_model
+from baton_tpu_torch.server import http_worker
+from baton_tpu_torch.server.http_manager import Manager
+from baton_tpu_torch.server.http_worker import ExperimentWorker
 
 # small shapes: one thread each keeps the parallel test workers from
 # oversubscribing the cores (and runs these tests faster)
@@ -48,6 +56,65 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         baton_tpu_torch.resolve_device()
     assert FedSim(model, device="cpu").device.type == "cpu"
+
+
+def _in_loop(fn):
+    """Run ``fn`` inside an event loop (aiohttp apps and the worker's locks
+    are built in one)."""
+    async def main():
+        return fn()
+    return asyncio.run(main())
+
+
+def _worker(**kw):
+    return ExperimentWorker(web.Application(), linear_regression_model(), "127.0.0.1:1",
+                            auto_register=False, **kw)
+
+
+def _experiment(**kw):
+    return Manager(web.Application()).register_experiment(
+        linear_regression_model(), start_background_tasks=False, **kw)
+
+
+def test_http_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (_worker, _experiment):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _in_loop(build)
+    assert _in_loop(lambda: _worker(device="cpu")).params["w"].device.type == "cpu"
+    assert _in_loop(lambda: _experiment(device="cpu")).params["w"].device.type == "cpu"
+    for role, addr in (("manager", "127.0.0.1"), ("worker", "127.0.0.1:1")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _in_loop(lambda: demo.build_app([role, addr, "0"]))
+        app, port = _in_loop(lambda: demo.build_app([role, addr, "0", "--cpu"]))
+        assert isinstance(app, web.Application) and port == 0
+
+
+@pytest.mark.parametrize("kw", [{"secure_agg": True}, {"broadcast_quantize_bits": 8},
+                                {"broadcast_delta": "q8"}, {"checkpoint_dir": "ckpt"}],
+                         ids=lambda kw: next(iter(kw)))
+def test_unported_manager_options_are_refused(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        _in_loop(lambda: _experiment(device="cpu", **kw))
+
+
+def test_unported_worker_options_are_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        _in_loop(lambda: _worker(device="cpu", compress="topk:0.05"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        http_worker._parse_compress("topk:0.05:q8")
+
+
+@pytest.mark.parametrize("flags", [["manager", "h", "1", "--secure"],
+                                   ["manager", "h", "1", "--quantize-broadcast", "8"],
+                                   ["worker", "h:1", "1", "--compress", "topk:0.1"]],
+                         ids=lambda f: f[3])
+def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        demo.build_app(flags + ["--cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported yet (ROADMAP item 4)" in err and "python -m baton_tpu_torch.demo" in err
 
 
 def test_unported_options_are_refused():
