@@ -28,14 +28,8 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error an option that is not ported yet raises; it names the
-    ROADMAP item that ports it."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item 4)")
-
-
 # imported after resolve_device: the engine imports it from here
 from baton_tpu_torch.core.model import FedModel  # noqa: E402
 from baton_tpu_torch.parallel.engine import FedSim  # noqa: E402
 
-__all__ = ["FedModel", "FedSim", "not_ported", "resolve_device"]
+__all__ = ["FedModel", "FedSim", "resolve_device"]

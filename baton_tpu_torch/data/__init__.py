@@ -1,3 +1,11 @@
+from baton_tpu_torch.data.datasets import (
+    ByteTokenizer,
+    DatasetUnavailable,
+    load_ag_news,
+    load_cifar10,
+    load_digits_real,
+    load_mnist,
+)
 from baton_tpu_torch.data.partition import (
     dirichlet_partition,
     iid_partition,
@@ -12,6 +20,12 @@ from baton_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "ByteTokenizer",
+    "DatasetUnavailable",
+    "load_ag_news",
+    "load_cifar10",
+    "load_digits_real",
+    "load_mnist",
     "dirichlet_partition",
     "iid_partition",
     "label_shard_partition",

@@ -26,10 +26,10 @@ fp32 pseudo-gradient ``global - aggregate`` goes through it after the
 aggregator; ``optim.sgd(1.0)`` is exactly FedAvg).
 
 Ported: ``run_round`` (vmap mode, waves), ``run_rounds`` (with the
-server optimizer's state), ``evaluate_round``, ``evaluate_clients``.
-Not ported yet, and refused with NotImplementedError: a device mesh,
-DP-SGD, ``auto_wave_size`` (``wave_size="auto"``), checkpointing and
-``run_rounds_fused``.
+server optimizer's state and a checkpointer), ``evaluate_round``,
+``evaluate_clients``. Not ported yet, and refused with
+NotImplementedError: a device mesh, DP-SGD, ``auto_wave_size``
+(``wave_size="auto"``) and ``run_rounds_fused``.
 """
 
 from __future__ import annotations
@@ -51,6 +51,17 @@ from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
 
 log = logging.getLogger(__name__)
+
+
+def round_generator(generator: torch.Generator, round_idx: int) -> torch.Generator:
+    """Round ``round_idx``'s generator in ``FedSim.run_rounds``: seeded
+    from ``generator``'s initial seed and the round index through numpy's
+    ``SeedSequence``, on ``generator``'s device. It depends on nothing
+    drawn before, so round ``i`` of a resumed run draws what round ``i``
+    of the uninterrupted run drew."""
+    seed = np.random.SeedSequence([generator.initial_seed(), round_idx]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(seed))
 
 
 @dataclasses.dataclass
@@ -276,23 +287,42 @@ class FedSim:
             self.last_compute = None
 
     def run_rounds(self, params: Params, data, n_samples,
-                   generator: Optional[torch.Generator] = None, n_rounds: int = 1,
-                   n_epochs: int = 1, checkpointer=None,
+                   generator: torch.Generator, n_rounds: int = 1,
+                   n_epochs: int = 1, checkpointer=None, checkpoint_every: int = 1,
                    return_server_opt_state: bool = False, **kw):
         """Loop over rounds; returns ``(params, loss_history list)``, plus
         the server optimizer's final state when ``return_server_opt_state``
         is set, so that a chained call continues it (pass it back as
-        ``server_opt_state=``)."""
-        if checkpointer is not None:
-            raise NotImplementedError("checkpointing is not ported yet")
+        ``server_opt_state=``).
+
+        Round ``i`` draws from its own generator, :func:`round_generator`
+        of ``generator`` and ``i`` (the reference's ``fold_in(rng, i)``), so
+        a resumed run replays the randomness the uninterrupted one drew.
+        With a :class:`baton_tpu_torch.utils.checkpoint.Checkpointer` the
+        loop restores the latest step on entry and saves the params, the
+        server optimizer's state and the history every
+        ``checkpoint_every`` rounds.
+        """
         data, n_samples = self._to_device(data, n_samples)
         server_opt_state = kw.pop("server_opt_state", None)
         history = []
-        for _ in range(n_rounds):
-            res = self.run_round(params, data, n_samples, generator, n_epochs=n_epochs,
-                                 server_opt_state=server_opt_state, **kw)
+        start = 0
+        if checkpointer is not None:
+            restored = checkpointer.restore(
+                params, server_opt_template=self.init_server_opt_state(params))
+            if restored is not None:
+                params = restored.params
+                server_opt_state = restored.server_opt_state
+                history = list(restored.meta.get("loss_history", []))
+                start = restored.step
+        for i in range(start, n_rounds):
+            res = self.run_round(params, data, n_samples, round_generator(generator, i),
+                                 n_epochs=n_epochs, server_opt_state=server_opt_state, **kw)
             params, server_opt_state = res.params, res.server_opt_state
             history.extend(res.loss_history.tolist())
+            if checkpointer is not None and (i + 1) % checkpoint_every == 0:
+                checkpointer.save(i + 1, params, server_opt_state=server_opt_state,
+                                  meta={"loss_history": history})
         if return_server_opt_state:
             return params, history, server_opt_state
         return params, history

@@ -73,11 +73,6 @@ edge clients and on-mesh simulated clients compose in one federation.
 Workers may upload top-k sparse round deltas (``compress=`` on the
 worker; ops/compression.py) — reconstructed here against the round's
 broadcast anchor.
-
-Not ported yet, and refused with ``NotImplementedError``: secure
-aggregation (``secure_agg=True``), quantised and delta broadcasts
-(``broadcast_quantize_bits``, ``broadcast_delta``) and checkpointing
-(``checkpoint_dir``).
 """
 
 from __future__ import annotations
@@ -100,7 +95,7 @@ from aiohttp import web
 import numpy as np
 import torch
 
-from baton_tpu_torch import not_ported, resolve_device
+from baton_tpu_torch import resolve_device
 from baton_tpu_torch.core.model import FedModel
 from baton_tpu_torch.obs import alerts as obs_alerts
 from baton_tpu_torch.obs import compute as obs_compute
@@ -494,14 +489,6 @@ class Experiment:
         ``journal_payload_max_bytes``) so a resumed round reuses
         already-delivered updates instead of re-training reporters."""
         self.device = resolve_device(device)
-        if secure_agg:
-            raise not_ported("secure aggregation (secure_agg=True)")
-        if broadcast_quantize_bits is not None:
-            raise not_ported("quantised broadcasts (broadcast_quantize_bits=)")
-        if broadcast_delta is not None:
-            raise not_ported("delta broadcasts (broadcast_delta=)")
-        if checkpoint_dir is not None:
-            raise not_ported("checkpointing (checkpoint_dir=)")
         if secure_agg and allow_pickle:
             raise ValueError(
                 "secure_agg is incompatible with allow_pickle: reference-"
@@ -529,7 +516,9 @@ class Experiment:
                     "mutually exclusive: the delta spec already carries "
                     "the lossy-encoding budget"
                 )
-            raise not_ported("delta broadcasts (broadcast_delta=)")
+            from baton_tpu_torch.ops.compression import parse_delta_spec
+
+            self._delta_spec = parse_delta_spec(broadcast_delta)
         if fanout_concurrency < 1:
             raise ValueError(
                 f"fanout_concurrency must be >= 1, got {fanout_concurrency}"
@@ -773,7 +762,20 @@ class Experiment:
         self._edge_partial_ids: set = set()
         self.checkpointer = None
         if checkpoint_dir is not None:
-            raise not_ported("checkpointing (checkpoint_dir=)")
+            from baton_tpu_torch.utils.checkpoint import Checkpointer
+
+            self.checkpointer = Checkpointer(
+                checkpoint_dir, max_to_keep=checkpoint_keep
+            )
+            restored = self.checkpointer.restore(self.params)
+            if restored is not None:
+                # Manager restart resumes the federation (the reference
+                # lost the global model here, SURVEY §5 checkpoint row).
+                self.params = restored.params
+                self.rounds.restore(
+                    restored.meta.get("n_rounds", restored.step),
+                    restored.meta.get("loss_history", []),
+                )
         # the round in flight at crash time, recovered from the journal
         # and awaiting re-announce once the event loop is up
         self._recovered_round: Optional[dict] = None
@@ -1497,6 +1499,8 @@ class Experiment:
         This is the ONE producer behind both ``GET /{name}/metrics`` and
         the loadgen SLO evaluator (:mod:`baton_tpu_torch.loadgen.slo`), so the
         scraped view and the gated view cannot drift."""
+        from baton_tpu_torch.server import secure
+
         # advisory fleet classification gauges (fleet_clients_*) are
         # published into the registry so scrapes AND history entries
         # carry them
@@ -1505,6 +1509,10 @@ class Experiment:
         snap["gauges"]["clients_registered"] = float(len(self.registry))
         snap["gauges"]["rounds_completed"] = float(self.rounds.n_rounds)
         snap["gauges"]["round_in_progress"] = float(self.rounds.in_progress)
+        dh = secure.dh_cache_stats()
+        snap["gauges"]["dh_cache_size"] = float(dh["size"])
+        snap["gauges"]["dh_cache_hits"] = float(dh["hits"])
+        snap["gauges"]["dh_cache_misses"] = float(dh["misses"])
         if self.ha_role is not None:
             g = snap["gauges"]
             g["replication_epoch"] = float(self.ha_epoch)
@@ -2738,14 +2746,54 @@ class Experiment:
         encoding = None
         delta_tensors = None
         if self.broadcast_quantize_bits is not None:
-            raise not_ported("quantised broadcasts (broadcast_quantize_bits=)")
+            from baton_tpu_torch.ops.compression import (
+                dequantize_state_dict,
+                quantize_state_dict,
+            )
+
+            bits = self.broadcast_quantize_bits
+            state_dict = {
+                k: np.asarray(v)
+                for k, v in quantize_state_dict(
+                    state_dict, seed=self.rounds.n_rounds, bits=bits
+                ).items()
+            }
+            meta["quantized"] = {"bits": bits}
+            encoding = {"quantized": {"bits": bits}}
+            # sparse uplink deltas are computed against what the clients
+            # actually LOADED — the dequantized broadcast ROUND-TRIPPED
+            # through the model's param dtypes (state_dict_to_params
+            # casts each leaf; skipping that cast would leave the anchor
+            # off by an ulp per coordinate for non-f32 params)
+            self._broadcast_anchor_sd = params_to_state_dict(
+                state_dict_to_params(
+                    self.params, dequantize_state_dict(state_dict),
+                    device=self.device,
+                )
+            )
         else:
             state_dict = {
                 k: np.ascontiguousarray(np.asarray(v))
                 for k, v in state_dict.items()
             }
             if self._delta_spec is not None and self._prev_blob_sd is not None:
-                raise not_ported("delta broadcasts (broadcast_delta=)")
+                from baton_tpu_torch.ops.compression import (
+                    apply_delta_state_dict,
+                    delta_encode_state_dict,
+                )
+
+                # the round's broadcast is DEFINED as the reconstruction
+                # anchor + delta (bit-identical numpy on both sides) so
+                # anchored workers and full-blob workers load the exact
+                # same tensors — the worker verifies by re-encoding its
+                # reconstruction and hashing it against the blob digest
+                delta_tensors = delta_encode_state_dict(
+                    self._prev_blob_sd, state_dict, self._delta_spec,
+                    seed=self.rounds.n_rounds,
+                )
+                state_dict = apply_delta_state_dict(
+                    self._prev_blob_sd, delta_tensors
+                )
             # materialize the round anchor ONCE here, not per upload:
             # self.params is invariant until end_round, and a per-upload
             # params_to_state_dict is a full-model device-to-host copy
@@ -3144,7 +3192,20 @@ class Experiment:
         confinement) are rejected HERE so they never enter the directory:
         forwarded, they would make every honest worker's share-sealing
         loop fail and kill the whole cohort every round."""
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure
+
+        data = await self._secure_post(
+            client_id, "secure_keys", {"round": round_name}
+        )
+        try:
+            c_pk, s_pk = int(data["c_pk"], 16), int(data["s_pk"], 16)
+            if not (1 < c_pk < secure.MODP_P - 1):
+                return client_id, None
+            if not (1 < s_pk < secure.MODP_P - 1):
+                return client_id, None
+            return client_id, (c_pk, s_pk)
+        except (TypeError, KeyError, ValueError):
+            return client_id, None
 
     async def _collect_shares(
         self, client_id: str, round_name: str, pks: dict, t: int
@@ -3168,6 +3229,24 @@ class Experiment:
             }
         except (TypeError, KeyError, AttributeError):
             return client_id, None
+
+    async def _request_unmask(
+        self, client_id: str, round_name: str, survivors, dropped,
+        c_pk: int,
+    ):
+        """Unmasking with one reporter → its share bundle or None.
+
+        ``c_pk`` (the reporter's own advertised mask public key) binds
+        the request to ONE key-generation instance: aborted rounds
+        reuse their name, so a stale finalizer's delayed unmask could
+        otherwise pin its partition onto a same-name replacement
+        round's state — the worker refuses on key mismatch."""
+        return await self._secure_post(
+            client_id,
+            "secure_unmask",
+            {"round": round_name, "survivors": survivors,
+             "dropped": dropped, "c_pk": f"{c_pk:x}"},
+        )
 
     async def _notify_client(
         self, client_id: str, body: bytes, content_type: str = wire.CONTENT_TYPE
@@ -3468,7 +3547,209 @@ class Experiment:
         and the round still unmasks; below the threshold it aborts and
         the previous global params stand.
         """
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure
+
+        sr = self._secure_round
+        if (
+            sr is None
+            or not self.rounds.in_progress
+            or self.rounds.round_name != sr["round_name"]
+        ):
+            return
+        if self._secure_finalizing:
+            # a finalization is already past this guard and mid-unmask;
+            # a second one (watchdog tick / explicit end_round during the
+            # await window) must not consume the round out from under it
+            return
+        self._secure_finalizing = True
+        round_name = sr["round_name"]
+        started_wall = self.rounds.started_wall
+        trace_id = tracing.make_trace_id(self.name, round_name)
+        try:
+            # a masked upload is a reporter regardless of n_samples: its
+            # masks are IN the modular sum, so it must not also be
+            # treated as dropped (the correction would double-count);
+            # zero-weight reporters contribute exactly 0 to the mean
+            reporters = {
+                cid: r
+                for cid, r in self.rounds.client_responses.items()
+                if r.get("masked")
+            }
+            dropped = sorted(c for c in sr["cohort"] if c not in reporters)
+            survivors = sorted(reporters)
+            if not reporters or len(survivors) < sr["t"]:
+                # below the Shamir threshold nothing can be unmasked
+                self.metrics.inc("secure_rounds_unrecoverable")
+                self.rounds.abort_round()
+                self._secure_round = None
+                self._finish_round_obs(
+                    round_name, "aborted:secure_below_threshold",
+                    sr["cohort"], reporters, started_wall=started_wall,
+                )
+                return
+            template = params_to_state_dict(self.params)
+            with self.tracer.span(
+                "secure_unmask",
+                trace_id=trace_id,
+                parent_id=tracing.root_span_id(trace_id),
+                survivors=len(survivors),
+                dropped=len(dropped),
+            ):
+                bundles = await bounded_gather(
+                    *[
+                        self._request_unmask(
+                            rid, sr["round_name"], survivors, dropped,
+                            sr["c_pks"][rid],
+                        )
+                        for rid in survivors
+                    ],
+                    limit=self.fanout_concurrency,
+                )
+            # collect shares by secret owner; x-indices were fixed at
+            # share time, so partial responses compose correctly
+            b_shares: Dict[str, Dict[int, int]] = {s: {} for s in survivors}
+            csk_shares: Dict[str, Dict[int, int]] = {d: {} for d in dropped}
+            for rid, bundle in zip(survivors, bundles):
+                if bundle is None:
+                    continue
+                try:
+                    x = int(bundle["x"])
+                    if x != sr["index"].get(rid):
+                        continue  # mislabeled shares would corrupt Lagrange
+                    for cid, h in dict(bundle.get("b_shares", {})).items():
+                        if cid in b_shares:
+                            b_shares[cid][x] = secure.share_from_hex(str(h))
+                    for cid, h in dict(bundle.get("csk_shares", {})).items():
+                        if cid in csk_shares:
+                            csk_shares[cid][x] = secure.share_from_hex(str(h))
+                except (KeyError, ValueError, TypeError):
+                    continue
+            if self._secure_round is not sr or not self.rounds.in_progress:
+                # round replaced/aborted during the unmask HTTP
+                # round-trips — same ownership rule as after the
+                # reconstruction thread below (identity, not name:
+                # aborted rounds reuse their name)
+                return
+            t = sr["t"]
+            short = [
+                cid
+                for cid, shs in list(b_shares.items()) + list(csk_shares.items())
+                if len(shs) < t
+            ]
+            if short:
+                # too many unmask responders failed: below threshold for
+                # at least one secret — the sum cannot be opened
+                self.metrics.inc("secure_rounds_unrecoverable")
+                self.rounds.abort_round()
+                self._secure_round = None
+                self._finish_round_obs(
+                    round_name, "aborted:secure_shares_short",
+                    sr["cohort"], reporters, started_wall=started_wall,
+                )
+                return
+            # Reconstruction + mask regeneration + the modular sum are
+            # the round's heaviest host compute — O(dropped×survivors)
+            # 2048-bit modexps plus O(C) Philox masks over the full
+            # template (measured: ~20 s at 128 members with 32 dropped).
+            # Run it all in a worker thread: on the loop it starved
+            # heartbeats/uploads for every co-located client (the r4
+            # secure_round_scale run recorded 26 starvation dropouts).
+            # Aggregate the SNAPSHOTTED reporter set, not whatever lands
+            # in the round state meanwhile: a straggler in `dropped`
+            # that uploaded during an await window would otherwise be
+            # counted in the sum while its masks are also 'corrected' —
+            # leaving uncancelled mask noise in the params.
+            # (handle_update additionally 410s those stragglers; this
+            # is the backstop.)
+            reports = list(reporters.values())
+
+            def _reconstruct_and_open():
+                corrections = []
+                for d in dropped:
+                    c_sk = secure.shamir_reconstruct(
+                        dict(list(csk_shares[d].items())[:t])
+                    )
+                    seeds = {
+                        rid: secure.dh_shared_seed(
+                            c_sk, sr["c_pks"][rid], sr["round_name"]
+                        )
+                        for rid in survivors
+                    }
+                    corrections.append(
+                        secure.dropout_correction(d, seeds, template)
+                    )
+                    # the reconstructed key exists only to cancel this
+                    # round's residues — purge its cached DH powers so
+                    # the dropped client's pairwise secrets don't
+                    # outlive the finalization (secure.py
+                    # forward-secrecy contract)
+                    secure.purge_dh_secrets(c_sk)
+                self_seeds = []
+                for s_cid in survivors:
+                    b_int = secure.shamir_reconstruct(
+                        dict(list(b_shares[s_cid].items())[:t])
+                    )
+                    if b_int >> 256:
+                        # a corrupt share makes the interpolation land
+                        # almost surely outside the 256-bit seed range —
+                        # the sum cannot be opened correctly
+                        return None
+                    self_seeds.append(b_int.to_bytes(32, "big"))
+                corrections.append(
+                    secure.self_mask_correction(self_seeds, template)
+                )
+                masked_sum = secure.modular_sum(
+                    [r["state_dict"] for r in reports]
+                )
+                return secure.unmask_sum(
+                    masked_sum, corrections, sr["scale_bits"]
+                )
+
+            total = await asyncio.to_thread(_reconstruct_and_open)
+            if self._secure_round is not sr or not self.rounds.in_progress:
+                # the round was aborted (or a NEW round started) while
+                # the reconstruction thread ran — in either case this
+                # finalization owns nothing anymore and must not touch
+                # the current round's state. Identity (`is sr`), not the
+                # round name: aborted rounds REUSE their name (reference
+                # naming parity, rounds.py::abort_round), so a replacement
+                # round is indistinguishable by name alone.
+                return
+            if total is None:
+                # abort, don't crash the finalize task (which would
+                # lock the round forever)
+                self.metrics.inc("secure_rounds_unrecoverable")
+                self.rounds.abort_round()
+                self._secure_round = None
+                self._finish_round_obs(
+                    round_name, "aborted:secure_unmask_failed",
+                    sr["cohort"], reporters, started_wall=started_wall,
+                )
+                return
+            if dropped:
+                self.metrics.inc("secure_dropouts_recovered", len(dropped))
+            n_epoch = (self.rounds.round_meta or {}).get("n_epoch", 0)
+            _rt = tracing.make_trace_id(self.name, round_name)
+            self.metrics.observe(
+                "round_s", self.rounds.elapsed,
+                exemplar=(_rt, tracing.root_span_id(_rt)),
+            )
+            self.rounds.end_round()
+            self.metrics.inc("rounds_finished")
+            w = sum(float(r["n_samples"]) for r in reports)
+            if w > 0:
+                merged = {k: v / w for k, v in total.items()}
+                self.params = state_dict_to_params(
+                    self.params, merged, device=self.device
+                )
+                self._record_history_and_checkpoint(reports, n_epoch)
+            self._secure_round = None
+            self._finish_round_obs(
+                round_name, "completed_secure",
+                sr["cohort"], reporters, started_wall=started_wall,
+            )
+        finally:
+            self._secure_finalizing = False
 
     def _record_history_and_checkpoint(self, reports, n_epoch) -> None:
         # loss history: sample-weighted per-epoch mean (manager.py:127-130)
@@ -3490,13 +3771,13 @@ class Experiment:
                 self.journal.append("losses_appended", values=appended)
             self._compact_journal()
         if self.checkpointer is not None:
-            # Even with wait=False, orbax's save() blocks synchronously on
-            # any still-in-flight previous async save — under slow storage
-            # back-to-back rounds would stall the event loop (heartbeats
-            # pause, live clients get culled). Run the whole save call in
-            # a worker thread so the loop never waits on storage; orbax
-            # serializes concurrent saves internally and writes atomically
-            # (temp dir + rename); close() drains in-flight saves.
+            # A save copies the params off the device and writes the whole
+            # model — under slow storage back-to-back rounds would stall
+            # the event loop (heartbeats pause, live clients get culled).
+            # Run the whole save call in a worker thread so the loop never
+            # waits on storage; the Checkpointer serializes concurrent
+            # saves under its lock and writes atomically (temp file +
+            # os.replace); cleanup awaits the save in flight.
             import asyncio
 
             step = self.rounds.n_rounds

@@ -41,9 +41,10 @@ The training itself is the port's :class:`LocalTrainer` on ``device``.
 Init comes from a ``torch.Generator`` seeded by ``rng_seed`` and every
 round's shuffles from a second one seeded by ``rng_seed + 1``: several
 workers share one process (and one card) from their training threads, so
-nothing draws from torch's global generator. Secure aggregation, upload
-compression and quantised or delta downlinks are not ported yet: they
-raise ``NotImplementedError`` where the reference reaches them.
+nothing draws from torch's global generator. With ``compress=`` the
+round delta (trained params less the broadcast anchor) is taken on
+``device``, so its top-k runs where the params are; masks, shares and
+delta reconstructions are numpy on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ import json
 import os
 import pathlib
 import random
+import secrets
 import time
 import weakref
 from typing import Callable, Optional, Tuple
@@ -64,7 +66,7 @@ from aiohttp import web
 import numpy as np
 import torch
 
-from baton_tpu_torch import not_ported, resolve_device
+from baton_tpu_torch import resolve_device
 from baton_tpu_torch.core.model import FedModel
 from baton_tpu_torch.core.training import LocalTrainer, make_local_trainer
 from baton_tpu_torch.obs.compute import ComputeProbe
@@ -76,6 +78,7 @@ from baton_tpu_torch.server.utils import (
     PeriodicTask,
     random_key,
     read_body_capped,
+    read_json_capped,
 )
 from baton_tpu_torch.utils import profiling, tracing
 from baton_tpu_torch.utils.metrics import Metrics
@@ -103,12 +106,35 @@ class _PendingUpdate:
     masked: bool = False
 
 
+def _host(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """A device tensor as a host numpy array (for the wire)."""
+    arr = t.detach().cpu().numpy()
+    return arr if dtype is None else arr.astype(dtype, copy=False)
+
+
 def _parse_compress(spec: Optional[str], seed: int = 0):
     """``"topk:<frac>[:q8|q16]"`` -> ErrorFeedbackCompressor, else None.
     ``seed`` decorrelates the stochastic quantizer across workers."""
     if spec is None:
         return None
-    raise not_ported("upload compression (compress=)")
+    from baton_tpu_torch.ops.compression import ErrorFeedbackCompressor
+
+    parts = spec.split(":")
+    if parts[0] != "topk" or len(parts) not in (2, 3):
+        raise ValueError(
+            f"unknown compress spec {spec!r}; expected 'topk:<frac>[:q8|q16]'"
+        )
+    frac = float(parts[1])
+    if not (0.0 < frac <= 1.0):
+        # fail at construction: inside the round task this would only
+        # surface as a permanent silent straggler
+        raise ValueError(f"compress fraction must be in (0, 1], got {frac}")
+    bits = None
+    if len(parts) == 3:
+        if parts[2] not in ("q8", "q16"):
+            raise ValueError(f"unknown quantizer {parts[2]!r} in {spec!r}")
+        bits = int(parts[2][1:])
+    return ErrorFeedbackCompressor(frac=frac, bits=bits, seed=seed)
 
 
 class ExperimentWorker:
@@ -527,6 +553,13 @@ class ExperimentWorker:
             and request.query.get("key") == self.key
         )
 
+    def _secure_state(self, round_name: str):
+        st = self._secure.get(round_name)
+        # a pending claim (keys still being generated in the thread
+        # pool) is not usable state: shares/unmask against it would
+        # KeyError mid-protocol
+        return None if st is None or st.get("pending") else st
+
     async def handle_secure_keys(self, request: web.Request) -> web.Response:
         """Bonawitz round 0 (AdvertiseKeys): generate the round's two DH
         keypairs — ``c`` keys the pairwise masks, ``s`` keys the
@@ -547,7 +580,53 @@ class ExperimentWorker:
             return web.json_response(
                 {"err": "Broadcast in Progress"}, status=409
             )
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure
+
+        try:
+            data = await read_json_capped(request)
+        except BodyTooLarge as exc:
+            self.metrics.inc("control_rejected_413")
+            return web.json_response(
+                {"err": "Body Too Large", "limit_bytes": exc.limit},
+                status=413,
+            )
+        round_name = str(data["round"])
+        # claim the round slot BEFORE the thread window (loop-atomic):
+        # aborted rounds reuse names, so a stale delayed handler must be
+        # detectable by state identity — exactly the manager-side
+        # finalization rule — or it would overwrite a replacement
+        # round's keys and desynchronize the whole cohort's masks
+        replaced = self._secure.get(round_name)
+        if replaced is not None:
+            # re-keying a live name discards the old state in place —
+            # the eviction loop below won't see it, so its cached DH
+            # powers must be dropped here (forward-secrecy contract)
+            secure.purge_dh_secrets(
+                *[k for k in (replaced.get("c_sk"), replaced.get("s_sk"))
+                  if k is not None])
+        st = {"pending": True, "peer_shares": {}, "partition": None}
+        self._secure[round_name] = st
+        while len(self._secure) > 2:  # keep current + previous round
+            old = self._secure.pop(next(iter(self._secure)))
+            # forward secrecy: evicting a round's keys must also drop
+            # the cached DH powers derived from them (secure.py);
+            # a pending claim has no keys yet
+            secure.purge_dh_secrets(
+                *[k for k in (old.get("c_sk"), old.get("s_sk"))
+                  if k is not None])
+        # two 2048-bit modexps (~14 ms): off the loop — with C cohort
+        # members sharing one process (tests, benchmarks, co-located
+        # silos) the serialized key generations alone starve heartbeats
+        (c_sk, c_pk), (s_sk, s_pk) = await asyncio.to_thread(
+            lambda: (secure.dh_keypair(), secure.dh_keypair()))
+        if self._secure.get(round_name) is not st:
+            # a replacement round advertised keys while this handler
+            # sat in the thread pool: ours are stale — drop them
+            secure.purge_dh_secrets(c_sk, s_sk)
+            return web.json_response({"err": "Superseded"}, status=409)
+        st.update(c_sk=c_sk, c_pk=c_pk, s_sk=s_sk, s_pk=s_pk)
+        del st["pending"]
+        return web.json_response({"c_pk": f"{c_pk:x}", "s_pk": f"{s_pk:x}"})
 
     async def handle_secure_shares(self, request: web.Request) -> web.Response:
         """Bonawitz round 1 (ShareKeys): given the cohort's pk directory,
@@ -557,7 +636,87 @@ class ExperimentWorker:
         boxes but cannot open them)."""
         if not self._check_manager_auth(request):
             return web.json_response({"err": "Wrong Client"}, status=404)
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure
+
+        try:
+            data = await read_json_capped(request)
+        except BodyTooLarge as exc:
+            self.metrics.inc("control_rejected_413")
+            return web.json_response(
+                {"err": "Body Too Large", "limit_bytes": exc.limit},
+                status=413,
+            )
+        round_name = str(data["round"])
+        st = self._secure_state(round_name)
+        if st is None:
+            return web.json_response({"err": "Unknown Round"}, status=410)
+        try:
+            pks = {
+                cid: (int(p["c"], 16), int(p["s"], 16))
+                for cid, p in data["pks"].items()
+            }
+            t = int(data["t"])
+        except (KeyError, ValueError, TypeError):
+            return web.json_response({"err": "Bad Payload"}, status=400)
+        cohort = sorted(pks)
+        if self.client_id not in cohort or not 1 <= t <= len(cohort):
+            return web.json_response({"err": "Bad Cohort"}, status=400)
+        if t < len(cohort) // 2 + 1:
+            # a low threshold is the t=1 unmask-everyone attack: with
+            # t=1 the server holds a reconstructing share of every b_i
+            # and c_sk_i by itself — refuse anything below honest majority
+            return web.json_response({"err": "Threshold Too Low"}, status=400)
+        index = {cid: x + 1 for x, cid in enumerate(cohort)}
+
+        # O(C) 2048-bit modexps (~7 ms each — the protocol's dominant
+        # host cost) plus the Shamir splits and box sealing: run the
+        # whole block off the event loop. At C=128 this block is ~1 s;
+        # serialized across a co-located cohort it starved heartbeats
+        # and uploads for minutes (26 unplanned dropouts in the r4
+        # secure_round_scale run).
+        def _build_boxes():
+            b_seed = secrets.token_bytes(32)
+            b_shares = secure.shamir_share(
+                int.from_bytes(b_seed, "big"), len(cohort), t
+            )
+            csk_shares = secure.shamir_share(st["c_sk"], len(cohort), t)
+            boxes = {}
+            for cid in cohort:
+                if cid == self.client_id:
+                    continue
+                # direction-bound key: without the sender->recipient
+                # context the pair's two boxes would share one
+                # nonce-free keystream (a two-time pad to the relaying
+                # server) and a reflected box would still authenticate
+                try:
+                    key = secure.dh_shared_seed(
+                        st["s_sk"], pks[cid][1],
+                        f"{round_name}|shares|{self.client_id}>{cid}",
+                    )
+                except ValueError:
+                    continue  # Byzantine pk: skip this peer, not the round
+                plain = (
+                    secure.share_to_hex(b_shares[index[cid]])
+                    + secure.share_to_hex(csk_shares[index[cid]])
+                ).encode()
+                boxes[cid] = secure.seal(key, plain).hex()
+            return b_seed, b_shares, csk_shares, boxes
+
+        b_seed, b_shares, csk_shares, boxes = await asyncio.to_thread(
+            _build_boxes)
+        if self._secure_state(round_name) is not st:
+            # the round was re-keyed (same name — aborted rounds reuse
+            # names) while the boxes were being built: these shares are
+            # bound to dead keys and must not clobber the new state
+            return web.json_response({"err": "Superseded"}, status=409)
+        st.update(
+            pks=pks, cohort=cohort, index=index, t=t, b=b_seed,
+            own_shares=(
+                b_shares[index[self.client_id]],
+                csk_shares[index[self.client_id]],
+            ),
+        )
+        return web.json_response({"shares": boxes})
 
     async def handle_secure_unmask(self, request: web.Request) -> web.Response:
         """Bonawitz round 3 (Unmasking): given the server's survivor/
@@ -569,7 +728,70 @@ class ExperimentWorker:
         stays masked by PRG(b)."""
         if not self._check_manager_auth(request):
             return web.json_response({"err": "Wrong Client"}, status=404)
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure
+
+        try:
+            data = await read_json_capped(request)
+        except BodyTooLarge as exc:
+            self.metrics.inc("control_rejected_413")
+            return web.json_response(
+                {"err": "Body Too Large", "limit_bytes": exc.limit},
+                status=413,
+            )
+        round_name = str(data.get("round", ""))
+        st = self._secure_state(round_name)
+        if st is None or "cohort" not in st:
+            return web.json_response({"err": "Unknown Round"}, status=410)
+        try:
+            req_c_pk = int(str(data.get("c_pk", "")), 16)
+        except ValueError:
+            req_c_pk = None
+        if req_c_pk != st["c_pk"]:
+            # the request is bound to a different key-generation
+            # instance of this round NAME (aborted rounds reuse names):
+            # a stale finalizer must not pin its partition onto the
+            # replacement round's state
+            return web.json_response({"err": "Unknown Round"}, status=410)
+        survivors = sorted(map(str, data.get("survivors", [])))
+        dropped = sorted(map(str, data.get("dropped", [])))
+        cohort = set(st["cohort"])
+        part = (tuple(survivors), tuple(dropped))
+        if (
+            not set(survivors) <= cohort
+            or not set(dropped) <= cohort
+            or set(survivors) & set(dropped)
+            or self.client_id not in survivors
+            or len(survivors) < st["t"]
+        ):
+            # len(survivors) >= t also bounds fake-dropout claims: a
+            # partition dropping more than n-t members cannot
+            # reconstruct and is refused outright
+            return web.json_response({"err": "Bad Partition"}, status=400)
+        if st["partition"] is not None and st["partition"] != part:
+            # a second, DIFFERENT partition for the same round is the
+            # both-share-types extraction attack — refuse permanently
+            return web.json_response({"err": "Partition Pinned"}, status=409)
+        st["partition"] = part
+
+        b_shares = {}
+        csk_shares = {}
+        for cid in survivors:
+            if cid == self.client_id:
+                b_shares[cid] = secure.share_to_hex(st["own_shares"][0])
+            elif cid in st["peer_shares"]:
+                b_shares[cid] = secure.share_to_hex(
+                    st["peer_shares"][cid][0]
+                )
+        for cid in dropped:
+            if cid in st["peer_shares"]:
+                csk_shares[cid] = secure.share_to_hex(
+                    st["peer_shares"][cid][1]
+                )
+        return web.json_response({
+            "x": st["index"][self.client_id],
+            "b_shares": b_shares,
+            "csk_shares": csk_shares,
+        })
 
     # -- rounds --------------------------------------------------------
     async def handle_round_start(self, request: web.Request) -> web.Response:
@@ -627,7 +849,9 @@ class ExperimentWorker:
                 if meta.get("quantized"):
                     # downlink-compressed broadcast (manager
                     # broadcast_quantize_bits): reconstruct dense weights
-                    raise not_ported("quantised broadcasts")
+                    from baton_tpu_torch.ops.compression import dequantize_state_dict
+
+                    tensors = dequantize_state_dict(tensors)
                 return tensors, meta
 
             tensors, meta = await asyncio.to_thread(_decode_broadcast)
@@ -636,8 +860,6 @@ class ExperimentWorker:
             new_params = state_dict_to_params(
                 self.params, tensors, device=self.device
             )
-        except NotImplementedError:
-            raise
         except Exception:
             # reject before mutating any state: a bad broadcast must not
             # leave the worker with half-loaded params
@@ -672,12 +894,12 @@ class ExperimentWorker:
         try:
             load = tensors
             if encoding.get("quantized"):
-                raise not_ported("quantised broadcasts")
+                from baton_tpu_torch.ops.compression import dequantize_state_dict
+
+                load = dequantize_state_dict(tensors)
             new_params = state_dict_to_params(
                 self.params, load, device=self.device
             )
-        except NotImplementedError:
-            raise
         except Exception:
             return web.json_response({"err": "Bad Payload"}, status=400)
         if not encoding:
@@ -727,7 +949,24 @@ class ExperimentWorker:
                 else None
             )
             if draw is not None:
-                raise not_ported("delta broadcasts")
+                from baton_tpu_torch.ops.compression import apply_delta_state_dict
+
+                try:
+                    delta_tensors, _ = wire.decode(draw)
+                    cand = apply_delta_state_dict(
+                        self._anchor_sd, delta_tensors
+                    )
+                    if (
+                        hashlib.sha256(wire.encode(cand, {})).hexdigest()
+                        == digest
+                    ):
+                        self.metrics.inc("blob_fetch_delta")
+                        return cand
+                except Exception:
+                    pass
+                # reconstruction didn't hash to the round blob (anchor
+                # drift, corrupt delta): fall through to the full blob
+                self.metrics.inc("blob_delta_digest_mismatch")
         if (
             isinstance(delta_chain, list)
             and delta_chain
@@ -772,7 +1011,44 @@ class ExperimentWorker:
         re-encodes to the hop's ``to`` digest — every step is as
         bit-defined as the single-hop delta path. Any failure returns
         None and the caller falls back to the full blob."""
-        raise not_ported("delta broadcasts")
+        from baton_tpu_torch.ops.compression import apply_delta_state_dict
+
+        # safe across the fetch awaits: each hop re-encodes and verifies
+        # against the hop's `to` digest, so a stale anchor cannot produce
+        # a wrong state — it fails verification and we fall back to the
+        # full blob.
+        sd = self._anchor_sd  # batonlint: allow[BTL003]
+        to = None
+        for i, hop in enumerate(hops):
+            try:
+                ddigest = str(hop["digest"])
+                dsize = int(hop["size"])
+                to = str(
+                    hop["to"] if hop.get("to") is not None
+                    else (final_digest if i == len(hops) - 1 else "")
+                )
+            except (KeyError, TypeError, ValueError):
+                self.metrics.inc("blob_delta_digest_mismatch")
+                return None
+            raw = await self._fetch_blob(ddigest, dsize)
+            if raw is None:
+                self.metrics.inc("blob_delta_digest_mismatch")
+                return None
+            try:
+                delta_tensors, _ = wire.decode(raw)
+                cand = apply_delta_state_dict(sd, delta_tensors)
+                if hashlib.sha256(wire.encode(cand, {})).hexdigest() != to:
+                    raise ValueError("hop digest mismatch")
+            except Exception:
+                self.metrics.inc("blob_delta_digest_mismatch")
+                return None
+            sd = cand
+        if to != final_digest:
+            # chain ends at some other state (stale envelope): unusable
+            self.metrics.inc("blob_delta_digest_mismatch")
+            return None
+        self.metrics.inc("blob_fetch_delta_chain")
+        return sd
 
     async def _fetch_blob(
         self, digest: str, size: int, max_attempts: int = 6
@@ -883,11 +1159,12 @@ class ExperimentWorker:
         self.params = new_params
         # the broadcast is this round's delta anchor: the manager holds
         # the identical tensors until end_round, so `anchor + delta`
-        # reconstructs exactly server-side (ops/compression.py docstring)
+        # reconstructs exactly server-side (ops/compression.py docstring);
+        # kept as fp32 on the worker's device, where the delta is taken
         if self.compressor is not None:
             self._round_anchor = {
-                k: np.asarray(v, np.float32)
-                for k, v in params_to_state_dict(new_params).items()
+                k: v.detach().to(torch.float32, copy=True)
+                for k, v in new_params.items()
             }
         if self._pending is not None:
             # an accepted broadcast supersedes any undelivered previous
@@ -907,7 +1184,26 @@ class ExperimentWorker:
         sender's shares missing (reconstruction needs only t of n).
         O(C) modexps — call via ``asyncio.to_thread``, same starvation
         argument as handle_secure_shares."""
-        raise not_ported("secure aggregation")
+        from baton_tpu_torch.server import secure as _secure
+
+        opened = {}
+        for sender, ct_hex in inbox.items():
+            if sender == self.client_id or sender not in st["pks"]:
+                continue
+            try:
+                key = _secure.dh_shared_seed(
+                    st["s_sk"], st["pks"][sender][1],
+                    f"{round_name}|shares|{sender}>{self.client_id}",
+                )
+                plain = _secure.unseal(key, bytes.fromhex(ct_hex)).decode()
+                half = len(plain) // 2
+                opened[sender] = (
+                    _secure.share_from_hex(plain[:half]),
+                    _secure.share_from_hex(plain[half:]),
+                )
+            except (ValueError, UnicodeDecodeError):
+                pass
+        return opened
 
     def _with_progress_hook(self, trainer: LocalTrainer) -> LocalTrainer:
         """Attach this worker's per-epoch metrics hook to ``trainer``.
@@ -1142,44 +1438,73 @@ class ExperimentWorker:
                 self._broadcast_secure_st = None
                 return
         compressed_payload = None  # set only on the compressed branch
-        if st is not None:
-            # Secure round: upload sample-weighted quantized params plus
-            # every pairwise mask and the self mask PRG(b) — the manager
-            # can only use the cohort sum (server/secure.py). Weighting
-            # happens client-side because the server cannot scale a
-            # masked ring element.
-            raise not_ported("secure aggregation")
-        elif self.compressor is not None and self._round_anchor is not None:
-            # sparse round delta (ops/compression.py): top-k of
-            # (trained - broadcast) with error feedback; flat wire layout
-            # "<name>@idx"/"<name>@val" (+"@scale" when quantized)
-            sd = params_to_state_dict(self.params)
-            delta = {
-                k: np.asarray(v, np.float32) - self._round_anchor[k]
-                for k, v in sd.items()
-            }
-            compressed_payload = self.compressor.compress(delta)
-            compressed_template = delta
-            tensors = {}
-            for k, p in compressed_payload.items():
-                tensors[f"{k}@idx"] = np.asarray(p["idx"], np.int32)
-                val = p["val"]
-                if isinstance(val, dict):  # quantized {"q", "scale"}
-                    tensors[f"{k}@val"] = np.asarray(val["q"])
-                    tensors[f"{k}@scale"] = np.asarray(
-                        [float(val["scale"])], np.float32
+        # one span for the upload's encoding, whichever branch builds it
+        trace_id = tracing.make_trace_id(self.name, round_name)
+        with self.tracer.span(
+            "encode_update", trace_id=trace_id,
+            parent_id=tracing.root_span_id(trace_id), round=round_name,
+        ):
+            if st is not None:
+                # Secure round: upload sample-weighted quantized params plus
+                # every pairwise mask and the self mask PRG(b) — the manager
+                # can only use the cohort sum (server/secure.py). Weighting
+                # happens client-side because the server cannot scale a
+                # masked ring element.
+                from baton_tpu_torch.server import secure
+
+                # O(C) seed modexps + O(C) Philox masks over the full state
+                # dict — by far the heaviest per-upload host work in a
+                # secure round. Off the loop (same starvation argument as
+                # handle_secure_shares); numpy mask generation also releases
+                # the GIL, so co-located cohorts overlap it.
+                def _build_masked_body():
+                    seeds = {
+                        other: secure.dh_shared_seed(
+                            st["c_sk"], st["pks"][other][0], round_name
+                        )
+                        for other in st["mask_cohort"]
+                        if other != self.client_id
+                    }
+                    weighted = {
+                        k: np.asarray(v, np.float64) * float(n_samples)
+                        for k, v in params_to_state_dict(self.params).items()
+                    }
+                    return wire.encode(
+                        secure.mask_state_dict(
+                            weighted, self.client_id, seeds, st["scale_bits"],
+                            self_seed=st["b"],
+                        ),
+                        dict(meta, secure=True, scale_bits=st["scale_bits"]),
                     )
-                else:
-                    tensors[f"{k}@val"] = np.asarray(val, np.float32)
-            body = wire.encode(
-                tensors, dict(meta, compressed={"scheme": "topk"})
-            )
-        else:
-            trace_id = tracing.make_trace_id(self.name, round_name)
-            with self.tracer.span(
-                "encode_update", trace_id=trace_id,
-                parent_id=tracing.root_span_id(trace_id), round=round_name,
-            ):
+
+                body = await asyncio.to_thread(_build_masked_body)
+            elif self.compressor is not None and self._round_anchor is not None:
+                # sparse round delta (ops/compression.py): top-k of
+                # (trained - broadcast) with error feedback; flat wire layout
+                # "<name>@idx"/"<name>@val" (+"@scale" when quantized). The
+                # delta and its top-k stay on the worker's device; only the
+                # kept coordinates cross to the host.
+                delta = {
+                    k: v.detach().to(torch.float32) - self._round_anchor[k]
+                    for k, v in self.params.items()
+                }
+                compressed_payload = self.compressor.compress(delta)
+                compressed_template = delta
+                tensors = {}
+                for k, p in compressed_payload.items():
+                    tensors[f"{k}@idx"] = _host(p["idx"], np.int32)
+                    val = p["val"]
+                    if isinstance(val, dict):  # quantized {"q", "scale"}
+                        tensors[f"{k}@val"] = _host(val["q"])
+                        tensors[f"{k}@scale"] = np.asarray(
+                            [float(val["scale"])], np.float32
+                        )
+                    else:
+                        tensors[f"{k}@val"] = _host(val, np.float32)
+                body = wire.encode(
+                    tensors, dict(meta, compressed={"scheme": "topk"})
+                )
+            else:
                 body = wire.encode(params_to_state_dict(self.params), meta)
         await self._enqueue_update(
             _PendingUpdate(

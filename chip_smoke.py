@@ -81,7 +81,34 @@ exits non-zero:
    this process from the broadcast and merged by the port's aggregator:
    params within 1e-4 and within a hundredth of the round's largest
    param change, while a replay with the 20-sample worker counted as 32,
-   or with its upload dropped, must fail that check.
+   or with its upload dropped, must fail that check;
+12. phase 11's federation with the bandwidth options and a restart: 3
+   rounds with every worker uploading top-k (10%) int8 round deltas with
+   error feedback (the top-k on the card) and int8 broadcasts, the
+   manager checkpointing each round; then the manager stops, a new one on
+   the same port resumes from the checkpoints (params to the bit, round
+   count, loss history) with top-k int8 delta broadcasts, and runs 2
+   rounds with the same workers, which register again. Each round's
+   params equal the fold of the decoded uploads (1e-6); each worker's
+   transmitted mass plus its residual equals the sum of its true deltas
+   (1e-5 relative); the first round after the restart pulls the full
+   blob and the second a delta, with no digest mismatch. Round times and
+   bytes per upload and per blob pull are printed against the dense size;
+13. secure aggregation at ResNet-18 width (fp32): 4 workers, threshold 3,
+   2 rounds; in the second the last worker drops after the share
+   exchange and its masks are recovered. Each round's params equal the
+   sample-weighted mean of what the survivors trained (within the fixed
+   point's quantum, 2^-16) and their replayed local trains (the quantum
+   plus 1e-4, and a hundredth of the largest change, with the planted
+   faults of phase 11 failing); the host times of masking on the workers
+   and unmasking on the manager are printed;
+14. BASELINE config 1 (``baton_tpu_torch/examples/cnn_mnist_fedavg.py``,
+   the synthetic MNIST fallback): the tiny preset's 4 rounds of ``run()``
+   on the card, the same run stopped after 2 rounds and resumed from its
+   checkpoints (1e-6, cuDNN's deterministic algorithms for this phase)
+   and on the CPU (1e-4); then the full preset (4 x 15,000 samples, 4
+   epochs) for 2 of its 20 rounds, timed apart from making its data,
+   its accuracy above 0.5. No flash kernel launches in phases 12-14.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -96,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -1333,15 +1361,25 @@ def recording_trainer(trainer, seen):
                         for f in dataclasses.fields(LocalTrainer)})
 
 
-async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds):
-    """A Manager and one ExperimentWorker per dataset on loopback, all on
-    the card; ``rounds(exp, workers, drive)`` runs the rounds, where
-    ``await drive()`` starts one and returns its seconds from
-    ``start_round`` until ``rounds.n_rounds`` advances. Returns what
-    ``rounds`` returns, with the bodies the manager received, the devices
-    the trainers were handed and the compute records."""
+async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
+                          manager_kw=None, worker_kw=None, heartbeat_time=30.0):
+    """A Manager (built with ``manager_kw``) and one ExperimentWorker (built
+    with ``worker_kw``) per dataset on loopback, all on the card;
+    ``rounds(fed)`` runs the rounds. ``fed.exp`` is the current manager's
+    experiment and ``fed.workers`` the workers; ``await fed.drive()``
+    starts a round and returns its seconds from ``start_round`` until
+    ``rounds.n_rounds`` advances; ``await fed.start()`` only starts one
+    (returning its start time) and ``await fed.wait_round(n0, t0)`` waits
+    for the count to pass ``n0``; ``await fed.get(path)`` GETs a manager
+    endpoint; ``await fed.restart(**kw)`` stops the manager and starts a
+    new one on the same port, waiting until every worker has registered
+    again; ``fed.meter`` lists ``(kind, bytes)`` of every upload and blob
+    download the managers served, and ``fed.bodies`` the upload bodies
+    they received. Returns what ``rounds`` returns, with those bodies and
+    the devices the trainers were handed."""
     import asyncio
     import socket
+    import types
 
     import aiohttp
     from aiohttp import web
@@ -1350,9 +1388,10 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds)
     from baton_tpu_torch.server.http_manager import Manager
     from baton_tpu_torch.server.http_worker import ExperimentWorker
 
-    def listen():
+    def listen(port=0):
         sock = socket.socket()
-        sock.bind(("127.0.0.1", 0))
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(("127.0.0.1", port))
         return sock, sock.getsockname()[1]
 
     async def serve(app, sock):
@@ -1361,56 +1400,89 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds)
         await web.SockSite(runner, sock).start()
         return runner
 
+    bodies, seen, meter = [], [], []
+    # the timer waits on the manager's end of a round, not on a busy poll
+    # of the event loop that the manager and every worker share
+    round_ended, loop = asyncio.Event(), asyncio.get_running_loop()
+
+    @web.middleware
+    async def metering(request, handler):
+        resp = await handler(request)
+        if request.path.endswith("/update"):
+            meter.append(("upload", request.content_length or 0))
+        elif "/round_blob/" in request.path and resp.status == 200:
+            meter.append(("blob", resp.content_length or 0))
+        return resp
+
+    def build_manager(kw):
+        app = web.Application(middlewares=[metering])
+        exp = Manager(app).register_experiment(
+            model, name="httpround", round_timeout=300.0, rng_seed=0,
+            rounds_log_path=str(Path(log_dir) / "rounds.jsonl"), **kw)
+        decoder, end_round, end_secure = (exp._make_upload_decoder, exp.end_round,
+                                          exp._end_round_secure)
+
+        def recording_decoder(body, content_type):
+            bodies.append(bytes(body))
+            return decoder(body, content_type)
+
+        def end_round_and_signal():
+            end_round()
+            loop.call_soon_threadsafe(round_ended.set)
+
+        async def end_secure_and_signal():
+            # a secure round ends after its unmasking, not at end_round
+            try:
+                await end_secure()
+            finally:
+                round_ended.set()
+
+        exp._make_upload_decoder = recording_decoder
+        exp.end_round = end_round_and_signal
+        exp._end_round_secure = end_secure_and_signal
+        return app, exp
+
+    async def wait_registered():
+        for _ in range(3000):
+            if len(fed.exp.registry) == len(fed.workers):
+                break
+            await asyncio.sleep(0.01)
+        check(len(fed.exp.registry) == len(fed.workers),
+              f"{len(fed.exp.registry)} of {len(fed.workers)} registered")
+
     sock, mport = listen()
-    app = web.Application()
-    exp = Manager(app).register_experiment(
-        model, name="httpround", round_timeout=300.0, rng_seed=0,
-        rounds_log_path=str(Path(log_dir) / "rounds.jsonl"))
-    bodies, seen = [], []
-    decoder = exp._make_upload_decoder
-
-    def recording_decoder(body, content_type):
-        bodies.append(bytes(body))
-        return decoder(body, content_type)
-
-    exp._make_upload_decoder = recording_decoder
-    runners, workers = [await serve(app, sock)], []
+    app, exp = build_manager(manager_kw or {})
+    fed = types.SimpleNamespace(exp=exp, workers=[], meter=meter, bodies=bodies,
+                                runner=await serve(app, sock))
+    runners = []
     for d, seed in zip(datasets, seeds):
         wsock, wport = listen()
         wapp = web.Application()
         trainer = recording_trainer(make_local_trainer(model, batch_size=batch,
                                                        learning_rate=lr), seen)
-        workers.append(ExperimentWorker(
+        fed.workers.append(ExperimentWorker(
             wapp, model, f"127.0.0.1:{mport}", name="httpround", port=wport,
-            heartbeat_time=30.0, rng_seed=seed, trainer=trainer,
-            get_data=lambda d=d: (d, d["x"].shape[0])))
+            heartbeat_time=heartbeat_time, rng_seed=seed, trainer=trainer,
+            get_data=lambda d=d: (d, d["x"].shape[0]), **(worker_kw or {})))
         runners.append(await serve(wapp, wsock))
-    for _ in range(3000):
-        if len(exp.registry) == len(workers):
-            break
-        await asyncio.sleep(0.01)
-    check(len(exp.registry) == len(workers), f"{len(exp.registry)} of {len(workers)} registered")
+    await wait_registered()
     session = aiohttp.ClientSession()
-    url = f"http://127.0.0.1:{mport}/httpround/start_round?n_epoch=1"
-    # the timer waits on the manager's end_round, not on a busy poll of the
-    # event loop that the manager and every worker share
-    round_ended, end_round, loop = asyncio.Event(), exp.end_round, asyncio.get_running_loop()
+    base = f"http://127.0.0.1:{mport}/httpround/"
 
-    def end_round_and_signal():
-        end_round()
-        loop.call_soon_threadsafe(round_ended.set)
+    async def get(path):
+        async with session.get(base + path) as resp:
+            check(resp.status == 200, f"{path} answered {resp.status}")
+            return await resp.json()
 
-    exp.end_round = end_round_and_signal
-
-    async def drive():
-        n0 = exp.rounds.n_rounds
+    async def start():
         round_ended.clear()
         t0 = time.perf_counter()
-        async with session.get(url) as resp:
-            check(resp.status == 200, f"start_round answered {resp.status}")
-            acks = await resp.json()
-        check(len(acks) == len(workers) and all(acks.values()), f"acks {acks}")
-        while exp.rounds.n_rounds == n0:
+        acks = await get("start_round?n_epoch=1")
+        check(len(acks) == len(fed.workers) and all(acks.values()), f"acks {acks}")
+        return t0
+
+    async def wait_round(n0, t0):
+        while fed.exp.rounds.n_rounds == n0:
             left = ROUND_LIMIT_S - (time.perf_counter() - t0)
             check(left > 0, f"the round did not complete in {ROUND_LIMIT_S} s")
             with contextlib.suppress(TimeoutError):
@@ -1418,20 +1490,32 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds)
             round_ended.clear()
         dt = time.perf_counter() - t0
         # a worker still flagged mid-round would 409 the next broadcast
-        while any(w.round_in_progress for w in workers):
+        while any(w.round_in_progress for w in fed.workers):
             check(time.perf_counter() - t0 < ROUND_LIMIT_S, "a worker stayed mid-round")
             await asyncio.sleep(0.02)
         return dt
 
+    async def drive():
+        n0 = fed.exp.rounds.n_rounds
+        return await wait_round(n0, await start())
+
+    async def restart(**kw):
+        await fed.runner.cleanup()
+        app, fed.exp = build_manager(kw)
+        fed.runner = await serve(app, listen(mport)[0])
+        await wait_registered()
+
+    fed.get, fed.start, fed.wait_round, fed.drive, fed.restart = get, start, wait_round, drive, \
+        restart
     try:
-        out = await rounds(exp, workers, drive)
+        out = await rounds(fed)
         # the workers ship their spans after each delivery
-        for w in workers:
+        for w in fed.workers:
             if w._ship_task is not None:
                 await w._ship_task
     finally:
         await session.close()
-        for r in runners[1:] + runners[:1]:
+        for r in runners + [fed.runner]:
             await r.cleanup()
     return out, bodies, seen
 
@@ -1464,12 +1548,13 @@ def http_round_phase(fa):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    async def rounds(exp, workers, drive):
+    async def rounds(fed):
+        exp = fed.exp
         n_params = sum(v.numel() for v in exp.params.values())
         check(all(v.device.type == "cuda" for v in exp.params.values()),
               "the manager's params are not on the card")
-        warm = await drive()
-        times = [await drive() for _ in range(n_timed)]
+        warm = await fed.drive()
+        times = [await fed.drive() for _ in range(n_timed)]
         return {"n_params": n_params, "warm_up_s": warm, "round_s": times,
                 "params": params_to_state_dict(exp.params), "exp": exp}
 
@@ -1541,13 +1626,13 @@ def replay_merge(trained, counts, like):
         agg.parse_aggregator("mean"), agg.tree_stack(trained), weights), like)
 
 
-def replay_holds(gap: float, moved: float) -> bool:
-    """The replay check: the gap within ``HTTP_REPLAY_TOL`` and within
-    ``REPLAY_MOVE_SHARE`` of the round's largest param change."""
-    return gap <= HTTP_REPLAY_TOL and gap <= REPLAY_MOVE_SHARE * moved
+def replay_holds(gap: float, moved: float, tol: float = HTTP_REPLAY_TOL) -> bool:
+    """The replay check: the gap within ``tol`` (``HTTP_REPLAY_TOL``) and
+    within ``REPLAY_MOVE_SHARE`` of the round's largest param change."""
+    return gap <= tol and gap <= REPLAY_MOVE_SHARE * moved
 
 
-def hold_replay(name, start, end, trained, counts, batch):
+def hold_replay(name, start, end, trained, counts, batch, tol=HTTP_REPLAY_TOL):
     """One fp32 HTTP round, from ``start`` to the manager's ``end``,
     against its replay: the workers' replayed params ``trained`` merged
     with their sample ``counts``. Two planted faults must fail the same
@@ -1561,14 +1646,14 @@ def hold_replay(name, start, end, trained, counts, batch):
         "the last worker's upload dropped": replay_merge(trained[:-1], counts[:-1], start),
     }
     controls = {fault: max_gap(end, want) for fault, want in faults.items()}
-    print(f"  {name}: manager against the replay max |diff| {gap:.3e} (tol {HTTP_REPLAY_TOL} and "
+    print(f"  {name}: manager against the replay max |diff| {gap:.3e} (tol {tol:.3e} and "
           f"{REPLAY_MOVE_SHARE} x the max |param change| {moved:.3e}); against planted faults: "
           + ", ".join(f"{fault} {g:.3e}" for fault, g in controls.items()))
     check(moved > 0, f"{name} left the params unchanged")
-    check(replay_holds(gap, moved), f"{name}: the HTTP round and its replay differ by {gap:.3e} "
-          f"(max |param change| {moved:.3e})")
+    check(replay_holds(gap, moved, tol), f"{name}: the HTTP round and its replay differ by "
+          f"{gap:.3e} (max |param change| {moved:.3e})")
     for fault, g in controls.items():
-        check(not replay_holds(g, moved), f"{name}: the replay check cannot see {fault} "
+        check(not replay_holds(g, moved, tol), f"{name}: the replay check cannot see {fault} "
               f"({g:.3e})")
     return gap, moved
 
@@ -1592,12 +1677,12 @@ def http_replay_phase():
                  "y": rng.integers(0, 10, size=(n,)).astype(np.int32)} for n in (48, 20)]
     model = resnet18_cifar_model(compute_dtype=torch.float32, conv_impl="direct")
 
-    async def rounds(exp, workers, drive):
+    async def rounds(fed):
         starts, ends = [], []
         for _ in range(2):
-            starts.append({k: v.clone() for k, v in exp.params.items()})
-            await drive()
-            ends.append({k: v.clone() for k, v in exp.params.items()})
+            starts.append({k: v.clone() for k, v in fed.exp.params.items()})
+            await fed.drive()
+            ends.append({k: v.clone() for k, v in fed.exp.params.items()})
         return starts, ends
 
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1618,6 +1703,424 @@ def http_replay_phase():
                                  [n for _, n in padded], batch)
         readings.append({"gap": gap, "moved": moved})
     return readings
+
+
+# phases 12-14: the HTTP round's remaining options (compressed uploads,
+# quantised and delta broadcasts, a manager restart resumed from its
+# checkpoints, secure aggregation) and BASELINE config 1.
+
+COMPRESS = "topk:0.1:q8"  # the uploads of phase 12 and its delta broadcasts
+EF_TOL = 1e-5  # relative: transmitted plus residual against the sum of the true deltas
+SECURE_QUANTUM = 2.0 ** -16  # the fixed point of DEFAULT_SCALE_BITS = 16
+SECURE_TOL = SECURE_QUANTUM + HTTP_REPLAY_TOL  # a secure round against its fp32 replay
+RESUME_TOL = 1e-6  # config 1 stopped after 2 rounds and resumed, against 4 rounds in one go
+CONFIG1_FULL_ROUNDS = 2  # of the full preset's 20: the smoke's time limit
+
+
+def fold_of_compressed_uploads(bodies, anchor):
+    """The sample-weighted mean of top-k BTW1 uploads, each reconstructed
+    as ``anchor + decode(payload)``, in fp64: ``({name: fp32 array},
+    total weight)``."""
+    from baton_tpu_torch.server import wire
+
+    sums, total = {}, 0.0
+    for body in bodies:
+        tensors, meta = wire.decode(body)
+        check(meta.get("compressed") == {"scheme": "topk"}, "an upload is not top-k compressed")
+        w = float(meta["n_samples"])
+        for k, ref in anchor.items():
+            val = np.asarray(tensors[f"{k}@val"], np.float64)
+            if f"{k}@scale" in tensors:
+                val = val * float(np.asarray(tensors[f"{k}@scale"]).ravel()[0])
+            dense = np.asarray(ref, np.float64).ravel().copy()
+            dense[np.asarray(tensors[f"{k}@idx"], np.int64)] += val
+            sums[k] = sums.get(k, 0.0) + dense.reshape(np.shape(ref)) * w
+        total += w
+    return {k: (v / total).astype(np.float32) for k, v in sums.items()}, total
+
+
+def track_error_feedback(compressor):
+    """Wrap ``compressor`` (an ``ErrorFeedbackCompressor``) to sum, in fp64
+    on its deltas' device, the true deltas it is handed and the exact
+    (pre-quantisation) mass it transmits, less what a failed upload gives
+    back; returns those running sums, ``{"true": tree, "sent": tree}``."""
+    from baton_tpu_torch.ops.compression import topk_decompress
+
+    sums = {}
+    compress, restore = compressor.compress, compressor.restore
+
+    def add(key, tree, sign=1.0):
+        acc = sums.setdefault(key, {k: torch.zeros(v.shape, dtype=torch.float64,
+                                                   device=v.device) for k, v in tree.items()})
+        for k, v in tree.items():
+            acc[k] += sign * v.double()
+
+    def tracked_compress(delta):
+        payload = compress(delta)
+        add("true", delta)
+        add("sent", topk_decompress(compressor._last_exact, delta))
+        return payload
+
+    def tracked_restore(template):
+        if compressor._last_exact is not None:
+            add("sent", topk_decompress(compressor._last_exact, template), -1.0)
+        restore(template)
+
+    compressor.compress, compressor.restore = tracked_compress, tracked_restore
+    return sums
+
+
+def error_feedback_gap(sums, residual) -> float:
+    """``max |sent + residual - true| / max |true|`` over every tensor."""
+    gap = max(float((sums["sent"][k] + residual[k].double() - v).abs().max())
+              for k, v in sums["true"].items())
+    return gap / max(float(v.abs().max()) for v in sums["true"].values())
+
+
+def resnet_workers_data(seed, sizes):
+    """CIFAR-shaped worker datasets of ``sizes`` samples, drawn as phase 6
+    draws its clients."""
+    rng = np.random.default_rng(seed)
+    return [{"x": rng.normal(size=(n, 32, 32, 3)).astype(np.float32),
+             "y": rng.integers(0, 10, size=(n,)).astype(np.int32)} for n in sizes]
+
+
+def bandwidth_phase(fa):
+    """Phase 12: phase 11's federation with the bandwidth options and a
+    manager restart. (a) 3 rounds: every worker uploads top-k (10%) int8
+    round deltas with error feedback, the manager broadcasts int8 weights
+    and checkpoints every round. (b) The manager stops; a new one on the
+    same port and checkpoint directory, broadcasting top-k int8 deltas
+    against the previous round's blob, runs 2 rounds with the same workers
+    (they register again after a 401): the first pulls the full blob (no
+    anchor after the restart), the second the delta."""
+    import asyncio
+    import tempfile
+
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.server import wire
+    from baton_tpu_torch.server.state import params_to_state_dict
+    from baton_tpu_torch.utils import tracing
+
+    n_workers, per_worker, batch, lr = 8, 48, 32, 0.05
+    datasets = resnet_workers_data(0, [per_worker] * n_workers)
+    n_total = sum(d["x"].shape[0] for d in datasets)
+    model = resnet18_cifar_model(compute_dtype=torch.bfloat16, conv_impl="direct")
+    print(f"phase 12: phase 11's federation ({n_workers} workers, ResNet-18 bf16) with uploads "
+          f"{COMPRESS} (error feedback on the card), int8 broadcasts and checkpoints, then a "
+          f"manager restart from the checkpoints with delta broadcasts {COMPRESS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    async def one_round(fed, label):
+        n0, nb, nm = fed.exp.rounds.n_rounds, len(fed.bodies), len(fed.meter)
+        t0 = await fed.start()
+        # what the workers loaded this round: the manager's upload anchor
+        anchor, name = dict(fed.exp._broadcast_anchor_sd), fed.exp.rounds.round_name
+        dt = await fed.wait_round(n0, t0)
+        # each worker ships its spans once its upload's 200 is back
+        while any(w._pending is not None for w in fed.workers):
+            await asyncio.sleep(0.01)
+        for w in fed.workers:
+            if w._ship_task is not None:
+                await w._ship_task
+        split = round_split(fed.exp.tracer.spans_for(tracing.make_trace_id(fed.exp.name, name)))
+        fold, weight = fold_of_compressed_uploads(fed.bodies[nb:], anchor)
+        check(weight == n_total, f"{label}: the uploads weigh {weight}, not {n_total}")
+        gap = max_gap(params_to_state_dict(fed.exp.params), fold)
+        check(gap <= HTTP_FOLD_TOL, f"{label}: global params differ from the fold of the "
+              f"decoded uploads by {gap:.3e}")
+        ups = [b for kind, b in fed.meter[nm:] if kind == "upload"]
+        blobs = [b for kind, b in fed.meter[nm:] if kind == "blob"]
+        check(len(ups) == n_workers, f"{label}: {len(ups)} uploads")
+        return {"round": label, "s": dt, "fold_gap": gap, "upload_bytes": float(np.mean(ups)),
+                "blob_bytes": blobs, "split": split}
+
+    def counters(workers, name):
+        return sum(w.metrics.snapshot()["counters"].get(name, 0.0) for w in workers)
+
+    async def rounds(fed):
+        efs = [track_error_feedback(w.compressor) for w in fed.workers]
+        dense = len(wire.encode(params_to_state_dict(fed.exp.params), {}))
+        out = {"dense_bytes": dense, "rounds": []}
+        for r in range(3):
+            out["rounds"].append(await one_round(fed, f"(a) round {r}"))
+        saved = params_to_state_dict(fed.exp.params)
+        n_rounds, losses = fed.exp.rounds.n_rounds, list(fed.exp.rounds.loss_history)
+        t0 = time.perf_counter()
+        await fed.restart(broadcast_delta=COMPRESS, checkpoint_dir=ckdir)
+        out["restart_s"] = time.perf_counter() - t0
+        exp = fed.exp
+        check(exp.rounds.n_rounds == n_rounds == 3, f"resumed at round {exp.rounds.n_rounds}")
+        check([float(x) for x in exp.rounds.loss_history] == [float(x) for x in losses],
+              "the resumed loss history differs")
+        restored = params_to_state_dict(exp.params)
+        check(all(v.device.type == "cuda" for v in exp.params.values()),
+              "the resumed params are not on the card")
+        check(all(np.array_equal(restored[k], v) for k, v in saved.items()),
+              "the resumed params differ from the checkpointed ones")
+        fetched = counters(fed.workers, "blob_fetch_delta")
+        for r in range(2):
+            out["rounds"].append(await one_round(fed, f"(b) round {r}"))
+        delta_pulls = counters(fed.workers, "blob_fetch_delta") - fetched
+        mismatches = counters(fed.workers, "blob_delta_digest_mismatch")
+        check(delta_pulls == n_workers, f"{delta_pulls} delta pulls, not {n_workers}")
+        check(mismatches == 0, f"{mismatches} delta reconstructions missed the blob's digest")
+        full, delta = out["rounds"][3]["blob_bytes"], out["rounds"][4]["blob_bytes"]
+        check(len(full) == len(delta) == n_workers and min(full) >= 0.99 * dense
+              and max(delta) < 0.5 * dense, f"blob pulls after the restart: {full}, then {delta}")
+        out["ef_gaps"] = [error_feedback_gap(ef, w.compressor.residual)
+                          for ef, w in zip(efs, fed.workers)]
+        out.update(delta_pulls=delta_pulls, digest_mismatches=mismatches,
+                   n_params=sum(v.numel() for v in exp.params.values()))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = str(Path(tmp) / "ckpt")
+        out, bodies, seen = asyncio.run(http_federation(
+            model, datasets, seeds=range(n_workers), lr=lr, batch=batch, log_dir=tmp,
+            rounds=rounds, heartbeat_time=1.0, worker_kw={"compress": COMPRESS},
+            manager_kw={"broadcast_quantize_bits": 8, "checkpoint_dir": ckdir}))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(devs == ["cuda"] for devs in seen), f"a trainer was handed CPU tensors: {seen}")
+    worst_ef = max(out["ef_gaps"])
+    check(worst_ef <= EF_TOL, f"error feedback lost mass: relative gap {worst_ef:.3e}")
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched: {flash}")
+    dense = out["dense_bytes"]
+    print(f"  {out['n_params'] / 1e6:.2f} M params; a dense upload or blob is {dense / 1e6:.2f} MB "
+          f"(phase 11's)")
+    for r in out["rounds"]:
+        blobs = r["blob_bytes"]
+        print(f"  {r['round']}: {r['s']:.4f} s; upload {r['upload_bytes'] / 1e6:.3f} MB "
+              f"({dense / r['upload_bytes']:.1f}x smaller); broadcast pulls {len(blobs)} of "
+              f"{np.mean(blobs) / 1e6 if blobs else 0.0:.3f} MB each; fold of the decoded uploads "
+              f"max |diff| {r['fold_gap']:.3e} (tol {HTTP_FOLD_TOL})")
+        print("    split (s, from the spans): " + ", ".join(f"{k} {v:.4f}"
+                                                       for k, v in r["split"].items()))
+    print(f"  restart: the new manager resumed round 3, its loss history and params to the bit, "
+          f"{out['restart_s']:.2f} s until every worker registered again; delta pulls "
+          f"{out['delta_pulls']:.0f}, digest mismatches {out['digest_mismatches']:.0f}")
+    print(f"  error feedback (sent + residual against the true deltas, relative, 5 rounds): "
+          f"worst {worst_ef:.3e} (tol {EF_TOL}); peak memory {peak_gb:.2f} GB; flash launches "
+          f"{flash}")
+    out.update(peak_memory_gb=peak_gb, ef_worst=worst_ef)
+    return out
+
+
+def secure_phase(fa):
+    """Phase 13: secure aggregation at ResNet-18 width, fp32 (so the round
+    can be replayed): 4 workers (48, 48, 20, 48 samples; threshold 3), 2
+    rounds; in the second the last worker trains but never uploads, after
+    it took part in the key and share exchange, and the manager recovers
+    its masks from the survivors' shares. Each round's new params against
+    the sample-weighted mean of what the survivors trained (the fixed
+    point's quantum) and against the survivors' local trains replayed in
+    this process (the quantum plus phase 11's replay tolerance)."""
+    import asyncio
+    import tempfile
+
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.ops.padding import pad_dataset, round_up
+    from baton_tpu_torch.server import secure
+    from baton_tpu_torch.server.state import params_to_state_dict
+
+    sizes, batch, lr, seeds = (48, 48, 20, 48), 32, 0.05, (21, 22, 23, 24)
+    datasets = resnet_workers_data(7, sizes)
+    model = resnet18_cifar_model(compute_dtype=torch.float32, conv_impl="direct")
+    print(f"phase 13: secure aggregation, {len(sizes)} workers ({', '.join(map(str, sizes))} "
+          f"samples), ResNet-18 fp32, threshold {len(sizes) // 2 + 1}, 2 rounds, the last worker "
+          f"dropping after the share exchange in the second")
+    mask_s, unmask_s = [], []
+    mask_state_dict = secure.mask_state_dict
+
+    def timed_mask(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return mask_state_dict(*args, **kw)
+        finally:
+            mask_s.append(time.perf_counter() - t0)
+
+    async def rounds(fed):
+        exp = fed.exp
+        end_secure = exp._end_round_secure
+
+        async def timed_end():
+            t0 = time.perf_counter()
+            try:
+                await end_secure()
+            finally:
+                unmask_s.append(time.perf_counter() - t0)
+
+        exp._end_round_secure = timed_end
+        out = []
+        # round 1: every worker uploads
+        start = {k: v.clone() for k, v in exp.params.items()}
+        dt = await fed.drive()
+        out.append({"start": start, "end": {k: v.clone() for k, v in exp.params.items()},
+                    "trained": [{k: v.clone() for k, v in w.params.items()} for w in fed.workers],
+                    "survivors": list(range(len(sizes))), "s": dt})
+        # round 2: the last worker trains but never uploads
+        dropped = fed.workers[-1]
+
+        async def silent(*args, **kw):
+            return None
+
+        dropped.report_update = silent
+        start = {k: v.clone() for k, v in exp.params.items()}
+        n0 = exp.rounds.n_rounds
+        t0 = await fed.start()
+        while len(exp.rounds.client_responses) < len(sizes) - 1:
+            check(time.perf_counter() - t0 < ROUND_LIMIT_S, "the survivors did not report")
+            await asyncio.sleep(0.02)
+        await fed.get("end_round")  # finish without the dropped worker: recover its masks
+        dt = await fed.wait_round(n0, t0)
+        del dropped.report_update
+        out.append({"start": start, "end": {k: v.clone() for k, v in exp.params.items()},
+                    "trained": [{k: v.clone() for k, v in w.params.items()}
+                                for w in fed.workers],
+                    "survivors": list(range(len(sizes) - 1)), "s": dt})
+        counters = exp.metrics.snapshot()["counters"]
+        check(counters.get("secure_dropouts_recovered") == 1.0,
+              f"dropouts recovered: {counters.get('secure_dropouts_recovered')}")
+        return out
+
+    secure.mask_state_dict = timed_mask
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            out, bodies, seen = asyncio.run(http_federation(
+                model, datasets, seeds=seeds, lr=lr, batch=batch, log_dir=log_dir,
+                rounds=rounds, manager_kw={"secure_agg": True}))
+    finally:
+        secure.mask_state_dict = mask_state_dict
+    check(all(devs == ["cuda"] for devs in seen), f"a trainer was handed CPU tensors: {seen}")
+    check(len(bodies) == 2 * len(sizes) - 1, f"{len(bodies)} uploads received")
+    # the survivors' local trains replayed from each round's broadcast,
+    # every worker's shuffle generator advanced as the worker's own
+    trainer = make_local_trainer(model, batch_size=batch, learning_rate=lr)
+    gens = [torch.Generator().manual_seed(s + 1) for s in seeds]
+    padded = []
+    for d in datasets:
+        pd, n = pad_dataset(d, round_up(d["x"].shape[0], batch))
+        padded.append(({k: torch.as_tensor(v, device="cuda") for k, v in pd.items()}, n))
+    readings = []
+    for r, rnd in enumerate(out):
+        replayed = [trainer.train(rnd["start"], d, n, 1, generator=g)[0]
+                    for (d, n), g in zip(padded, gens)]
+        keep = rnd["survivors"]
+        counts = [datasets[i]["x"].shape[0] for i in keep]
+        weights = np.asarray(counts, np.float64)
+        mean = {k: sum(w * rnd["trained"][i][k].double().cpu().numpy()
+                       for w, i in zip(weights, keep)) / weights.sum() for k in rnd["end"]}
+        sum_gap = max_gap(rnd["end"], mean)
+        print(f"  round {r} ({len(keep)} survivors): {rnd['s']:.4f} s; new params against the "
+              f"sample-weighted mean of what the survivors trained max |diff| {sum_gap:.3e} "
+              f"(tol {SECURE_QUANTUM:.3e})")
+        check(sum_gap <= SECURE_QUANTUM, f"round {r}: the unmasked mean is off by {sum_gap:.3e}")
+        gap, moved = hold_replay(f"secure round {r}", rnd["start"], rnd["end"],
+                                 [replayed[i] for i in keep], counts, batch, tol=SECURE_TOL)
+        readings.append({"s": rnd["s"], "survivors": len(keep), "mean_gap": sum_gap,
+                         "replay_gap": gap, "moved": moved})
+    check(len(mask_s) == 2 * len(sizes) - 1 and len(unmask_s) == 2,
+          f"{len(mask_s)} maskings, {len(unmask_s)} unmaskings")
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched: {flash}")
+    print(f"  host time: masking an upload on a worker (quantise, {len(sizes) - 1} pair masks and "
+          f"the self mask over {sum(v.numel() for v in out[0]['end'].values()) / 1e6:.2f} M "
+          f"uint64) mean {np.mean(mask_s):.4f} s, max {max(mask_s):.4f} s; unmasking on the "
+          f"manager (share requests, reconstruction, masks, modular sum) "
+          f"{', '.join(f'{t:.4f}' for t in unmask_s)} s; flash launches {flash}")
+    return {"rounds": readings, "mask_s": mask_s, "unmask_s": unmask_s}
+
+
+def config1_phase(fa):
+    """Phase 14: BASELINE config 1 (``examples/01_cnn_mnist_fedavg.py``:
+    4 clients, the 2-layer CNN, local SGD 0.01 with momentum 0.9, batch
+    32, ``load_mnist``'s synthetic fallback) through the port's ``run()``.
+    The example's default (tiny) preset, 64 samples a client and 2 epochs,
+    is the gate: 4 rounds on the card; the same run stopped after 2 rounds
+    and resumed from its checkpoints by a new FedSim (within 1e-6, with
+    cuDNN's deterministic algorithms for this phase); and the 4 rounds on
+    the CPU (within 1e-4). Then the example's ``--scale full`` preset, 4 x
+    15,000 samples and 4 epochs a round, cut from 20 rounds to
+    ``CONFIG1_FULL_ROUNDS``, timed apart from making its data, and held to
+    the example's own check (accuracy above 0.5)."""
+    import tempfile
+
+    from baton_tpu_torch.examples import cnn_mnist_fedavg as config1
+
+    print("phase 14: BASELINE config 1 (2-layer CNN, 4 clients of the synthetic MNIST "
+          "fallback, SGD 0.01 momentum 0.9, batch 32); the tiny preset's gate (64 samples a "
+          "client, 2 epochs, 4 rounds) with torch.backends.cudnn.deterministic = True, then "
+          f"the full preset (15,000 samples a client, 4 epochs) for {CONFIG1_FULL_ROUNDS} of "
+          "its 20 rounds")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # an empty data directory: the loader falls back to its
+            # surrogate, and nothing is read from or written to $HOME
+            kw = dict(real_data=True, data_dir=str(Path(tmp) / "no_mnist"))
+            # run() prints each round's losses: kept out of this output
+            with contextlib.redirect_stdout(io.StringIO()):
+                whole = config1.run(**kw)
+                config1.run(n_rounds=2, checkpoint_dir=str(Path(tmp) / "ck"), **kw)
+                resumed = config1.run(checkpoint_dir=str(Path(tmp) / "ck"), **kw)
+                cpu = config1.run(device="cpu", **kw)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    params = whole["params"]
+    check(all(v.device.type == "cuda" for v in params.values()), "config 1 ran off the card")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()), "non-finite params")
+    check(len(whole["loss_history"]) == 8 and whole["loss_history"][-1] < whole["loss_history"][0],
+          f"the loss did not fall: {whole['loss_history']}")
+    resume_gap = max_gap(resumed["params"], params)
+    loss_resume_gap = float(np.max(np.abs(np.subtract(resumed["loss_history"],
+                                                      whole["loss_history"]))))
+    cpu_gap = max_gap(cpu["params"], params)
+    loss_cpu_gap = float(np.max(np.abs(np.subtract(cpu["loss_history"], whole["loss_history"]))))
+    print(f"  tiny preset (the gate): 4 rounds {whole['train_s']:.4f} s on the card, "
+          f"{cpu['train_s']:.4f} s on the CPU (data {whole['data_s']:.4f} s apart), loss "
+          f"{whole['loss_history'][0]:.4f} -> {whole['loss_history'][-1]:.4f}")
+    print(f"  stopped after 2 rounds and resumed: params max |diff| {resume_gap:.3e}, losses "
+          f"{loss_resume_gap:.3e} (tol {RESUME_TOL}); card against the CPU: params "
+          f"{cpu_gap:.3e}, losses {loss_cpu_gap:.3e} (tol {TOL[torch.float32]})")
+    check(resume_gap <= RESUME_TOL and loss_resume_gap <= RESUME_TOL,
+          f"the resumed run differs by {resume_gap:.3e} / {loss_resume_gap:.3e}")
+    check(cpu_gap <= TOL[torch.float32] and loss_cpu_gap <= TOL[torch.float32],
+          f"the card and the CPU differ by {cpu_gap:.3e} / {loss_cpu_gap:.3e}")
+
+    n_per_client, n_epochs = 15000, 4
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            full = config1.run(n_clients=4, n_rounds=CONFIG1_FULL_ROUNDS, n_epochs=n_epochs,
+                               n_per_client=n_per_client, real_data=True,
+                               data_dir=str(Path(tmp) / "no_mnist"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = full["loss_history"]
+    check(all(bool(torch.isfinite(v).all()) for v in full["params"].values()),
+          "non-finite params in the full preset")
+    check(len(hist) == CONFIG1_FULL_ROUNDS * n_epochs and hist[-1] < hist[0],
+          f"the full preset's loss did not fall: {hist}")
+    check(int(full["n"]) == 4 * n_per_client, f"evaluated {full['n']} samples")
+    check(full["accuracy"] > 0.5, f"the full preset's accuracy {full['accuracy']:.3f}")
+    round_s = full["train_s"] / CONFIG1_FULL_ROUNDS
+    samples_s = 4 * n_per_client * n_epochs / round_s
+    print(f"  full preset: data {full['data_s']:.4f} s; {CONFIG1_FULL_ROUNDS} rounds "
+          f"{full['train_s']:.4f} s ({round_s:.4f} s a round, {samples_s:.1f} samples/s over "
+          f"{n_epochs * -(-n_per_client // 32)} steps of 4 clients x 32 a round); loss {hist[0]:.4f} -> {hist[-1]:.4f}, "
+          f"accuracy {full['accuracy']:.4f} over {int(full['n'])} samples; peak "
+          f"{peak_gb:.2f} GB")
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched: {flash}")
+    return {"tiny_train_s": whole["train_s"], "tiny_cpu_train_s": cpu["train_s"],
+            "resume_gap": resume_gap, "cpu_gap": cpu_gap, "loss_cpu_gap": loss_cpu_gap,
+            "full_rounds": CONFIG1_FULL_ROUNDS, "full_data_s": full["data_s"],
+            "full_train_s": full["train_s"], "full_round_s": round_s,
+            "full_samples_s": samples_s, "full_accuracy": float(full["accuracy"]),
+            "full_loss_history": hist, "full_peak_gb": peak_gb}
 
 
 def main() -> int:
@@ -1673,6 +2176,12 @@ def main() -> int:
     http = time.perf_counter()
     http_stats = http_round_phase(fa)
     print(f"phase 11 took {time.perf_counter() - http:.1f} s")
+    second = time.perf_counter()
+    fa.reset_launches()
+    bandwidth_stats = bandwidth_phase(fa)
+    secure_stats = secure_phase(fa)
+    config1_stats = config1_phase(fa)
+    print(f"phases 12-14 took {time.perf_counter() - second:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -1680,7 +2189,9 @@ def main() -> int:
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
-                      "options_parity": parity_errs, "http_round": http_stats}))
+                      "options_parity": parity_errs, "http_round": http_stats,
+                      "bandwidth": bandwidth_stats, "secure": secure_stats,
+                      "config1": config1_stats}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

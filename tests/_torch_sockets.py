@@ -5,16 +5,20 @@
   limit the test fails with every thread's stack
   (``faulthandler.dump_traceback(all_threads=True)``), so a hang names
   where it blocks instead of stalling the whole run.
-* :func:`listen` binds an ephemeral port and keeps the socket open;
+* :func:`listen` binds a port below the ephemeral range and keeps the
+  socket open;
   :func:`serve` hands that very socket to aiohttp (``web.SockSite``). No
   port is closed and re-bound, so parallel test processes cannot race
-  for it.
+  for it. :func:`reserve_port` and :func:`tcp_site` do the same for the
+  reference's socket cases run against the port, in place of their
+  ``free_port()`` and ``web.TCPSite`` (``_torch_carried_cases`` seams).
 """
 
 from __future__ import annotations
 
 import asyncio
 import faulthandler
+import random
 import socket
 import tempfile
 import threading
@@ -53,10 +57,23 @@ def run_bounded(coro_fn, limit_s: float = LIMIT_S):
     return out.get("value")
 
 
+# Ports just below Linux's default ephemeral range (32768-60999). The JAX
+# package's socket tests, running in parallel processes beside these,
+# take a port with bind(0), close it and bind it again later; a port taken
+# from the ephemeral range here could be the one they are about to bind.
+_PORTS = range(24576, 32768)
+
+
 def listen():
-    """``(socket, port)``: a TCP socket bound to an ephemeral loopback
-    port, kept open for :func:`serve`."""
+    """``(socket, port)``: a TCP socket bound to a free loopback port below
+    the ephemeral range, kept open for :func:`serve`."""
     sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    for port in random.sample(_PORTS, 256):
+        try:
+            sock.bind(("127.0.0.1", port))
+            return sock, port
+        except OSError:
+            continue
     sock.bind(("127.0.0.1", 0))
     return sock, sock.getsockname()[1]
 
@@ -79,3 +96,26 @@ async def wait_until(cond, timeout_s: float = 20.0, dt: float = 0.02) -> bool:
             return True
         await asyncio.sleep(dt)
     return cond()
+
+
+# ports reserved by reserve_port(), each with its bound socket, until
+# tcp_site() serves it
+_RESERVED = {}
+
+
+def reserve_port() -> int:
+    """An ephemeral port bound now and kept open until :func:`tcp_site`
+    serves it."""
+    sock, port = listen()
+    _RESERVED[port] = sock
+    return port
+
+
+def tcp_site(runner: web.AppRunner, host: str, port: int) -> web.SockSite:
+    """``web.TCPSite(runner, host, port)`` on the socket that
+    :func:`reserve_port` holds for ``port``."""
+    return web.SockSite(runner, _RESERVED.pop(port))
+
+
+# the seams that put these in place of a reference case's own
+SOCKET_SEAMS = (("= free_port()", "= reserve_port()"), ("web.TCPSite(", "tcp_site("))

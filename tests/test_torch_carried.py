@@ -7,6 +7,7 @@ undone, so an edit on either side shows here.
 reference source text exactly once, and the port's text that replaces it.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -17,7 +18,9 @@ from _torch_carried_cases import rewrite
 ROOT = Path(__file__).resolve().parents[1]
 
 CARRIED = [
+    "data/datasets.py",
     "server/__init__.py",
+    "server/secure.py",
     "server/utils.py",
     "server/wire.py",
     "server/blobs.py",
@@ -80,3 +83,24 @@ def test_carried_module_equals_its_source(module):
 
 def test_every_difference_names_a_carried_module():
     assert set(DIFFERENCES) <= set(CARRIED)
+
+
+# ``ops/compression.py``'s numpy half: the downlink's encode and
+# reconstruction must stay bit-identical across the packages (a worker
+# checks its reconstruction against the round blob's digest), so each
+# function is its source's text
+NUMPY_COMPRESSION = ["_leaf_k", "dequantize_state_dict", "parse_delta_spec",
+                     "delta_encode_state_dict", "apply_delta_state_dict"]
+
+
+def _function_source(path, name):
+    source = path.read_text()
+    node = next(n for n in ast.parse(source).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(source, node)
+
+
+@pytest.mark.parametrize("name", NUMPY_COMPRESSION)
+def test_numpy_compression_function_equals_its_source(name):
+    got = _function_source(ROOT / "baton_tpu_torch/ops/compression.py", name)
+    assert got == _function_source(ROOT / "baton_tpu/ops/compression.py", name)

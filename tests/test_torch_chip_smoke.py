@@ -13,8 +13,10 @@ that mixes the clients up; phases 8-10's checks at a tiny size (FedProx's
 drift, the frozen tensors of a partitioned round, the card-against-CPU
 comparator), each passing and failing a broken input; phase 11's fold of
 the uploads, the split of a round from its spans and the trainer that
-notes its devices; and ``main`` with every phase, the card and nvidia-smi
-stubbed: it runs phases 2-11 in order and ends with the card's name and
+notes its devices; phase 12's fold of compressed uploads and its
+error-feedback ledger, each passing and failing a broken input; and
+``main`` with every phase, the card and nvidia-smi stubbed: it runs
+phases 2-14 in order and ends with the card's name and
 power limit, the kernels line and the ok/device line; a failing phase from
 6 on fails it before any result line."""
 
@@ -187,7 +189,8 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
           "resnet_round_phase", "vision_parity_phase", "fedprox_bert_phase",
-          "resnet_optimizer_phase", "options_parity_phase", "http_round_phase")
+          "resnet_optimizer_phase", "options_parity_phase", "http_round_phase",
+          "bandwidth_phase", "secure_phase", "config1_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 
 
@@ -209,7 +212,8 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "resnet_round_phase": {},
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
                     "resnet_optimizer_phase": {}, "options_parity_phase": {},
-                    "http_round_phase": {}}.get(phase)
+                    "http_round_phase": {}, "bandwidth_phase": {}, "secure_phase": {},
+                    "config1_phase": {}}.get(phase)
         return run
 
     for phase in PHASES:
@@ -245,7 +249,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
 
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
                                      "fedprox_bert_phase", "resnet_optimizer_phase",
-                                     "options_parity_phase", "http_round_phase"])
+                                     "options_parity_phase", "http_round_phase",
+                                     "bandwidth_phase", "secure_phase", "config1_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -492,3 +497,55 @@ def test_recording_trainer_notes_its_devices_and_trains_alike():
         assert torch.equal(got[0][k], want[0][k])
     assert trainer.batch_size == base.batch_size and trainer.optimizer is base.optimizer
 
+
+
+@pytest.mark.parametrize("anchor_off", [0.0, 1e-3])
+def test_fold_of_compressed_uploads_against_the_aggregate(anchor_off):
+    """Phase 12's fold: top-k uploads reconstructed on the round's anchor
+    and weighted by their samples; the wrong anchor moves it."""
+    from baton_tpu_torch.ops.compression import ErrorFeedbackCompressor
+    from baton_tpu_torch.server import wire
+
+    rng = np.random.default_rng(0)
+    anchor = {"w": rng.normal(size=(6, 5)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+    trained, bodies = [], []
+    for i, n in enumerate((12, 5)):
+        delta = {k: torch.from_numpy(0.1 * rng.normal(size=v.shape).astype(np.float32))
+                 for k, v in anchor.items()}
+        payload = ErrorFeedbackCompressor(frac=1.0, seed=i).compress(delta)
+        tensors = {}
+        for k, p in payload.items():
+            tensors[f"{k}@idx"], tensors[f"{k}@val"] = p["idx"].numpy(), p["val"].numpy()
+        bodies.append(wire.encode(tensors, {"n_samples": n, "compressed": {"scheme": "topk"}}))
+        trained.append({k: anchor[k] + delta[k].numpy() for k in anchor})
+    want = {k: (12 * trained[0][k].astype(np.float64) + 5 * trained[1][k]) / 17 for k in anchor}
+    fold, weight = chip_smoke.fold_of_compressed_uploads(
+        bodies, {k: v + anchor_off for k, v in anchor.items()})
+    assert weight == 17.0
+    gap = chip_smoke.max_gap(fold, want)
+    assert (gap <= chip_smoke.HTTP_FOLD_TOL) == (anchor_off == 0.0)
+
+
+@pytest.mark.parametrize("fault", [None, "residual dropped", "restore forgets"])
+def test_error_feedback_ledger(fault):
+    """Phase 12's error-feedback check: the transmitted mass plus the
+    residual equals the true deltas' sum, through a failed upload's
+    restore; a compressor that drops its residual, or a restore that does
+    not fold the kept mass back, breaks it."""
+    from baton_tpu_torch.ops.compression import ErrorFeedbackCompressor
+
+    rng = np.random.default_rng(1)
+    comp = ErrorFeedbackCompressor(frac=0.2, bits=8, seed=3)
+    if fault == "restore forgets":
+        comp.restore = lambda template: setattr(comp, "_last_exact", None)
+    sums = chip_smoke.track_error_feedback(comp)
+    for r in range(4):
+        delta = {"w": torch.from_numpy(rng.normal(size=(40,)).astype(np.float32))}
+        comp.compress(delta)
+        if r == 1:
+            comp.restore(delta)  # the upload failed: its kept mass goes back
+        if r == 2 and fault == "residual dropped":
+            comp.residual = {k: torch.zeros_like(v) for k, v in comp.residual.items()}
+    gap = chip_smoke.error_feedback_gap(sums, comp.residual)
+    assert (gap <= chip_smoke.EF_TOL) == (fault is None)

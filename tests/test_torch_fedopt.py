@@ -243,24 +243,32 @@ def test_evaluate_clients_matches_jax(setup):
 
 
 def test_chained_run_rounds_carry_the_server_state(setup):
+    """Chained calls carrying ``server_opt_state`` equal one call. Every
+    call numbers its rounds from 0 (round ``i`` shuffles with
+    ``round_generator(generator, i)``), so the shuffles are fixed here
+    (``perms=``) and only the server state tells the runs apart."""
     data, n_samples, _, _, tmodel, tparams = setup
     sim = FedSim(tmodel, batch_size=BATCH, learning_rate=LR, device="cpu",
                  server_optimizer=optim.adam(1e-2))
+    capacity = next(iter(data.values())).shape[1]
+    perms = torch.stack([torch.randperm(capacity, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(len(SIZES))])
     whole = sim.run_rounds(tparams, data, n_samples, torch.Generator().manual_seed(7),
-                           n_rounds=3, n_epochs=1, return_server_opt_state=True)
+                           n_rounds=3, n_epochs=1, return_server_opt_state=True, perms=perms)
     gen = torch.Generator().manual_seed(7)
     p, h1, state = sim.run_rounds(tparams, data, n_samples, gen, n_rounds=1,
-                                  return_server_opt_state=True)
+                                  return_server_opt_state=True, perms=perms)
     p, h2, state = sim.run_rounds(p, data, n_samples, gen, n_rounds=2, server_opt_state=state,
-                                  return_server_opt_state=True)
+                                  return_server_opt_state=True, perms=perms)
     assert h1 + h2 == whole[1]
     assert int(state["count"]) == int(whole[2]["count"]) == 3
     optim.tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
                    (p, state), (whole[0], whole[2]))
     # without the state the second call restarts the moments: another result
     p2, _ = sim.run_rounds(sim.run_rounds(tparams, data, n_samples,
-                                          torch.Generator().manual_seed(7))[0],
-                           data, n_samples, torch.Generator().manual_seed(7), n_rounds=2)
+                                          torch.Generator().manual_seed(7), perms=perms)[0],
+                           data, n_samples, torch.Generator().manual_seed(7), n_rounds=2,
+                           perms=perms)
     assert any(not torch.equal(p2[k], whole[0][k]) for k in p2)
 
 

@@ -1,8 +1,8 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
 demo) refuse to run without a GPU unless asked for the CPU, every option
-not ported yet raises ``NotImplementedError``, and the chip smoke test has
-no CPU fallback."""
+not ported yet raises ``NotImplementedError`` while the ported ones build,
+and the chip smoke test has no CPU fallback."""
 
 import ast
 import asyncio
@@ -22,6 +22,7 @@ from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.server import http_worker
 from baton_tpu_torch.server.http_manager import Manager
 from baton_tpu_torch.server.http_worker import ExperimentWorker
+from baton_tpu_torch.utils.checkpoint import RestoredState
 
 # small shapes: one thread each keeps the parallel test workers from
 # oversubscribing the cores (and runs these tests faster)
@@ -93,16 +94,39 @@ def test_http_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize("kw", [{"secure_agg": True}, {"broadcast_quantize_bits": 8},
                                 {"broadcast_delta": "q8"}, {"checkpoint_dir": "ckpt"}],
                          ids=lambda kw: next(iter(kw)))
-def test_unported_manager_options_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+def test_unported_manager_options_are_refused(kw, tmp_path):
+    """Refused until the second ring was ported; each option now builds an
+    experiment on the CPU."""
+    if "checkpoint_dir" in kw:
+        kw = {"checkpoint_dir": str(tmp_path / kw["checkpoint_dir"])}
+    exp = _in_loop(lambda: _experiment(device="cpu", **kw))
+    assert exp.params["w"].device.type == "cpu"
+    if "secure_agg" in kw:
+        assert exp.secure_agg
+    if "broadcast_quantize_bits" in kw:
+        assert exp.broadcast_quantize_bits == 8
+    if "broadcast_delta" in kw:
+        assert exp._delta_spec == {"frac": None, "bits": 8}
+    if "checkpoint_dir" in kw:
+        assert exp.checkpointer.directory == kw["checkpoint_dir"]
+
+
+@pytest.mark.parametrize("kw", [{"secure_agg": True, "allow_pickle": True},
+                                {"broadcast_delta": "q8", "broadcast_quantize_bits": 8}],
+                         ids=["secure_agg+allow_pickle", "broadcast_delta+quantize_bits"])
+def test_incompatible_manager_options_raise_value_errors(kw):
+    """The reference's incompatible pairs stay ValueErrors."""
+    with pytest.raises(ValueError):
         _in_loop(lambda: _experiment(device="cpu", **kw))
 
 
 def test_unported_worker_options_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        _in_loop(lambda: _worker(device="cpu", compress="topk:0.05"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        http_worker._parse_compress("topk:0.05:q8")
+    """Refused until the second ring was ported; ``compress=`` now builds
+    a worker with its error-feedback compressor."""
+    worker = _in_loop(lambda: _worker(device="cpu", compress="topk:0.05"))
+    assert (worker.compressor.frac, worker.compressor.bits) == (0.05, None)
+    compressor = http_worker._parse_compress("topk:0.05:q8")
+    assert (compressor.frac, compressor.bits) == (0.05, 8)
 
 
 @pytest.mark.parametrize("flags", [["manager", "h", "1", "--secure"],
@@ -110,11 +134,16 @@ def test_unported_worker_options_are_refused():
                                    ["worker", "h:1", "1", "--compress", "topk:0.1"]],
                          ids=lambda f: f[3])
 def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
+    """Refused until the second ring was ported; each flag now parses and
+    builds its role's app, and a flag given to the wrong role still exits
+    with the usage."""
+    app, port = _in_loop(lambda: demo.build_app(flags + ["--cpu"]))
+    assert isinstance(app, web.Application) and port == 1
+    other = ["worker", "h:1"] if flags[0] == "manager" else ["manager", "h"]
     with pytest.raises(SystemExit) as exc:
-        demo.build_app(flags + ["--cpu"])
+        demo.build_app(other + flags[2:] + ["--cpu"])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet (ROADMAP item 4)" in err and "python -m baton_tpu_torch.demo" in err
+    assert "python -m baton_tpu_torch.demo" in capsys.readouterr().err
 
 
 def test_unported_options_are_refused():
@@ -131,8 +160,18 @@ def test_unported_options_are_refused():
         sim.auto_wave_size()
     with pytest.raises(NotImplementedError):
         sim.run_round({}, {}, [], wave_size="auto")
-    with pytest.raises(NotImplementedError):
-        sim.run_rounds({}, {}, [], checkpointer=object())
+    # run_rounds(checkpointer=) is ported: a run restored at its last
+    # round trains no further and hands back what was restored
+    restored = {"w": torch.ones(2)}
+
+    class Done:
+        def restore(self, params, server_opt_template=None):
+            return RestoredState(step=3, params=restored, server_opt_state=None,
+                                 meta={"loss_history": [0.5, 0.25, 0.125]})
+
+    params, history = sim.run_rounds({}, {}, torch.zeros(0), torch.Generator(), n_rounds=3,
+                                     checkpointer=Done())
+    assert params is restored and history == [0.5, 0.25, 0.125]
 
 
 def test_chip_smoke_fails_without_a_gpu():
