@@ -14,9 +14,13 @@ optimizer state (Adam's count included) untouched.
 Clients train in lockstep: every step is one ``torch.func.vmap`` of
 ``torch.func.grad_and_value`` over the stacked per-client trainable
 params, so the kernels below see all clients of a wave in one launch.
-The regularizer's anchor and the frozen params enter that vmap unbatched
-(``in_dims=None``): they are never repeated per client, and the gradient
-is taken with respect to the trainable params alone.
+The frozen params enter that vmap unbatched (``in_dims=None``): they are
+never repeated per client, and the gradient is taken with respect to the
+trainable params alone. The regularizer's anchor is unbatched too when
+the cohort shares it (FedSim's round), or batched when it is stacked per
+client, as each client's own starting params are in ``train_stacked``'s
+callers (FedBuff's stale anchors, FedPer's merged params, a cluster's
+gather).
 
 JAX draws its permutations from threefry keys, which torch cannot
 reproduce; callers that need JAX's exact shuffles inject them as
@@ -55,8 +59,9 @@ def random_perms(n_clients: int, n_epochs: int, capacity: int,
     ])
 
 
-def _stack(tree, c: int):
-    """Repeat every leaf of nested dicts along a new leading client axis."""
+def stack_copies(tree, c: int):
+    """``c`` copies of every leaf of nested dicts, along a new leading
+    client axis."""
     return optim.tree_map(lambda v: v.unsqueeze(0).repeat(c, *([1] * v.dim())), tree)
 
 
@@ -93,6 +98,11 @@ class LocalTrainer:
 
     def init_opt_state(self, params: Params):
         return self.optimizer.init(params)
+
+    def init_opt_states(self, params: Params, n_clients: int):
+        """``n_clients`` fresh optimizer states of one client's ``params``,
+        stacked [C, ...] (Adam's count [C])."""
+        return stack_copies(self.optimizer.init(params), n_clients)
 
     def train_signature(self, data: Batch, n_epochs: int) -> tuple:
         """The shape signature of one ``train`` call: data shapes and
@@ -144,9 +154,9 @@ class LocalTrainer:
         n = torch.as_tensor([n_samples], device=device)
         stacked = {k: v[None] for k, v in data.items()}
         perms = None if perm is None else perm[None]
-        p, state, losses = self._train_stacked(
-            _stack(params, 1), _stack(opt_state, 1), stacked, n, n_epochs, perms, generator,
-            anchor, frozen)
+        p, state, losses = self.train_stacked(
+            stack_copies(params, 1), stack_copies(opt_state, 1), stacked, n, n_epochs, perms,
+            generator, anchor, frozen)
         unstack = lambda tree: optim.tree_map(lambda v: v[0], tree)  # noqa: E731
         return unstack(p), unstack(state), losses[0]
 
@@ -161,13 +171,24 @@ class LocalTrainer:
         [C, ...]) and losses [C, n_epochs]; the optimizer states are
         dropped, as the engine drops them."""
         c = n_samples.shape[0]
-        p, _, losses = self._train_stacked(
-            _stack(params, c), _stack(self.optimizer.init(params), c), data, n_samples,
+        p, _, losses = self.train_stacked(
+            stack_copies(params, c), self.init_opt_states(params, c), data, n_samples,
             n_epochs, perms, generator, anchor, frozen)
         return p, losses
 
-    def _train_stacked(self, p, opt_state, data, n_samples, n_epochs, perms, generator,
-                       anchor, frozen):
+    def train_stacked(self, params: Params, opt_state, data: Batch, n_samples: torch.Tensor,
+                      n_epochs: int = 1, perms: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      anchor: Optional[Params] = None, frozen: Optional[Params] = None):
+        """C clients, each from its own starting point: ``params`` and
+        ``opt_state`` leaves are [C, ...] (``init_opt_states`` gives fresh
+        states), ``data`` leaves [C, capacity, ...], ``n_samples`` [C],
+        ``perms`` an optional [C, n_epochs, capacity]. ``anchor`` is one
+        dict for the whole cohort (leaves shaped as one client's) or one
+        per client (leaves [C, ...], as ``params``); ``frozen`` is one
+        dict, never batched. Returns ``(params, opt_state, losses
+        [C, n_epochs])``."""
+        p = params
         if self.regularizer is not None and anchor is None:
             raise ValueError("a trainer with a regularizer needs the anchor params")
         if self.partition is not None and frozen is None:
@@ -178,9 +199,11 @@ class LocalTrainer:
         if perms is None:
             perms = random_perms(c, n_epochs, capacity, generator)
         perms = perms.to(device)
+        name = next(iter(anchor)) if anchor is not None else None
+        anchor_dim = 0 if name is not None and anchor[name].dim() == p[name].dim() else None
         grad_fn = torch.func.vmap(
             torch.func.grad_and_value(self._objective, has_aux=True),
-            in_dims=(0, None, None, 0))
+            in_dims=(0, None, anchor_dim, 0))
         rows = torch.arange(c, device=device)[:, None]
         history = []
         for e in range(n_epochs):

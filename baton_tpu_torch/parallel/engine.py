@@ -87,6 +87,17 @@ def client_eval_sums(model: FedModel, params, d, n):
     return out
 
 
+def federation_eval(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Example-weighted ``{"loss", "n"}`` (and ``"accuracy"``) over the
+    clients' evaluation sums (``client_eval_sums``, each [C])."""
+    totals = {k: float(v.sum()) for k, v in sums.items()}
+    denom = max(totals.get("n", 0.0), 1.0)
+    out = {"loss": totals.get("loss_sum", 0.0) / denom, "n": denom}
+    if "correct_sum" in totals:
+        out["accuracy"] = totals["correct_sum"] / denom
+    return out
+
+
 class FedSim:
     """Simulated-clients federated training on one device.
 
@@ -112,7 +123,8 @@ class FedSim:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError("FedSim(mesh=...) is not ported yet")
+            raise NotImplementedError(
+                "FedSim(mesh=...) is not ported yet (ROADMAP item 11)")
         self.aggregator = agg.parse_aggregator(aggregator)
         self.device = resolve_device(device)
         self.model = model
@@ -353,13 +365,7 @@ class FedSim:
         """Example-weighted federation-wide ``{"loss", "n", "accuracy"}``
         of ``params`` over every client's local data, ``wave_size``
         clients at a time."""
-        totals = {k: float(v.sum())
-                  for k, v in self._client_eval_sums(params, data, n_samples, wave_size).items()}
-        denom = max(totals.get("n", 0.0), 1.0)
-        out = {"loss": totals.get("loss_sum", 0.0) / denom, "n": denom}
-        if "correct_sum" in totals:
-            out["accuracy"] = totals["correct_sum"] / denom
-        return out
+        return federation_eval(self._client_eval_sums(params, data, n_samples, wave_size))
 
     def evaluate_clients(self, params: Params, data: Dict, n_samples,
                          wave_size: Optional[int] = None) -> Dict[str, Any]:

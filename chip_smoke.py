@@ -108,7 +108,31 @@ exits non-zero:
    checkpoints (1e-6, cuDNN's deterministic algorithms for this phase)
    and on the CPU (1e-4); then the full preset (4 x 15,000 samples, 4
    epochs) for 2 of its 20 rounds, timed apart from making its data,
-   its accuracy above 0.5. No flash kernel launches in phases 12-14.
+   its accuracy above 0.5. No flash kernel launches in phases 12-14;
+15. the federation variants on phase 3's BERT-base and clients (bf16
+   compute, 8 x 32 samples): stateful clients with local Adam, 3 rounds
+   of 2 epochs (round 0 equal to ``FedSim.run_round`` within 1e-6,
+   Adam's count 3 x the steps a round; that FedSim round's own peak
+   printed beside the stateful rounds'); FedBuff with buffer =
+   concurrency = 8 at ``server_lr`` 1.0 for 1 step (FedAvg within 1e-5),
+   then buffer 4 of 8 in flight, alpha 0.5, 6 steps (mean staleness
+   5/6, steps/s); FedPer with the pooler and the head personal, 3 rounds
+   (round 0's shared leaves equal FedAvg's and each personal row that
+   client's trained head, 1e-6; the rows differ after round 3;
+   ``evaluate``); clustered FL with K=2, 3 rounds (each assignment the
+   argmin of the losses taken one pair at a time, or within 2e-2 of it;
+   each chosen cluster the sample-weighted mean of its clients' trained
+   params, 1e-5), then two equal clusters (every client to the first,
+   the empty one bit-equal). Every training step launches each flash
+   kernel once per layer, on mma, and the clustered loss grid (a vmap
+   over clients of a vmap over clusters) one forward per layer for the
+   whole grid. Seconds per round or step (the median after a warm-up),
+   peak memory beside its estimate and the device time by kind of one
+   profiled stateful round, 2 FedBuff steps and one clustered round are
+   printed. The kernels line's ``launches_variants`` counts the launches
+   of the variants' own rounds and steps above, not of the checks beside
+   them. Then each variant on a 2-layer fp32 BERT card against the CPU,
+   same weights and shuffles (1e-4).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -121,6 +145,7 @@ no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -174,6 +199,29 @@ def time_ms(fn, iters=20, warmup=3, readings=5) -> float:
         end.synchronize()
         means.append(start.elapsed_time(end) / iters)
     return float(np.median(means))
+
+
+def timed(fn):
+    """``fn()`` to its end on the card: (result, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def launch_counts(fa):
+    """The launch counts now, by pass and by design, for ``launches_since``."""
+    return fa.launches(), dict(fa.launches_by_design)
+
+
+def launches_since(fa, before):
+    """(launches by pass, launches by design) since ``before`` = the
+    ``launch_counts`` then; designs that did not launch are left out."""
+    by_pass = {k: n - before[0][k] for k, n in fa.launches().items()}
+    by_design = {k: n - before[1][k] for k, n in fa.launches_by_design.items()
+                 if n != before[1][k]}
+    return by_pass, by_design
 
 
 # no bare "conv": it would match elementwise "convert" kernels
@@ -385,14 +433,16 @@ def flip_check(fa, name, args, got, want):
           f"at {over} elements")
 
 
-def bert_round_phase(fa):
-    from baton_tpu_torch import FedSim
+def bert_base_cohort(n_clients=8, batch=32):
+    """Phase 3's BERT-base (bf16 compute) and its clients: ``n_clients`` x
+    ``batch`` samples of random tokens, lengths 16-128, numpy seed 0.
+    Returns ``(cfg, model, data, n_samples)``."""
     from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
     cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12,
                      n_heads=12, d_ff=3072, n_classes=4)
-    n_clients, batch, seq = 8, 32, 128
+    seq = cfg.max_len
     rng = np.random.default_rng(0)
     datasets = []
     for _ in range(n_clients):
@@ -404,6 +454,14 @@ def bert_round_phase(fa):
         })
     data, n_samples = stack_client_datasets(datasets, batch_size=batch)
     model = bert_classifier_model(cfg, compute_dtype=torch.bfloat16, name="bert_base_bf16")
+    return cfg, model, data, n_samples
+
+
+def bert_round_phase(fa):
+    from baton_tpu_torch import FedSim
+
+    n_clients, batch, seq = 8, 32, 128
+    cfg, model, data, n_samples = bert_base_cohort(n_clients, batch)
     sim = FedSim(model, batch_size=batch, learning_rate=0.01)
     params = sim.init(torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in params.values())
@@ -419,22 +477,15 @@ def bert_round_phase(fa):
     profiled = n_timed + 1
     # round 0 warms up, rounds 1..n_timed are timed, the last runs under the profiler
     for r in range(profiled + 1):
-        before = fa.launches()
-        before_design = dict(fa.launches_by_design)
+        before = launch_counts(fa)
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with (torch.profiler.profile(activities=activities) if r == profiled
               else contextlib.nullcontext()) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = sim.run_round(params, data, n_samples, gen)
-            loss = res.loss_history.tolist()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            res, dt = timed(lambda: sim.run_round(params, data, n_samples, gen))
         params = res.params
+        loss = res.loss_history.tolist()
         losses.extend(loss)
-        delta = {k: n - before[k] for k, n in fa.launches().items()}
-        by_design = {k: n - before_design[k] for k, n in fa.launches_by_design.items()
-                     if n != before_design[k]}
+        delta, by_design = launches_since(fa, before)
         label = {0: " (warm-up)", profiled: " (profiled)"}.get(r, "")
         print(f"  round {r}{label}: loss {loss} {dt:.4f} s launches {delta} by design {by_design}")
         if r == profiled:
@@ -497,16 +548,13 @@ def in_context_phase(fa):
     model = bert_classifier_model(cfg)
     params = model.init(torch.Generator().manual_seed(3))
     print("phase 4: 2-layer fp32 BERT round, card against the CPU (plain path)")
-    before = fa.launches()
-    before_design = dict(fa.launches_by_design)
+    before = launch_counts(fa)
     t0 = time.perf_counter()
     gpu = FedSim(model, batch_size=batch, learning_rate=0.01).run_round(
         {k: v.cuda() for k, v in params.items()}, data, n_samples, perms=perms)
     gpu_params = {k: v.cpu() for k, v in gpu.params.items()}
     t_gpu = time.perf_counter() - t0
-    delta = {k: n - before[k] for k, n in fa.launches().items()}
-    by_design = {k: n - before_design[k] for k, n in fa.launches_by_design.items()
-                 if n != before_design[k]}
+    delta, by_design = launches_since(fa, before)
     t0 = time.perf_counter()
     cpu = FedSim(model, batch_size=batch, learning_rate=0.01, device="cpu").run_round(
         params, data, n_samples, perms=perms)
@@ -613,16 +661,6 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
     clone_tb_s = 2 * q.numel() * el / time_ms(q.clone) / 1e9
     print(f"  q.clone() moves {clone_tb_s:.3f} TB/s on this card")
     return rows, dict(simt, clone_tb_s=clone_tb_s)
-
-
-def time_round(sim, params, data, n_samples, gen, n_epochs=1):
-    """One round to its end on the card: (result, wall seconds, losses)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = sim.run_round(params, data, n_samples, gen, n_epochs=n_epochs)
-    loss = res.loss_history.tolist()
-    torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, loss
 
 
 # Phase 6's reference check. At init, bf16 rounding alone moves a
@@ -773,8 +811,9 @@ def resnet_round_phase(fa):
     for r in range(profiled + 1):
         with (torch.profiler.profile(activities=activities) if r == profiled
               else contextlib.nullcontext()) as prof:
-            res, dt, loss = time_round(sim, params, data, n_samples, gen)
+            res, dt = timed(lambda: sim.run_round(params, data, n_samples, gen))
         params = res.params
+        loss = res.loss_history.tolist()
         losses.extend(loss)
         rec = sim.last_compute
         check(rec is not None and validate_record(rec) == [],
@@ -824,12 +863,13 @@ def resnet_round_phase(fa):
         sim = make_sim(impl)
         p = {k: v.clone() for k, v in first.items()}
         g = torch.Generator().manual_seed(1)
-        _, warm, loss = time_round(sim, p, data, n_samples, g)
+        res, warm = timed(lambda: sim.run_round(p, data, n_samples, g))
+        loss = res.loss_history.tolist()
         check(all(math.isfinite(x) for x in loss), f"{impl}: non-finite loss")
         impl_times = []
         for _ in range(3):
-            res, dt, loss = time_round(sim, p, data, n_samples, g)
-            p = res.params
+            res, dt = timed(lambda: sim.run_round(p, data, n_samples, g))
+            p, loss = res.params, res.loss_history.tolist()
             impl_times.append(dt)
             check(all(math.isfinite(x) for x in loss), f"{impl}: non-finite loss")
         lowerings[impl] = {"round_s": impl_times, "warm_up_s": warm,
@@ -977,13 +1017,15 @@ def fedprox_bert_phase(fa):
     profiled = n_timed + 1
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for r in range(profiled + 1):
-        before = fa.launches()
+        before = launch_counts(fa)
         with (torch.profiler.profile(activities=activities) if r == profiled
               else contextlib.nullcontext()) as prof:
-            res, dt, loss = time_round(sim, params, data, n_samples, gen, n_epochs)
+            res, dt = timed(lambda: sim.run_round(params, data, n_samples, gen,
+                                                  n_epochs=n_epochs))
         params = res.params
+        loss = res.loss_history.tolist()
         losses.extend(loss)
-        delta = {k: n - before[k] for k, n in fa.launches().items()}
+        delta, _ = launches_since(fa, before)
         label = {0: " (warm-up)", profiled: " (profiled)"}.get(r, "")
         print(f"  round {r}{label}: loss {loss} {dt:.4f} s launches {delta}")
         if r == profiled:
@@ -1028,8 +1070,8 @@ def fedprox_bert_phase(fa):
     head_times = []
     fa.reset_launches()
     for r in range(4):
-        res, dt, loss = time_round(head_sim, p, data, n_samples, gen, n_epochs)
-        p = res.params
+        res, dt = timed(lambda: head_sim.run_round(p, data, n_samples, gen, n_epochs=n_epochs))
+        p, loss = res.params, res.loss_history.tolist()
         check(all(math.isfinite(x) for x in loss), f"head round {r}: non-finite loss")
         if r > 0:
             head_times.append(dt)
@@ -1132,16 +1174,13 @@ def resnet_optimizer_phase(phase6):
         torch.cuda.reset_peak_memory_stats()
         sim = FedSim(model, batch_size=batch, learning_rate=lr, **kw)
         gen = torch.Generator().manual_seed(1)
-        time_round(sim, params, data, n_samples, gen)  # warm-up, its server state dropped
+        timed(lambda: sim.run_round(params, data, n_samples, gen))  # warm-up, its state dropped
         p, state, times, mfus = params, None, [], []
         for r in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = sim.run_round(p, data, n_samples, gen, server_opt_state=state)
-            loss = res.loss_history.tolist()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            p, state = res.params, res.server_opt_state
+            res, dt = timed(lambda: sim.run_round(p, data, n_samples, gen,
+                                                  server_opt_state=state))
+            times.append(dt)
+            p, state, loss = res.params, res.server_opt_state, res.loss_history.tolist()
             mfus.append(sim.last_compute["mfu"])
             check(all(math.isfinite(x) for x in loss), f"{label} round {r}: non-finite loss")
             check(mfus[-1] is not None, f"{label} round {r}: no MFU on this card")
@@ -2123,6 +2162,392 @@ def config1_phase(fa):
             "full_loss_history": hist, "full_peak_gb": peak_gb}
 
 
+# ---------------------------------------------------------------------
+# phase 15: the federation variants (stateful clients, FedBuff, FedPer,
+# clustered FL) at BERT-base width, on phase 3's model and clients.
+
+def check_cluster_assignments(assign, pair_grid, tol=2e-2) -> None:
+    """Each client's cluster is the argmin of its row of ``pair_grid``
+    ([C, K], the losses computed one (client, cluster) pair at a time); a
+    client may take another cluster only where the two losses lie within
+    ``tol`` of each other."""
+    for c, k in enumerate(np.asarray(assign).tolist()):
+        row = [float(x) for x in pair_grid[c]]
+        best = int(np.argmin(row))
+        check(k == best or abs(row[k] - row[best]) <= tol,
+              f"client {c} took cluster {k} (loss {row[k]:.6f}) over cluster {best} "
+              f"(loss {row[best]:.6f})")
+
+
+def check_cluster_means(new, old, trained, assign, n_samples, tol=1e-5) -> float:
+    """Each cluster that clients chose equals the sample-weighted mean of
+    their ``trained`` params (fp64, within ``tol``); a cluster no client
+    chose equals ``old`` bit for bit. Returns the largest gap."""
+    assign = torch.as_tensor(np.asarray(assign))
+    w = torch.as_tensor(np.asarray(n_samples), dtype=torch.float64)
+    gap = 0.0
+    for k in range(next(iter(new.values())).shape[0]):
+        members = torch.nonzero(assign == k).flatten()
+        if members.numel() == 0:
+            check(all(torch.equal(new[n][k], old[n][k]) for n in new),
+                  f"cluster {k} had no client but changed")
+            continue
+        for name, v in trained.items():
+            wk = w[members].to(v.device)
+            want = torch.tensordot(wk, v[members.to(v.device)].double(), dims=([0], [0]))
+            gap = max(gap, float((new[name][k].double() - want / wk.sum()).abs().max()))
+    check(gap <= tol, f"a cluster is {gap:.3e} from the weighted mean of its clients (tol {tol})")
+    return gap
+
+
+def variant_runs(model, params, second, data, n_samples, batch, lr, perms, device):
+    """Phase 15's four variants at a small size on ``device``, from the
+    same weights (``second`` is the other cluster) and shuffles ``perms``
+    [C, n_epochs, capacity] on any device: name -> (the params they end
+    with, their losses)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core import optim
+    from baton_tpu_torch.core.regularizers import fedprox
+    from baton_tpu_torch.ops.aggregation import tree_stack
+    from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
+
+    def sim(**kw):
+        return FedSim(model, batch_size=batch, learning_rate=lr, device=device, **kw)
+
+    start = {k: v.to(device) for k, v in params.items()}
+    n_epochs = perms.shape[1]
+    out = {}
+    stateful = StatefulClients(sim(optimizer=optim.adam(1e-3, eps=LOCAL_ADAM_EPS)))
+    p, opt, losses = start, None, []
+    for _ in range(2):
+        res = stateful.run_round(p, opt, data, n_samples, n_epochs=n_epochs, perms=perms)
+        p, opt = res.params, res.opt_states
+        losses.append(res.loss_history)
+    out["stateful, local adam(1e-3, eps 1e-5), 2 rounds"] = (p, torch.cat(losses))
+    # buffer 2 of 3 in flight: step 1 completes clients 0 and 1, step 2
+    # clients 2 (anchored before step 1) and 0
+    fb = FedBuff(sim(regularizer=fedprox(0.1)), buffer_size=2, concurrency=3)
+    res = fb.run(start, data, n_samples, n_steps=2, n_epochs=n_epochs,
+                 perms=torch.stack([perms[[0, 1]], perms[[2, 0]]]))
+    out["fedbuff, fedprox 0.1, 2 steps"] = (res.params, torch.as_tensor(res.loss_history))
+    fp = FedPer(sim(), personal=lambda name, leaf: name.startswith(CONFIG3_HEAD))
+    res = fp.run_round(start, None, data, n_samples, n_epochs=n_epochs, perms=perms)
+    out["fedper, pooler+head personal"] = (
+        {**res.params, **{"personal/" + k: v for k, v in res.personal_state.items()}},
+        res.loss_history)
+    clusters = tree_stack([start, {k: v.to(device) for k, v in second.items()}])
+    res = ClusteredFedSim(sim(), n_clusters=2).run_round(clusters, data, n_samples,
+                                                         n_epochs=n_epochs, perms=perms)
+    out["clustered, k=2"] = ({**res.cluster_params,
+                              "assignments": torch.as_tensor(res.assignments).double()},
+                             res.loss_history)
+    return out
+
+
+def variants_against_cpu(model, params, second, data, n_samples, batch, lr, perms,
+                         device="cuda"):
+    """Every variant of ``variant_runs`` on ``device`` against the same
+    run on the CPU: params and losses within 1e-4, the CPU run moved."""
+    card = variant_runs(model, params, second, data, n_samples, batch, lr, perms, device)
+    cpu = variant_runs(model, params, second, data, n_samples, batch, lr, perms, "cpu")
+    gaps = {}
+    for name, (got, losses) in card.items():
+        want, want_losses = cpu[name]
+        err = max_gap(got, want)
+        loss_err = float((torch.as_tensor(losses).cpu().double()
+                          - torch.as_tensor(want_losses).double()).abs().max())
+        moved = max(float((want[k].double() - params[k].double()).abs().max())
+                    for k in params if k in want)
+        print(f"  {name:48s} max |param diff| {err:.3e} (max |param change| {moved:.3e}), "
+              f"max |loss diff| {loss_err:.3e}")
+        check(moved > 0, f"{name}: the CPU run left the params unchanged")
+        check(err <= 1e-4, f"{name}: card and CPU params differ by {err:.3e} (tol 1e-4)")
+        check(loss_err <= 1e-4, f"{name}: card and CPU losses differ by {loss_err:.3e}")
+        gaps[name] = err
+    return gaps
+
+
+def check_step_launches(name, by_pass, by_design, n_layers, steps, fwd_extra=0) -> dict:
+    """Each flash kernel once per layer per training step (``fwd_extra``
+    more forward launches, the clustered grid's), every one on mma.
+    Returns ``by_pass``."""
+    want = {"fwd": n_layers * (steps + fwd_extra), "bwd_dkv": n_layers * steps,
+            "bwd_dq": n_layers * steps}
+    check(by_pass == want, f"{name}: launches {by_pass}, want {want}")
+    check(set(by_design) <= {"fwd_mma", "bwd_dkv_mma", "bwd_dq_mma"},
+          f"{name}: launches by design {by_design}, want every launch on mma")
+    return by_pass
+
+
+def profiled(fn, label):
+    """``fn()`` once under torch.profiler: (result, ``device_breakdown``)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out, dt = timed(fn)
+    print(f"  {label} under the profiler:")
+    return out, device_breakdown(prof, dt)
+
+
+def variants_phase(fa, phase3_peak_gb):
+    """Phase 15: stateful clients, FedBuff, FedPer and clustered FL on
+    phase 3's BERT-base (bf16 compute) and clients, then each at 2 layers
+    in fp32 card against the CPU."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core import optim
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
+    from baton_tpu_torch.parallel.clustered import _masked_mean_loss
+
+    n_clients, batch, lr = 8, 32, 0.01
+    cfg, model, data, n_samples = bert_base_cohort(n_clients, batch)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    n_samples = torch.as_tensor(n_samples, device="cuda")
+    capacity, layers = data["x"].shape[1], cfg.n_layers
+    torch.cuda.empty_cache()
+    base = FedSim(model, batch_size=batch, learning_rate=lr)
+    start = base.init(torch.Generator().manual_seed(0))
+    model_gb = sum(v.numel() * v.element_size() for v in start.values()) / 1e9
+    print(f"phase 15: the federation variants on phase 3's BERT-base ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, bf16 compute, {model_gb:.3f} GB of fp32 params), {n_clients} "
+          f"clients x {batch} samples, L={cfg.max_len}, batch {batch}, lr {lr}")
+
+    def perms_for(seed, n_epochs=1, c=n_clients):
+        return random_perms(c, n_epochs, capacity, torch.Generator().manual_seed(seed))
+
+    def peak(label, estimate_gb, why):
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {label}: peak memory {gb:.2f} GB (estimate {estimate_gb:.2f} GB: {why})")
+        return gb
+
+    stats = {}
+    # the launches of the variants' own runs (the rounds and steps below
+    # whose counts are checked), without those of the checks beside them
+    main = collections.Counter()
+
+    # (a) stateful clients with local Adam, 3 rounds of 2 epochs
+    n_epochs = 2
+    steps = base.trainer.steps_per_round(capacity, n_epochs)
+    adam_sim = FedSim(model, batch_size=batch, optimizer=optim.adam(1e-4))
+    sc = StatefulClients(adam_sim)
+    torch.cuda.reset_peak_memory_stats()
+    p, opt, times = start, None, []
+    for r in range(3):
+        perms = perms_for(10 + r, n_epochs)
+        before = launch_counts(fa)
+        res, dt = timed(lambda: sc.run_round(p, opt, data, n_samples, n_epochs=n_epochs,
+                                             perms=perms))
+        main.update(check_step_launches(f"stateful round {r}", *launches_since(fa, before),
+                                        layers, steps))
+        loss = res.loss_history.tolist()
+        check(all(math.isfinite(x) for x in loss), f"stateful round {r}: non-finite loss")
+        if r == 0:
+            first, first_perms = res.params, perms
+        else:
+            times.append(dt)
+        print(f"  stateful round {r}: loss {loss} {dt:.4f} s")
+        p, opt = res.params, res.opt_states
+    count = opt["count"].tolist()
+    check(count == [3 * steps] * n_clients, f"Adam's counts {count}, want {3 * steps} each")
+    stats["stateful_round_s"] = times
+    stats["stateful_peak_gb"] = peak(
+        "stateful", phase3_peak_gb + 2 * n_clients * model_gb,
+        f"phase 3's {phase3_peak_gb:.2f} plus 2 moments x {n_clients} clients x "
+        f"{model_gb:.3f}")
+    res, stats["stateful_breakdown"] = profiled(
+        lambda: sc.run_round(p, opt, data, n_samples, n_epochs=n_epochs, perms=perms),
+        "a stateful round")
+    del res
+    torch.cuda.reset_peak_memory_stats()
+    engine = adam_sim.run_round(start, data, n_samples, n_epochs=n_epochs, perms=first_perms)
+    stats["fedsim_adam_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gap = max_gap(first, engine.params)
+    print(f"  stateful: s/round median {float(np.median(times)):.4f} ({times}); Adam's count "
+          f"{count[0]} = 3 rounds x {steps} steps; round 0 against FedSim.run_round (same "
+          f"Adam, same shuffles): max |param diff| {gap:.3e} (tol 1e-6); that FedSim round's "
+          f"own peak {stats['fedsim_adam_peak_gb']:.2f} GB (it holds the same moments while "
+          f"it runs)")
+    check(gap <= 1e-6, f"stateful round 0 is {gap:.3e} from FedSim.run_round")
+    del sc, adam_sim, p, opt, first, engine
+    torch.cuda.empty_cache()
+
+    # (b) FedBuff: buffer = concurrency = 8 at server_lr 1.0 is FedAvg in
+    # the delta form; then buffer 4 of 8 in flight, alpha 0.5, 6 steps
+    perms = perms_for(20)
+    fb = FedBuff(base, buffer_size=n_clients, concurrency=n_clients, server_lr=1.0)
+    res = fb.run(start, data, n_samples, n_steps=1, perms=perms[None])
+    engine = base.run_round(start, data, n_samples, perms=perms)
+    gap = max_gap(res.params, engine.params)
+    print(f"  fedbuff buffer = concurrency = {n_clients}, server_lr 1.0, 1 step against "
+          f"FedSim.run_round: max |param diff| {gap:.3e} (tol 1e-5)")
+    check(gap <= 1e-5, f"the zero-staleness FedBuff step is {gap:.3e} from FedAvg")
+    del res, engine
+    torch.cuda.reset_peak_memory_stats()
+    fb = FedBuff(base, buffer_size=4, concurrency=n_clients, alpha=0.5)
+    stamps = []
+    train_buffer = fb._train_buffer
+
+    def stamped(*args, **kw):  # a step starts after the previous one's loss read-back
+        stamps.append(time.perf_counter())
+        return train_buffer(*args, **kw)
+
+    fb._train_buffer = stamped
+    n_steps = 6
+    step_perms = torch.stack([perms_for(30 + s, c=4) for s in range(n_steps)])
+    before = launch_counts(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fb.run(start, data, n_samples, n_steps=n_steps, perms=step_perms)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dt = t1 - t0
+    main.update(check_step_launches("fedbuff 6 steps", *launches_since(fa, before), layers,
+                                    n_steps))
+    step_s = np.diff(stamps + [t1]).tolist()
+    check(res.mean_staleness == 5 / 6, f"mean staleness {res.mean_staleness}, want 5/6")
+    check(all(math.isfinite(x) for x in res.loss_history), "fedbuff: non-finite loss")
+    stats["fedbuff_step_s"] = step_s
+    stats["fedbuff_steps_per_s"] = n_steps / dt
+    stats["fedbuff_peak_gb"] = peak(
+        "fedbuff (buffer 4)", phase3_peak_gb / 2 + 4 * model_gb,
+        f"half of phase 3's {phase3_peak_gb:.2f} (4 clients of 8) plus 4 stacked anchors x "
+        f"{model_gb:.3f}")
+    print(f"  fedbuff buffer 4 of {n_clients}, alpha 0.5, {n_steps} steps: mean staleness "
+          f"{res.mean_staleness} (5/6), {n_steps / dt:.2f} steps/s, s/step median "
+          f"{float(np.median(step_s)):.4f} ({', '.join(f'{t:.4f}' for t in step_s)}; each "
+          f"ends in one loss read-back); losses {res.loss_history.tolist()}")
+    fb._train_buffer = train_buffer
+    _, stats["fedbuff_breakdown"] = profiled(
+        lambda: fb.run(start, data, n_samples, n_steps=2, perms=step_perms[:2]),
+        "2 fedbuff steps")
+    del fb, res
+    torch.cuda.empty_cache()
+
+    # (c) FedPer, the pooler and the head personal, 3 rounds
+    torch.cuda.reset_peak_memory_stats()
+    fp = FedPer(base, personal=lambda name, leaf: name.startswith(CONFIG3_HEAD))
+    p, pers, times = start, None, []
+    for r in range(3):
+        perms = perms_for(40 + r)
+        before = launch_counts(fa)
+        res, dt = timed(lambda: fp.run_round(p, pers, data, n_samples, perms=perms))
+        main.update(check_step_launches(f"fedper round {r}", *launches_since(fa, before),
+                                        layers, 1))
+        if r == 0:
+            engine = base.run_round(start, data, n_samples, perms=perms)
+            trained, _ = base.trainer.train_clients(start, data, n_samples, 1, perms)
+            shared = max_gap({k: v for k, v in res.params.items() if k not in res.personal_state},
+                             {k: v for k, v in engine.params.items()
+                              if k not in res.personal_state})
+            personal = max_gap(res.personal_state, {k: trained[k] for k in res.personal_state})
+            print(f"  fedper round 0: shared leaves against FedSim.run_round {shared:.3e}, "
+                  f"personal rows against each client's trained head {personal:.3e} (tol 1e-6)")
+            check(shared <= 1e-6 and personal <= 1e-6, "fedper round 0 is off its oracles")
+            del engine, trained
+        else:
+            times.append(dt)
+        p, pers = res.params, res.personal_state
+    spread = max(float((pers[k] - pers[k][:1]).abs().max()) for k in pers)
+    check(spread > 0, "the personal rows are equal across clients after 3 rounds")
+    ev = fp.evaluate(p, pers, data, n_samples)
+    check(math.isfinite(ev["loss"]), f"fedper evaluate: {ev}")
+    stats["fedper_round_s"] = times
+    stats["fedper_eval"] = ev
+    stats["fedper_peak_gb"] = peak(
+        "fedper", phase3_peak_gb, f"phase 3's {phase3_peak_gb:.2f}: the same stacked round")
+    print(f"  fedper: s/round median {float(np.median(times)):.4f} ({times}); personal rows "
+          f"differ by up to {spread:.3e}; evaluate {ev}")
+    del fp, p, pers, res
+    torch.cuda.empty_cache()
+
+    # (d) clustered FL, K=2, 3 rounds (the first a warm-up); then two
+    # equal clusters, which tie
+    torch.cuda.reset_peak_memory_stats()
+    cf = ClusteredFedSim(base, n_clusters=2)
+    clusters = cf.init_clusters(torch.Generator().manual_seed(1))
+    times, grid_gaps = [], []
+    for r in range(3):
+        perms = perms_for(50 + r)
+        before = launch_counts(fa)
+        grid = cf.loss_grid(clusters, data, n_samples)
+        check_step_launches(f"clustered grid {r}", *launches_since(fa, before), layers, 0,
+                            fwd_extra=1)
+        with torch.no_grad():
+            pairs = torch.tensor([[float(_masked_mean_loss(
+                model, {k: v[j] for k, v in clusters.items()}, {k: v[i] for k, v in data.items()},
+                n_samples[i])) for j in range(2)] for i in range(n_clients)])
+        grid_gaps.append(float((grid.cpu() - pairs).abs().max()))
+        before = launch_counts(fa)
+        res, dt = timed(lambda: cf.run_round(clusters, data, n_samples, perms=perms))
+        main.update(check_step_launches(f"clustered round {r}", *launches_since(fa, before),
+                                        layers, 1, fwd_extra=1))
+        check_cluster_assignments(res.assignments, pairs)
+        mine = {k: v[torch.as_tensor(res.assignments, device="cuda")]
+                for k, v in clusters.items()}
+        trained, _, _ = base.trainer.train_stacked(
+            mine, base.trainer.init_opt_states(start, n_clients), data, n_samples, 1, perms)
+        gap = check_cluster_means(res.cluster_params, clusters, trained, res.assignments,
+                                  n_samples.cpu())
+        print(f"  clustered round {r}: assignments {res.assignments.tolist()}, grid against the "
+              f"pairs one at a time {grid_gaps[-1]:.3e}, clusters against their clients' mean "
+              f"{gap:.3e} (tol 1e-5), {dt:.4f} s")
+        if r > 0:
+            times.append(dt)
+        clusters = res.cluster_params
+        del mine, trained
+    _, stats["clustered_breakdown"] = profiled(
+        lambda: cf.run_round(clusters, data, n_samples, perms=perms), "a clustered round")
+    tie = {k: torch.stack([v[0], v[0]]) for k, v in clusters.items()}
+    res = cf.run_round(tie, data, n_samples, perms=perms_for(60))
+    check(res.assignments.tolist() == [0] * n_clients,
+          f"tied clusters assigned {res.assignments.tolist()}, want all to cluster 0")
+    check(all(torch.equal(res.cluster_params[k][1], tie[k][1]) for k in tie),
+          "the empty cluster changed")
+    ev = cf.evaluate(clusters, data, n_samples)
+    check(math.isfinite(ev["loss"]), f"clustered evaluate: {ev}")
+    stats["clustered_round_s"] = times
+    stats["clustered_grid_gaps"] = grid_gaps
+    stats["clustered_eval"] = ev
+    stats["clustered_peak_gb"] = peak(
+        "clustered", phase3_peak_gb + 2 * model_gb,
+        f"phase 3's {phase3_peak_gb:.2f} plus 2 clusters x {model_gb:.3f} (the {n_clients} "
+        "gathered copies take the place of phase 3's broadcast)")
+    print(f"  clustered: s/round median {float(np.median(times)):.4f} ({times}); tied "
+          f"clusters all to cluster 0, the empty one bit-equal; evaluate {ev}")
+    stats["launches"] = dict(main)
+    del cf, clusters, tie, res, base, start
+    torch.cuda.empty_cache()
+
+    # the four at 2 layers in fp32, card against the CPU (phase 10's model)
+    print("  2-layer fp32 BERT-base width, card against the CPU (tol 1e-4):")
+    small = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2, n_heads=12,
+                       d_ff=3072, n_classes=4)
+    rng = np.random.default_rng(5)
+    datasets = []
+    for n in (16, 10, 16, 0):
+        lengths = rng.integers(16, small.max_len + 1, n)
+        datasets.append({
+            "x": rng.integers(0, small.vocab_size, (n, small.max_len)).astype(np.int32),
+            "attn_mask": (np.arange(small.max_len)[None] < lengths[:, None]).astype(np.float32),
+            "y": rng.integers(0, small.n_classes, n).astype(np.int32)})
+    sdata, sn = stack_client_datasets(datasets, batch_size=8)
+    smodel = bert_classifier_model(small)
+    perms = random_perms(4, 1, sdata["x"].shape[1], torch.Generator().manual_seed(6))
+    before = launch_counts(fa)
+    t0 = time.perf_counter()
+    stats["cpu_gaps"] = variants_against_cpu(
+        smodel, smodel.init(torch.Generator().manual_seed(3)),
+        smodel.init(torch.Generator().manual_seed(4)), sdata, sn, 8, 0.01, perms)
+    _, by_design = launches_since(fa, before)
+    check(set(by_design) == {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
+          f"the fp32 card runs launched {by_design}, want the simt kernels")
+    print(f"  the fp32 runs on the card and the CPU took {time.perf_counter() - t0:.1f} s")
+    print(f"  launches over the variants' own BERT-base runs (stateful 3 rounds, fedbuff 6 "
+          f"steps, fedper 3 rounds, clustered 3 rounds; not their checks) {stats['launches']}")
+    return stats
+
+
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -2182,16 +2607,20 @@ def main() -> int:
     secure_stats = secure_phase(fa)
     config1_stats = config1_phase(fa)
     print(f"phases 12-14 took {time.perf_counter() - second:.1f} s")
+    variants = time.perf_counter()
+    variants_stats = variants_phase(fa, round_stats["peak_memory_gb"])
+    print(f"phase 15 took {time.perf_counter() - variants:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
         row["launches_per_round_config3"] = config3_per_round[counter]
+        row["launches_variants"] = variants_stats["launches"][counter]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
                       "options_parity": parity_errs, "http_round": http_stats,
                       "bandwidth": bandwidth_stats, "secure": secure_stats,
-                      "config1": config1_stats}))
+                      "config1": config1_stats, "variants": variants_stats}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,8 +2,11 @@
 the ``Checkpointer`` cases of ``tests/test_aux_subsystems.py`` (the
 reference's orbax checkpoints are ``torch.save`` files here), the HTTP
 manager's restart from ``checkpoint_dir``, ``FedSim.run_rounds`` resumed
-after 2 of 4 rounds (equal to the uninterrupted run to the bit), and 4
-rounds of ``run_rounds`` against the JAX package's.
+after 2 of 4 rounds (equal to the uninterrupted run to the bit), the
+federation variants' state (a FedPer personal stack, stateful clients'
+optimizer states with a FedAdam server, a cluster stack) riding
+``save(extra=)`` through the same stop and resume, and 4 rounds of
+``run_rounds`` against the JAX package's.
 """
 
 import os
@@ -24,7 +27,9 @@ from baton_tpu_torch.core import optim
 from baton_tpu_torch.data.synthetic import synthetic_image_clients
 from baton_tpu_torch.models.cnn import cnn_mnist_model
 from baton_tpu_torch.models.linear import linear_regression_model
+from baton_tpu_torch.models.mlp import mlp_classifier_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
+from baton_tpu_torch.parallel import ClusteredFedSim, FedPer, StatefulClients
 from baton_tpu_torch.parallel.engine import round_generator
 from baton_tpu_torch.server.http_manager import Manager
 from baton_tpu_torch.server.state import params_to_state_dict
@@ -34,7 +39,9 @@ torch.set_num_threads(1)
 
 
 def _equal_trees(a, b):
-    if isinstance(a, dict):
+    if a is None or b is None:
+        assert a is b
+    elif isinstance(a, dict):
         assert set(a) == set(b)
         for k in a:
             _equal_trees(a[k], b[k])
@@ -251,6 +258,68 @@ def test_run_rounds_resumed_after_two_rounds_equals_four_to_the_bit(tmp_path):
         Checkpointer(str(tmp_path / "rounds")).restore(params, step=2).params,
         data, n_samples, torch.Generator().manual_seed(gen_seed), n_rounds=2, n_epochs=2)
     assert any(not torch.equal(restart[k], whole[k]) for k in whole)
+
+
+def _variant_rounds(kind, n_rounds, data, n_samples, ck=None):
+    """Rounds of a federation variant on a small MLP, from a fresh start
+    or from ``ck``'s latest step, saving every round there: the globals
+    in ``params`` (none for clustering), the variant's stack in
+    ``extra`` and a server optimizer's state. Returns the final
+    ``(params, extra, server_opt_state)``."""
+    opts = dict(optimizer=optim.adam(1e-2), server_optimizer=optim.adam(1e-2)) \
+        if kind == "stateful" else {}
+    sim = FedSim(mlp_classifier_model(6, (8,), 3), batch_size=8, learning_rate=0.05,
+                 device="cpu", **opts)
+    params = sim.init(torch.Generator().manual_seed(0))
+    c = len(n_samples)
+    if kind == "fedper":
+        runner = FedPer(sim, personal=lambda name, leaf: name.startswith("1/"))
+        extra = runner.init_personal(params, c)
+    elif kind == "stateful":
+        runner = StatefulClients(sim)
+        extra = runner.init_opt_states(params, c)
+    else:
+        runner = ClusteredFedSim(sim, n_clusters=2)
+        params, extra = {}, runner.init_clusters(torch.Generator().manual_seed(1))
+    server = sim.init_server_opt_state(params) if params else None
+    start = 0
+    restored = ck.restore(params, server_opt_template=server, extra_template=extra) \
+        if ck is not None else None
+    if restored is not None:
+        params, server, extra, start = (restored.params, restored.server_opt_state,
+                                        restored.extra, restored.step)
+    for r in range(start, n_rounds):
+        gen = round_generator(torch.Generator().manual_seed(5), r)
+        if kind == "fedper":
+            res = runner.run_round(params, extra, data, n_samples, gen)
+            params, extra = res.params, res.personal_state
+        elif kind == "stateful":
+            res = runner.run_round(params, extra, data, n_samples, gen, server_opt_state=server)
+            params, extra, server = res.params, res.opt_states, res.server_opt_state
+        else:
+            extra = runner.run_round(extra, data, n_samples, gen).cluster_params
+        if ck is not None:
+            ck.save(r + 1, params, server_opt_state=server, extra=extra)
+    return params, extra, server
+
+
+@pytest.mark.parametrize("kind", ["fedper", "stateful", "clustered"])
+def test_variant_state_resumed_after_two_rounds_equals_four_to_the_bit(tmp_path, kind):
+    rng = np.random.default_rng(2)
+    datasets = [{"x": rng.normal(size=(n, 6)).astype(np.float32),
+                 "y": rng.integers(0, 3, n).astype(np.int32)} for n in (16, 9, 0, 12)]
+    data, n_samples = stack_client_datasets(datasets, batch_size=8)
+    whole = _variant_rounds(kind, 4, data, n_samples)
+    ck = Checkpointer(str(tmp_path / kind))
+    first = _variant_rounds(kind, 2, data, n_samples, ck)
+    assert ck.all_steps() == [1, 2]
+    # the stop: new objects and a new Checkpointer on the same directory
+    resumed = _variant_rounds(kind, 4, data, n_samples, Checkpointer(str(tmp_path / kind)))
+    for got, want in zip(resumed, whole):
+        _equal_trees(got, want)
+    # rounds 3-4 moved the variant's state: the resume had work to redo
+    stack = (lambda extra: extra["mu"]) if kind == "stateful" else (lambda extra: extra)
+    assert any(not torch.equal(stack(first[1])[k], v) for k, v in stack(whole[1]).items())
 
 
 def test_round_generators_depend_on_the_seed_and_round_only():

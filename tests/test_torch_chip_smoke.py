@@ -14,9 +14,12 @@ drift, the frozen tensors of a partitioned round, the card-against-CPU
 comparator), each passing and failing a broken input; phase 11's fold of
 the uploads, the split of a round from its spans and the trainer that
 notes its devices; phase 12's fold of compressed uploads and its
-error-feedback ledger, each passing and failing a broken input; and
+error-feedback ledger, each passing and failing a broken input; phase
+15's checks of the clustered assignments, the clusters' means and the
+launches per step, each passing and failing a broken input, and its
+card-against-CPU runs of the four variants at a tiny size; and
 ``main`` with every phase, the card and nvidia-smi stubbed: it runs
-phases 2-14 in order and ends with the card's name and
+phases 2-15 in order and ends with the card's name and
 power limit, the kernels line and the ok/device line; a failing phase from
 6 on fails it before any result line."""
 
@@ -190,8 +193,9 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
           "resnet_round_phase", "vision_parity_phase", "fedprox_bert_phase",
           "resnet_optimizer_phase", "options_parity_phase", "http_round_phase",
-          "bandwidth_phase", "secure_phase", "config1_phase")
+          "bandwidth_phase", "secure_phase", "config1_phase", "variants_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
+VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -207,13 +211,14 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
             called.append(phase)
             if phase == fail:
                 raise RuntimeError(f"check failed: {phase}")
-            return {"bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {}),
+            return {"bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {"peak_memory_gb": 37.24}),
                     "timing_phase": ([{"name": "flash_fwd"}], {}),
                     "resnet_round_phase": {},
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
                     "resnet_optimizer_phase": {}, "options_parity_phase": {},
                     "http_round_phase": {}, "bandwidth_phase": {}, "secure_phase": {},
-                    "config1_phase": {}}.get(phase)
+                    "config1_phase": {}, "variants_phase": {"launches": VARIANT_COUNTS}
+                    }.get(phase)
         return run
 
     for phase in PHASES:
@@ -243,14 +248,16 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
     assert json.loads(lines[-2]) == {"kernels": [{
-        "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12}]}
+        "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12,
+        "launches_variants": 816}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
                                      "fedprox_bert_phase", "resnet_optimizer_phase",
                                      "options_parity_phase", "http_round_phase",
-                                     "bandwidth_phase", "secure_phase", "config1_phase"])
+                                     "bandwidth_phase", "secure_phase", "config1_phase",
+                                     "variants_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -549,3 +556,60 @@ def test_error_feedback_ledger(fault):
             comp.residual = {k: torch.zeros_like(v) for k, v in comp.residual.items()}
     gap = chip_smoke.error_feedback_gap(sums, comp.residual)
     assert (gap <= chip_smoke.EF_TOL) == (fault is None)
+
+
+def test_cluster_assignment_check_allows_only_near_ties():
+    pairs = torch.tensor([[1.0, 2.0], [1.5, 1.49], [3.0, 1.0]])
+    chip_smoke.check_cluster_assignments([0, 0, 1], pairs)  # client 1 within 2e-2
+    with pytest.raises(RuntimeError, match="client 2 took cluster 0"):
+        chip_smoke.check_cluster_assignments([0, 1, 0], pairs)
+
+
+@pytest.mark.parametrize("fault", [None, "misweighted", "empty_moved"])
+def test_cluster_means_check(fault):
+    """Phase 15's check of a clustered round: each chosen cluster the
+    sample-weighted mean of its clients, an unchosen one bit-equal."""
+    gen = torch.Generator().manual_seed(0)
+    old = {"w": torch.randn(3, 4, 2, generator=gen)}
+    trained = {"w": torch.randn(5, 4, 2, generator=gen)}
+    assign, n = np.array([0, 2, 0, 2, 2]), np.array([3, 1, 5, 0, 2])
+    new = {"w": old["w"].clone()}
+    for k in (0, 2):
+        m = torch.as_tensor(assign == k)
+        w = torch.as_tensor(n, dtype=torch.float32)[m]
+        new["w"][k] = torch.tensordot(w, trained["w"][m], dims=([0], [0])) / w.sum()
+    if fault == "misweighted":
+        new["w"][2] = trained["w"][torch.as_tensor(assign == 2)].mean(0)
+    if fault == "empty_moved":
+        new["w"][1] += 1e-7
+    if fault is None:
+        assert chip_smoke.check_cluster_means(new, old, trained, assign, n) < 1e-6
+    else:
+        with pytest.raises(RuntimeError, match="weighted mean|no client but changed"):
+            chip_smoke.check_cluster_means(new, old, trained, assign, n)
+
+
+def test_step_launch_check():
+    mma = {"fwd_mma": 24, "bwd_dkv_mma": 12, "bwd_dq_mma": 12}
+    counts = {"fwd": 24, "bwd_dkv": 12, "bwd_dq": 12}
+    assert chip_smoke.check_step_launches("grid + round", counts, mma, 12, 1,
+                                          fwd_extra=1) == counts
+    with pytest.raises(RuntimeError, match="launches"):  # the grid launched per client
+        chip_smoke.check_step_launches("grid", {"fwd": 96, "bwd_dkv": 0, "bwd_dq": 0},
+                                       {"fwd_mma": 96}, 12, 0, fwd_extra=1)
+    with pytest.raises(RuntimeError, match="mma"):
+        chip_smoke.check_step_launches("round", {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12},
+                                       {"fwd_simt": 12, "bwd_dkv_mma": 12, "bwd_dq_mma": 12},
+                                       12, 1)
+
+
+def test_variants_against_cpu_at_a_tiny_size():
+    """Phase 15's card-against-CPU runs of the four variants; with the
+    CPU on both sides every gap is 0."""
+    model, params, data, n_samples = _tiny_bert_cohort()
+    perms = torch.stack([torch.randperm(8, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(4)])
+    gaps = chip_smoke.variants_against_cpu(
+        model, params, model.init(torch.Generator().manual_seed(1)), data, n_samples, 4, 0.05,
+        perms, device="cpu")
+    assert len(gaps) == 4 and all(g == 0.0 for g in gaps.values())

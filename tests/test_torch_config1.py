@@ -19,7 +19,7 @@ from baton_tpu.server.state import params_to_state_dict as jax_to_state
 from baton_tpu.server.state import state_dict_to_params as jax_from_state
 from baton_tpu_torch.examples import cnn_mnist_fedavg as config1
 from baton_tpu_torch.server.state import params_to_state_dict
-from test_torch_engine import jax_round_perms
+from _torch_variants import jax_round_perms
 
 torch.set_num_threads(2)
 

@@ -24,6 +24,7 @@ from baton_tpu_torch.obs.compute import validate_record
 from baton_tpu_torch.ops.aggregation import weighted_tree_mean
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.server.state import state_dict_to_params
+from _torch_variants import jax_round_perms
 
 IMPLS = ("direct", "im2col", "shift")
 
@@ -33,16 +34,6 @@ torch.set_num_threads(1)
 
 BATCH, L, EPOCHS = 4, 16, 2
 SIZES = (7, 0, 8)
-
-
-def jax_round_perms(rng, n_clients, n_epochs, capacity):
-    """[C, n_epochs, capacity]: client c trains with split(rng, C)[c],
-    and each epoch permutes with the first half of its epoch key."""
-    return np.stack([
-        np.stack([np.asarray(jax.random.permutation(jax.random.split(er)[0], capacity))
-                  for er in jax.random.split(cr, n_epochs)])
-        for cr in jax.random.split(rng, n_clients)
-    ])
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,7 @@ from baton_tpu_torch.core.partition import make_partition
 from baton_tpu_torch.core.regularizers import fedprox
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
+from _torch_variants import jax_round_perms
 
 torch.set_num_threads(1)
 
@@ -49,16 +50,6 @@ TAU = 1e-3  # FedAdam's eps (module docstring)
 
 def head(path, leaf):
     return path.startswith(("pooler/", "head/"))
-
-
-def jax_round_perms(rng, n_clients, n_epochs, capacity):
-    """[C, n_epochs, capacity]: client c trains with split(rng, C)[c],
-    and each epoch permutes with the first half of its epoch key."""
-    return np.stack([
-        np.stack([np.asarray(jax.random.permutation(jax.random.split(er)[0], capacity))
-                  for er in jax.random.split(cr, n_epochs)])
-        for cr in jax.random.split(rng, n_clients)
-    ])
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,10 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
-demo) refuse to run without a GPU unless asked for the CPU, every option
-not ported yet raises ``NotImplementedError`` while the ported ones build,
-and the chip smoke test has no CPU fallback."""
+demo, the advanced-aggregation example) refuse to run without a GPU
+unless asked for the CPU, every option not ported yet raises
+``NotImplementedError`` while the ported ones build, the federation
+variants refuse the reference's incompatible sims with its
+``ValueError``s, and the chip smoke test has no CPU fallback."""
 
 import ast
 import asyncio
@@ -18,7 +20,10 @@ from aiohttp import web
 import baton_tpu_torch
 from baton_tpu_torch import FedSim, demo
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+from baton_tpu_torch.core import optim
+from baton_tpu_torch.examples import advanced_aggregation
 from baton_tpu_torch.models.linear import linear_regression_model
+from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
 from baton_tpu_torch.server import http_worker
 from baton_tpu_torch.server.http_manager import Manager
 from baton_tpu_torch.server.http_worker import ExperimentWorker
@@ -42,6 +47,13 @@ def _imported_modules(path):
             yield node.module
 
 
+def test_the_import_scan_covers_the_federation_variants():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"baton_tpu_torch/parallel/{m}.py" for m in
+            ("stateful", "fedbuff", "personalization", "clustered")} <= names
+    assert "baton_tpu_torch/examples/advanced_aggregation.py" in names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     for mod in _imported_modules(path):
@@ -57,6 +69,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         baton_tpu_torch.resolve_device()
     assert FedSim(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        advanced_aggregation.run()
 
 
 def _in_loop(fn):
@@ -172,6 +186,54 @@ def test_unported_options_are_refused():
     params, history = sim.run_rounds({}, {}, torch.zeros(0), torch.Generator(), n_rounds=3,
                                      checkpointer=Done())
     assert params is restored and history == [0.5, 0.25, 0.125]
+
+
+def _head(name, leaf):
+    return name.startswith("1/")
+
+
+def _linear_sim(**kw):
+    return FedSim(linear_regression_model(), device="cpu", **kw)
+
+
+# each variant on a sim it cannot honour: the reference's ValueError,
+# matched by a phrase of its message
+REFUSED = [
+    ("stateful+trainable", lambda: StatefulClients(_linear_sim(trainable=_head)),
+     "full-param optimizer state"),
+    ("fedbuff buffer>concurrency", lambda: FedBuff(_linear_sim(), buffer_size=4, concurrency=2),
+     "concurrency >= buffer_size"),
+    ("fedbuff buffer 0", lambda: FedBuff(_linear_sim(), buffer_size=0, concurrency=2),
+     "concurrency >= buffer_size"),
+    ("fedbuff+median", lambda: FedBuff(_linear_sim(aggregator="median")),
+     "staleness-weighted mean"),
+    ("fedbuff+server optimizer",
+     lambda: FedBuff(_linear_sim(server_optimizer=optim.adam(1e-2))), "silently ignored"),
+    ("fedper+trainable", lambda: FedPer(_linear_sim(trainable=_head), personal=_head),
+     "re-plumb"),
+    ("fedper+server optimizer",
+     lambda: FedPer(_linear_sim(server_optimizer=optim.adam(1e-2)), personal=_head),
+     "silently ignored"),
+    ("clustered k=1", lambda: ClusteredFedSim(_linear_sim(), n_clusters=1), "n_clusters >= 2"),
+    ("clustered+trainable", lambda: ClusteredFedSim(_linear_sim(trainable=_head), 2),
+     "partitioned"),
+    ("clustered+median", lambda: ClusteredFedSim(_linear_sim(aggregator="median"), 2),
+     "sample-weighted mean"),
+    ("clustered+server optimizer",
+     lambda: ClusteredFedSim(_linear_sim(server_optimizer=optim.adam(1e-2)), 2),
+     "FedOpt server state"),
+]
+
+
+@pytest.mark.parametrize("build,match", [r[1:] for r in REFUSED], ids=[r[0] for r in REFUSED])
+def test_federation_variants_refuse_incompatible_sims(build, match):
+    with pytest.raises(ValueError, match=match):
+        build()
+
+
+def test_a_mesh_is_refused_naming_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        FedSim(linear_regression_model(), device="cpu", mesh=object())
 
 
 def test_chip_smoke_fails_without_a_gpu():
