@@ -26,6 +26,7 @@ from baton_tpu_torch.models.transformer import (
     prefixed,
     prenorm_block_apply,
     prenorm_block_init,
+    remat as remat_block,
     scope,
 )
 
@@ -60,7 +61,11 @@ def bert_classifier_model(
     compute_dtype: torch.dtype = torch.float32,
     attention_fn: AttentionFn = default_attention,
     name: str = "bert_classifier",
+    remat: bool = False,
 ) -> FedModel:
+    """``remat=True`` recomputes each encoder block's activations in the
+    backward pass instead of storing them (``transformer.remat``, the
+    counterpart of the JAX package's ``jax.checkpoint``)."""
     cfg = config or BertConfig.base()
 
     def init(gen: torch.Generator):
@@ -71,11 +76,11 @@ def bert_classifier_model(
         for i in range(cfg.n_layers):
             params.update(prefixed(f"blocks/{i}/", prenorm_block_init(
                 gen, cfg.d_model, cfg.n_heads, cfg.d_ff)))
-        params.update(prefixed("ln_f/", ln_init(cfg.d_model)))
+        params.update(prefixed("ln_f/", ln_init(cfg.d_model, gen.device)))
         params["pooler/w"] = dense_init(gen, cfg.d_model, cfg.d_model)
-        params["pooler/b"] = torch.zeros(cfg.d_model)
+        params["pooler/b"] = torch.zeros(cfg.d_model, device=gen.device)
         params["head/w"] = dense_init(gen, cfg.d_model, cfg.n_classes)
-        params["head/b"] = torch.zeros(cfg.n_classes)
+        params["head/b"] = torch.zeros(cfg.n_classes, device=gen.device)
         return params
 
     def apply(params, batch):
@@ -86,9 +91,15 @@ def bert_classifier_model(
         x = x.to(compute_dtype)
         attn_mask = batch.get("attn_mask")
         bias = None if attn_mask is None else padding_bias(attn_mask)
+
+        def block(p, x, *bias):
+            return prenorm_block_apply(p, x, cfg.n_heads, bias=bias[0] if bias else None,
+                                       attention_fn=attention_fn)
+
+        block_fn = remat_block(block) if remat else block
+        extra = () if bias is None else (bias,)
         for i in range(cfg.n_layers):
-            x = prenorm_block_apply(scope(params, f"blocks/{i}/"), x, cfg.n_heads,
-                                    bias=bias, attention_fn=attention_fn)
+            x = block_fn(scope(params, f"blocks/{i}/"), x, *extra)
         x = layer_norm(x, scope(params, "ln_f/"))
         cls = x[:, 0, :].float()
         pooled = torch.tanh(cls @ params["pooler/w"] + params["pooler/b"])

@@ -8,6 +8,9 @@ so the weights bridge copies without transposes. Params stay fp32;
 activations are cast to the compute dtype per apply; norms and softmax
 run in fp32. Attention tensors are [B, H, L, Dh]; every model takes an
 ``attention_fn`` with the signature of :func:`dot_product_attention`.
+Initializers draw on the generator's device, so a model built from a
+CUDA generator is made on the card (an 8B base is never staged on the
+host). :func:`remat` is the counterpart of ``jax.checkpoint`` for a block.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ def prefixed(prefix: str, params: Params) -> Params:
 
 
 def normal_init(gen: torch.Generator, shape, stddev) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32) * stddev
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * stddev
 
 
 def dense_init(gen, d_in, d_out, stddev=None) -> torch.Tensor:
@@ -50,8 +53,12 @@ def dense_init(gen, d_in, d_out, stddev=None) -> torch.Tensor:
     return normal_init(gen, (d_in, d_out), stddev)
 
 
-def ln_init(d) -> Params:
-    return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+def ln_init(d, device=None) -> Params:
+    return {"scale": torch.ones(d, device=device), "bias": torch.zeros(d, device=device)}
+
+
+def rms_init(d, device=None) -> Params:
+    return {"scale": torch.ones(d, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +71,35 @@ def layer_norm(x, p, eps=1e-6):
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     xf = (xf - mean) * torch.rsqrt(var + eps)
     return (xf * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rms_norm(x, p, eps=1e-6):
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (RoPE)
+
+
+def rope_angles(seq_len: int, head_dim: int, theta: float = 10000.0, device=None):
+    """Returns (cos, sin) each [L, Dh/2], fp32."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv_freq = 1.0 / (theta ** exponents)
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    ang = torch.outer(pos, inv_freq)  # [L, Dh/2]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate the two halves of the channels (not interleaved pairs), as
+    the JAX package does. x [B, H, L, Dh]; cos/sin [L, Dh/2]."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -99,16 +135,83 @@ def dot_product_attention(q, k, v, bias=None, causal=False):
 
 
 # The TPU package sends L < 4096 to the dense einsum, a crossover measured
-# on a v5e; no TPU speed claim carries over to the H100. Until the card's
-# own crossover is measured, every length goes to the flash kernels.
+# on a v5e; no TPU number steers the card. Until a sweep on the card is
+# adopted (configure_attention_dispatch), every length goes to the flash
+# kernels; beyond the dense budget they take over whatever the crossover.
 _FLASH_MIN_LEN = 0
+# None, or the kernels' one tile after a sweep adopted it
+_FLASH_BLOCKS = None
+# the port's kernels have one (block_q, block_k) tile
+# (csrc/flash_attention_mma.cu: TILE = 64)
+KERNEL_BLOCKS = (64, 64)
+_DENSE_SCORES_BUDGET_BYTES = 512 * 1024 ** 2
+
+
+def _kernel_blocks(blocks) -> tuple:
+    blocks = (int(blocks[0]), int(blocks[1]))
+    if blocks != KERNEL_BLOCKS:
+        raise ValueError(f"the flash kernels have one tile {KERNEL_BLOCKS}, got {blocks}")
+    return blocks
+
+
+def configure_attention_dispatch(min_len=None, blocks=None, sweep_path=None):
+    """Apply a MEASURED flash-vs-dense crossover to the dispatcher.
+
+    Explicit ``min_len`` / ``blocks`` win; ``blocks`` other than the
+    kernels' tile raise ``ValueError``. Otherwise ``sweep_path`` names an
+    artifact in ``benchmarks/attention_sweep.py``'s record shape
+    (``{"platform", "results": [{"L", "dense_ms", "flash": {"<bq>x<bk>":
+    ms}}]}``): the threshold becomes the smallest measured L whose best
+    flash config beats the dense path. Only ``platform == "gpu"``
+    artifacts are trusted: a TPU or CPU sweep never steers the card. A
+    malformed row (a null timing, a foreign tile) is skipped without
+    discarding the rows after it. Returns the ``(min_len, blocks)`` now in
+    effect; a missing or foreign artifact, or one with no crossover,
+    changes nothing.
+    """
+    global _FLASH_MIN_LEN, _FLASH_BLOCKS
+    if blocks is not None:
+        blocks = _kernel_blocks(blocks)
+    if sweep_path is not None and min_len is None and blocks is None:
+        import json
+
+        try:
+            with open(sweep_path) as f:
+                sweep = json.load(f)
+            records = (sorted(sweep.get("results", []), key=lambda r: r.get("L", 1 << 30))
+                       if sweep.get("platform") == "gpu" else [])
+        except (OSError, ValueError, AttributeError):
+            records = []
+        for rec in records:
+            try:
+                dense = rec.get("dense_ms")
+                flash = rec.get("flash") or {}
+                if not (isinstance(dense, (int, float)) and flash):
+                    continue
+                spec, ms = min(flash.items(), key=lambda kv: kv[1])
+                if ms < dense:
+                    blocks = _kernel_blocks(spec.split("x"))
+                    min_len = int(rec["L"])
+                    break
+            except (ValueError, KeyError, TypeError, AttributeError, IndexError):
+                continue
+    if min_len is not None:
+        _FLASH_MIN_LEN = int(min_len)
+    if blocks is not None:
+        _FLASH_BLOCKS = blocks
+    return _FLASH_MIN_LEN, _FLASH_BLOCKS
 
 
 def default_attention(q, k, v, bias=None, causal=False):
-    """The model zoo's default attention: the flash kernels for no bias or
-    a per-key [B, 1, 1, L] bias, the dense path for any other bias shape."""
-    b, lk = q.shape[0], k.shape[2]
-    if lk >= _FLASH_MIN_LEN and (bias is None or tuple(bias.shape) == (b, 1, 1, lk)):
+    """The model zoo's default attention: the flash kernels from
+    ``_FLASH_MIN_LEN`` on, or wherever the dense path's fp32 scores would
+    exceed ``_DENSE_SCORES_BUDGET_BYTES``, for no bias or a per-key
+    [B, 1, 1, L] bias; the dense path otherwise (any other bias shape)."""
+    b, hq, lq = q.shape[:3]
+    lk = k.shape[2]
+    scores_bytes = 4 * b * hq * lq * lk
+    if (lk >= _FLASH_MIN_LEN or scores_bytes > _DENSE_SCORES_BUDGET_BYTES) and (
+            bias is None or tuple(bias.shape) == (b, 1, 1, lk)):
         return flash_attention(q, k, v, bias=bias, causal=causal)
     return dot_product_attention(q, k, v, bias=bias, causal=causal)
 
@@ -136,9 +239,11 @@ def mha_apply(
     n_kv_heads: Optional[int] = None,
     bias=None,
     causal: bool = False,
+    rope: Optional[tuple] = None,
     attention_fn: AttentionFn = default_attention,
 ):
-    """Multi-head attention over x [B, L, D] -> [B, L, D]."""
+    """Multi-head attention over x [B, L, D] -> [B, L, D]; ``rope`` is
+    ``(cos, sin)`` from :func:`rope_angles`, applied to q and k."""
     b, l, _ = x.shape
     n_kv = n_kv_heads or n_heads
     dh = p["wq"].shape[1] // n_heads
@@ -148,6 +253,9 @@ def mha_apply(
         return y.reshape(b, l, h, dh).transpose(1, 2)  # [B, H, L, Dh]
 
     q, k, v = proj(p["wq"], n_heads), proj(p["wk"], n_kv), proj(p["wv"], n_kv)
+    if rope is not None:
+        cos, sin = rope
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     out = attention_fn(q, k, v, bias=bias, causal=causal)
     out = out.transpose(1, 2).reshape(b, l, n_heads * dh)
     return out @ p["wo"].to(x.dtype)
@@ -160,9 +268,9 @@ def mha_apply(
 def gelu_mlp_init(gen, d_model, d_ff) -> Params:
     return {
         "w1": dense_init(gen, d_model, d_ff),
-        "b1": torch.zeros(d_ff),
+        "b1": torch.zeros(d_ff, device=gen.device),
         "w2": dense_init(gen, d_ff, d_model),
-        "b2": torch.zeros(d_model),
+        "b2": torch.zeros(d_model, device=gen.device),
     }
 
 
@@ -172,15 +280,29 @@ def gelu_mlp_apply(p, x):
     return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
 
 
+def swiglu_init(gen, d_model, d_ff) -> Params:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff),
+        "w_up": dense_init(gen, d_model, d_ff),
+        "w_down": dense_init(gen, d_ff, d_model),
+    }
+
+
+def swiglu_apply(p, x):
+    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    u = x @ p["w_up"].to(x.dtype)
+    return (g * u) @ p["w_down"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # pre-LN encoder block
 
 
 def prenorm_block_init(gen, d_model, n_heads, d_ff) -> Params:
     return {
-        **prefixed("ln1/", ln_init(d_model)),
+        **prefixed("ln1/", ln_init(d_model, gen.device)),
         **prefixed("attn/", mha_init(gen, d_model, n_heads)),
-        **prefixed("ln2/", ln_init(d_model)),
+        **prefixed("ln2/", ln_init(d_model, gen.device)),
         **prefixed("mlp/", gelu_mlp_init(gen, d_model, d_ff)),
     }
 
@@ -190,3 +312,90 @@ def prenorm_block_apply(p, x, n_heads, bias=None,
     x = x + mha_apply(scope(p, "attn/"), layer_norm(x, scope(p, "ln1/")), n_heads,
                       bias=bias, attention_fn=attention_fn)
     return x + gelu_mlp_apply(scope(p, "mlp/"), layer_norm(x, scope(p, "ln2/")))
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (the counterpart of jax.checkpoint for one block call)
+
+
+class _Remat(torch.autograd.Function):
+    """One block call that keeps only its inputs for the backward pass,
+    which runs the block again under ``torch.func.vjp``. It composes with
+    ``torch.func.vmap(grad(...))``, where ``torch.utils.checkpoint`` does
+    not (saved-tensor hooks, and no ``setup_context``). The vjp is taken
+    only with respect to the inputs that need a gradient: a frozen weight
+    (unbatched under the client vmap) gets none, so no weight gradient of
+    the frozen base is ever formed.
+
+    ``torch.func.grad`` runs the backward pass with ``create_graph=True``,
+    so whatever a backward computes is recorded for a second derivative
+    and kept until the gradient call returns. The recompute runs under
+    ``no_grad`` (the vjp inside it still differentiates the block): each
+    block's recomputed activations are freed once its gradients are out.
+    No second derivative goes through a remat block."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *inputs):
+        return fn(*inputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[1:]) if need]
+
+        def block(*diff):
+            full = list(inputs)
+            for i, t in zip(wanted, diff):
+                full[i] = t
+            return ctx.fn(*full)
+
+        out = [None] * len(inputs)
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(block, *(inputs[i] for i in wanted))
+            for i, g in zip(wanted, vjp_fn(grads)):
+                out[i] = g
+        return (None, *out)
+
+
+def remat(block_fn: Callable) -> Callable:
+    """``block_fn(params, *tensors) -> tensor or tuple of tensors`` as one
+    rematerialised call: the backward pass recomputes the block's
+    activations from its inputs (its flat params and ``tensors``) instead
+    of storing them. Every argument must be a tensor; close over anything
+    else (a None bias) in ``block_fn``."""
+
+    def call(params: Params, *tensors):
+        names = tuple(params)
+        n = len(names)
+        single = []
+
+        def flat(*ts):
+            out = block_fn(dict(zip(names, ts[:n])), *ts[n:])
+            if isinstance(out, tuple):
+                return out
+            single.append(True)
+            return (out,)
+
+        out = _Remat.apply(flat, *params.values(), *tensors)
+        return out[0] if single else out
+
+    return call
+
+
+# ---------------------------------------------------------------------------
+# per-token LM loss (used by llama.py and lstm.py)
+
+
+def per_token_cross_entropy(logits, labels):
+    """logits [B, L, V], labels int [B, L] -> fp32 [B, L]."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1).squeeze(-1)
+    return logz - ll

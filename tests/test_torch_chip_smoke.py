@@ -17,11 +17,14 @@ notes its devices; phase 12's fold of compressed uploads and its
 error-feedback ledger, each passing and failing a broken input; phase
 15's checks of the clustered assignments, the clusters' means and the
 launches per step, each passing and failing a broken input, and its
-card-against-CPU runs of the four variants at a tiny size; and
-``main`` with every phase, the card and nvidia-smi stubbed: it runs
-phases 2-15 in order and ends with the card's name and
-power limit, the kernels line and the ok/device line; a failing phase from
-6 on fails it before any result line."""
+card-against-CPU runs of the four variants at a tiny size; phase 16's
+host-side helpers (the 4·P·tokens count, the memory estimate and the wave
+it picks, the frozen-base check, the sweep artifact's writer and what
+``configure_attention_dispatch`` reads from it); and ``main`` with every
+phase, the card and nvidia-smi stubbed: it runs phases 2-16 in order and
+ends with the card's name and power limit, the kernels line (with its
+config-4 launches) and the ok/device line; a failing phase from 6 on
+fails it before any result line."""
 
 import dataclasses
 import importlib.util
@@ -86,6 +89,7 @@ SHAPES = pytest.mark.parametrize("b,hq,hkv,l,causal,bias_kind", [
     (4, 4, 4, 128, False, "lengths"),
     (2, 4, 2, 96, False, "masked_rows"),
     (2, 8, 2, 128, True, "lengths"),
+    (1, 2, 1, 512, True, "lengths"),  # sums past SUM_TERMS: the allowance grows
 ])
 
 
@@ -191,11 +195,17 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 
 
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
-          "resnet_round_phase", "vision_parity_phase", "fedprox_bert_phase",
-          "resnet_optimizer_phase", "options_parity_phase", "http_round_phase",
-          "bandwidth_phase", "secure_phase", "config1_phase", "variants_phase")
+          "llama_timing_phase", "resnet_round_phase", "vision_parity_phase",
+          "fedprox_bert_phase", "resnet_optimizer_phase", "options_parity_phase",
+          "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
+          "variants_phase", "config4_phase", "remat_phase", "vit_phase", "lstm_phase",
+          "zoo_parity_phase", "crossover_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
+# config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
+CONFIG4_COUNTS = {"fwd": 1024, "bwd_dkv": 512, "bwd_dq": 512}
+CONFIG4_PER_ROUND = {"fwd": 256, "bwd_dkv": 128, "bwd_dq": 128}
+LLAMA_ROW = {"ms": 0.2, "bound_ms": 0.1}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -217,7 +227,12 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
                     "resnet_optimizer_phase": {}, "options_parity_phase": {},
                     "http_round_phase": {}, "bandwidth_phase": {}, "secure_phase": {},
-                    "config1_phase": {}, "variants_phase": {"launches": VARIANT_COUNTS}
+                    "config1_phase": {}, "variants_phase": {"launches": VARIANT_COUNTS},
+                    "llama_timing_phase": {"flash_fwd": LLAMA_ROW},
+                    "config4_phase": (CONFIG4_COUNTS, CONFIG4_PER_ROUND,
+                                      {"steps_per_round": 4}),
+                    "remat_phase": {}, "vit_phase": {}, "lstm_phase": {},
+                    "zoo_parity_phase": {}, "crossover_phase": {},
                     }.get(phase)
         return run
 
@@ -230,6 +245,7 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "NVIDIA H100 80GB HBM3")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     monkeypatch.setattr(subprocess, "run", lambda *a, **kw: subprocess.CompletedProcess(
         a, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n", stderr=""))
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -249,7 +265,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
     assert json.loads(lines[-2]) == {"kernels": [{
         "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12,
-        "launches_variants": 816}]}
+        "launches_variants": 816, "llama_shape": LLAMA_ROW, "launches_config4": 1024,
+        "launches_per_round_config4": 256, "launches_per_step_config4": 64}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -257,7 +274,9 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                      "fedprox_bert_phase", "resnet_optimizer_phase",
                                      "options_parity_phase", "http_round_phase",
                                      "bandwidth_phase", "secure_phase", "config1_phase",
-                                     "variants_phase"])
+                                     "variants_phase", "config4_phase", "remat_phase",
+                                     "vit_phase", "lstm_phase", "zoo_parity_phase",
+                                     "crossover_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -613,3 +632,71 @@ def test_variants_against_cpu_at_a_tiny_size():
         model, params, model.init(torch.Generator().manual_seed(1)), data, n_samples, 4, 0.05,
         perms, device="cpu")
     assert len(gaps) == 4 and all(g == 0.0 for g in gaps.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 16's host-side helpers
+
+
+def test_lora_train_flops_is_four_p_tokens():
+    """The suite's adapters-only count: 4 x 8,043,892,736 params (the
+    Llama-3-8B base and its rank-16 adapters) x 65,536 tokens a round."""
+    assert chip_smoke.lora_train_flops(8_043_892_736, 4 * 16 * 1024) == \
+        4.0 * 8_043_892_736 * 65_536
+
+
+def test_config4_memory_estimate_counts_the_params_and_the_clients():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from baton_tpu_torch.examples import llama_lora
+    from baton_tpu_torch.models.lora import lora_trainable
+
+    cfg = llama_lora.FULL_CONFIG
+    with FakeTensorMode():
+        params = llama_lora.make_sim(cfg, rank=16, batch_size=8, device="cpu")[1].init(
+            torch.Generator())
+        n_base = sum(v.numel() for k, v in params.items() if not lora_trainable(k, v))
+        n_adapter = sum(v.numel() for k, v in params.items() if lora_trainable(k, v))
+    one, two = (chip_smoke.config4_memory_estimate(cfg, 8, w, 16) for w in (1, 2))
+    assert one["base"] == 4 * n_base and one["adapters"] == 4 * n_adapter
+    assert one["client_parts"]["merged_targets"] == 4 * 32 * 41_943_040  # wq, wk, wv, wo
+    assert one["client_parts"]["block_inputs"] == 2 * 32 * 8 * 1024 * 4096
+    assert two["total"] - one["total"] == one["per_client"]
+    # 32.2 GB of params and ~10.6 GB a client: 85 GB at 85% holds a wave of
+    # 3, and the wave must divide the cohort of 4
+    assert chip_smoke.config4_wave(cfg, 8, 16, 4, 85e9) == 2
+    assert chip_smoke.config4_wave(cfg, 8, 16, 3, 85e9) == 3
+    assert chip_smoke.config4_wave(cfg, 8, 16, 4, 40e9) == 1
+
+
+def test_frozen_bit_equal_check():
+    params = {"base/w": torch.ones(3), "lora/w/a": torch.zeros(2)}
+    host = {"base/w": params["base/w"].clone()}
+    assert chip_smoke.check_frozen_bit_equal(params, host) == 1
+    params["base/w"] = torch.nextafter(params["base/w"], torch.tensor(2.0))
+    with pytest.raises(RuntimeError, match="frozen tensor base/w changed"):
+        chip_smoke.check_frozen_bit_equal(params, host)
+
+
+@pytest.mark.parametrize("flash_ms,crossover", [((9.0, 1.5, 1.0), 256), ((9.0, 9.0, 9.0), None),
+                                                ((1.0, 9.0, 1.0), 128)])
+def test_sweep_written_and_read_back(tmp_path, flash_ms, crossover):
+    """The sweep in attention_sweep.py's record shape, platform gpu; the
+    dispatcher reads the crossover the phase prints, and changes nothing
+    without one."""
+    import json
+
+    from baton_tpu_torch.models import transformer as T
+
+    results = [{"L": l, "batch": 8192 // l, "dense_ms": 2.0, "flash": {"64x64": ms}}
+               for l, ms in zip((128, 256, 512), flash_ms)]
+    path = tmp_path / "sweep.json"
+    payload = chip_smoke.write_sweep(path, "NVIDIA H100 80GB HBM3", results)
+    assert json.loads(path.read_text()) == payload and payload["platform"] == "gpu"
+    assert chip_smoke.sweep_crossover(results) == crossover
+    orig = (T._FLASH_MIN_LEN, T._FLASH_BLOCKS)
+    try:
+        read = T.configure_attention_dispatch(sweep_path=str(path))
+    finally:
+        T._FLASH_MIN_LEN, T._FLASH_BLOCKS = orig
+    assert read == (orig if crossover is None else (crossover, (64, 64)))

@@ -1,6 +1,7 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
-demo, the advanced-aggregation example) refuse to run without a GPU
+demo, the advanced-aggregation, Llama-LoRA and char-LSTM examples, and
+FedSim over each model of the zoo) refuse to run without a GPU
 unless asked for the CPU, every option not ported yet raises
 ``NotImplementedError`` while the ported ones build, the federation
 variants refuse the reference's incompatible sims with its
@@ -21,7 +22,7 @@ import baton_tpu_torch
 from baton_tpu_torch import FedSim, demo
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.core import optim
-from baton_tpu_torch.examples import advanced_aggregation
+from baton_tpu_torch.examples import advanced_aggregation, llama_lora, lstm_shakespeare
 from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
 from baton_tpu_torch.server import http_worker
@@ -52,6 +53,11 @@ def test_the_import_scan_covers_the_federation_variants():
     assert {f"baton_tpu_torch/parallel/{m}.py" for m in
             ("stateful", "fedbuff", "personalization", "clustered")} <= names
     assert "baton_tpu_torch/examples/advanced_aggregation.py" in names
+    # the model zoo and its examples
+    assert {f"baton_tpu_torch/models/{m}.py" for m in
+            ("transformer", "llama", "lora", "moe", "vit", "lstm")} <= names
+    assert {f"baton_tpu_torch/examples/{m}.py" for m in
+            ("llama_lora", "lstm_shakespeare")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -71,6 +77,47 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert FedSim(model, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         advanced_aggregation.run()
+    for example in (llama_lora, lstm_shakespeare):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.run()
+
+
+def _zoo():
+    from baton_tpu_torch.models import (
+        LlamaConfig,
+        LSTMConfig,
+        MoEConfig,
+        ViTConfig,
+        llama_lm_model,
+        llama_lora_target,
+        lora_trainable,
+        lora_wrap,
+        lstm_lm_model,
+        vit_model,
+    )
+
+    return {
+        "llama": (llama_lm_model(LlamaConfig.tiny(), remat=True), {}),
+        "llama_moe": (llama_lm_model(LlamaConfig.tiny(moe=MoEConfig(4, 2))), {}),
+        "llama_lora": (lora_wrap(llama_lm_model(LlamaConfig.tiny()), rank=2,
+                                 target=llama_lora_target), {"trainable": lora_trainable}),
+        "vit": (vit_model(ViTConfig.tiny(), remat=True), {}),
+        "lstm": (lstm_lm_model(LSTMConfig.tiny()), {}),
+    }
+
+
+@pytest.mark.parametrize("name", ["llama", "llama_moe", "llama_lora", "vit", "lstm"])
+def test_zoo_models_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, name):
+    """FedSim over each model of the zoo (and ``lora_wrap``) refuses the
+    default device without a GPU and builds its params on the CPU when
+    asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, kw = _zoo()[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FedSim(model, **kw)
+    sim = FedSim(model, device="cpu", **kw)
+    params = sim.init(torch.Generator().manual_seed(0))
+    assert {t.device.type for t in params.values()} == {"cpu"}
 
 
 def _in_loop(fn):
