@@ -22,6 +22,17 @@ client, as each client's own starting params are in ``train_stacked``'s
 callers (FedBuff's stale anchors, FedPer's merged params, a cluster's
 gather).
 
+With ``dp`` (a :class:`baton_tpu_torch.ops.privacy.DPConfig`) a step is
+DP-SGD (JAX's ``dp=`` branch): each client's per-example gradients of
+its masked data-loss sum are a ``vmap`` nested inside the client
+``vmap``, clipped and summed in fp32, noised and divided by the static
+batch size (``privacy.dp_sgd_grads``); a regularizer's gradient is added
+exactly, without noise. ``torch.func.vmap`` refuses random draws inside
+the transform, so each step's noise is drawn before it: one
+``[C, *shape]`` standard-normal tensor per trainable leaf, in the
+params' order, from the cohort's noise generator (:func:`noise_generator`
+of the caller's generator), and client ``c`` gets row ``c``.
+
 JAX draws its permutations from threefry keys, which torch cannot
 reproduce; callers that need JAX's exact shuffles inject them as
 ``perms``, otherwise they come from a ``torch.Generator``.
@@ -37,6 +48,7 @@ import torch
 from baton_tpu_torch.core import optim
 from baton_tpu_torch.core.model import Batch, FedModel, Params
 from baton_tpu_torch.core.partition import ParamPartition
+from baton_tpu_torch.ops import privacy
 
 Regularizer = Callable[[Params, Params], torch.Tensor]
 
@@ -57,6 +69,37 @@ def random_perms(n_clients: int, n_epochs: int, capacity: int,
         torch.stack([torch.randperm(capacity, generator=generator) for _ in range(n_epochs)])
         for _ in range(n_clients)
     ])
+
+
+def noise_seed(generator: torch.Generator) -> int:
+    """One 62-bit seed drawn from ``generator`` (``noise_generator``'s)."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
+def noise_generator(generator: Optional[torch.Generator], device: torch.device
+                    ) -> torch.Generator:
+    """The generator a cohort's DP noise is drawn from on ``device``:
+    ``generator`` itself when it lies there, else a new generator on
+    ``device`` seeded with :func:`noise_seed` of it, so the draws stay on
+    the card and depend only on the caller's generator."""
+    if generator is None:
+        raise ValueError("DP-SGD noise needs a torch.Generator")
+    if draws_on(generator, device):
+        return generator
+    return torch.Generator(device=device).manual_seed(noise_seed(generator))
+
+
+def draws_on(generator: torch.Generator, device) -> bool:
+    """True when ``generator`` draws on ``device`` (``cuda`` and
+    ``cuda:<current>`` are one card)."""
+    a, b = generator.device, torch.device(device)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
 
 
 def stack_copies(tree, c: int):
@@ -84,6 +127,9 @@ class LocalTrainer:
     the model sees ``partition.merge(params, frozen)`` while gradients,
     optimizer state and the returned params stay trainable-only.
 
+    With ``dp`` set, every step is DP-SGD (module docstring); the noise
+    comes from ``generator`` (:func:`noise_generator`).
+
     ``progress_fn(epoch_index, epoch_loss)``, when set, runs on the host
     after each epoch (a float for one client, a list of floats for a
     cohort); it costs one device sync per epoch.
@@ -94,6 +140,7 @@ class LocalTrainer:
     batch_size: int
     regularizer: Optional[Regularizer] = None
     partition: Optional[ParamPartition] = None
+    dp: Optional[privacy.DPConfig] = None
     progress_fn: Optional[Callable[[int, object], None]] = None
 
     def init_opt_state(self, params: Params):
@@ -124,6 +171,27 @@ class LocalTrainer:
         if self.regularizer is not None:
             loss = loss + self.regularizer(params, anchor)
         return loss, (loss_sum, count)
+
+    def _dp_grads(self, params: Params, frozen: Optional[Params], anchor: Optional[Params],
+                  batch: Batch, noise: Optional[Params]):
+        """One client's DP-SGD gradient (``privacy.dp_sgd_grads`` of the
+        masked data-loss sum, plus the regularizer's exact gradient) and
+        its ``(loss_sum, count)``. Padding rows have exactly-zero
+        gradients, so clipping leaves them as they are."""
+
+        def data_loss_sum(p, b):
+            merged = self.partition.merge(p, frozen) if self.partition else p
+            return self.model.loss_and_count(merged, b)[0]
+
+        grads, ex_losses = privacy.dp_sgd_grads(data_loss_sum, params, batch, None, self.dp,
+                                                self.batch_size, noise=noise)
+        if self.regularizer is not None:
+            # the prox term is data-independent: its gradient is exact
+            # (un-noised) and consumes no privacy budget
+            reg = torch.func.grad(lambda q: self.regularizer(q, anchor))(params)
+            grads = {k: (g + reg[k]).to(g.dtype) for k, g in grads.items()}
+        # ex_losses are mask-zeroed already; NOT privatized (DPConfig)
+        return grads, (ex_losses.sum(), batch["mask"].float().sum())
 
     def update_step(self, params: Params, opt_state, grads: Params, nonempty: torch.Tensor):
         """One optimizer step of a stacked cohort ([C, ...] leaves, a [C]
@@ -186,8 +254,10 @@ class LocalTrainer:
         ``perms`` an optional [C, n_epochs, capacity]. ``anchor`` is one
         dict for the whole cohort (leaves shaped as one client's) or one
         per client (leaves [C, ...], as ``params``); ``frozen`` is one
-        dict, never batched. Returns ``(params, opt_state, losses
-        [C, n_epochs])``."""
+        dict, never batched. Under DP with noise, each step draws
+        ``privacy.gaussian_noise_like(params, 1.0, g)`` of the stacked
+        params from ``g = noise_generator(generator, device)``, after the
+        shuffles. Returns ``(params, opt_state, losses [C, n_epochs])``."""
         p = params
         if self.regularizer is not None and anchor is None:
             raise ValueError("a trainer with a regularizer needs the anchor params")
@@ -201,9 +271,23 @@ class LocalTrainer:
         perms = perms.to(device)
         name = next(iter(anchor)) if anchor is not None else None
         anchor_dim = 0 if name is not None and anchor[name].dim() == p[name].dim() else None
-        grad_fn = torch.func.vmap(
-            torch.func.grad_and_value(self._objective, has_aux=True),
-            in_dims=(0, None, anchor_dim, 0))
+        if self.dp is None:
+            grad_fn = torch.func.vmap(
+                torch.func.grad_and_value(self._objective, has_aux=True),
+                in_dims=(0, None, anchor_dim, 0))
+
+            def step_grads(p, batch):
+                grads, (_, sums) = grad_fn(p, frozen, anchor, batch)
+                return grads, sums
+        else:
+            noisy = self.dp.noise_multiplier > 0
+            gen = noise_generator(generator, device) if noisy else None
+            dp_fn = torch.func.vmap(self._dp_grads,
+                                    in_dims=(0, None, anchor_dim, 0, 0 if noisy else None))
+
+            def step_grads(p, batch):
+                noise = privacy.gaussian_noise_like(p, 1.0, gen) if noisy else None
+                return dp_fn(p, frozen, anchor, batch, noise)
         rows = torch.arange(c, device=device)[:, None]
         history = []
         for e in range(n_epochs):
@@ -217,7 +301,7 @@ class LocalTrainer:
             for i in range(nb):
                 sl = slice(i * self.batch_size, (i + 1) * self.batch_size)
                 batch = {k: v[:, sl] for k, v in shuffled.items()}
-                grads, (_, (loss_sum, count)) = grad_fn(p, frozen, anchor, batch)
+                grads, (loss_sum, count) = step_grads(p, batch)
                 # an all-padding batch has exactly-zero grads; the gate keeps
                 # its step a no-op for the params and the optimizer state
                 p, opt_state = self.update_step(p, opt_state, grads, count > 0)
@@ -235,18 +319,19 @@ def make_local_trainer(model: FedModel,
                        optimizer: Optional[optim.GradientTransformation] = None,
                        batch_size: int = 32, learning_rate: float = 1e-3,
                        regularizer: Optional[Regularizer] = None,
-                       partition: Optional[ParamPartition] = None, dp=None,
+                       partition: Optional[ParamPartition] = None,
+                       dp: Optional[privacy.DPConfig] = None,
                        progress_fn: Optional[Callable[[int, object], None]] = None
                        ) -> LocalTrainer:
     """A :class:`LocalTrainer`; ``optimizer=None`` means
     ``optim.sgd(learning_rate)``, batch 32 and lr 1e-3 by default (the
-    reference demo's settings). DP-SGD (``dp``) is not ported yet."""
-    if dp is not None:
-        raise NotImplementedError("DP-SGD (dp=...) is not ported yet")
+    reference demo's settings); ``dp`` a ``privacy.DPConfig`` makes every
+    step DP-SGD."""
     if optimizer is None:
         optimizer = optim.sgd(learning_rate)
     return LocalTrainer(model=model, optimizer=optimizer, batch_size=batch_size,
-                        regularizer=regularizer, partition=partition, progress_fn=progress_fn)
+                        regularizer=regularizer, partition=partition, dp=dp,
+                        progress_fn=progress_fn)
 
 
 def make_evaluator(model: FedModel):

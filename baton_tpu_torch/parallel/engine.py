@@ -25,11 +25,20 @@ and never repeated per client) and a ``server_optimizer`` (FedOpt: the
 fp32 pseudo-gradient ``global - aggregate`` goes through it after the
 aggregator; ``optim.sgd(1.0)`` is exactly FedAvg).
 
+DP-SGD (``dp=``, ``ops/privacy.py``) runs inside local training; each
+client's noise comes from the round's generator (``core/training.py``:
+on the card from a device generator seeded from it, one a wave).
+
+``wave_size="auto"`` sizes waves from the card's caching allocator
+(:meth:`FedSim.auto_wave_size`): trial waves of 1 and 2 clients give a
+line of peak memory against the wave, and the reference's halving search
+runs over that line. ``run_rounds_fused`` captures one round's device
+work as a CUDA graph and replays it (:meth:`FedSim.run_rounds_fused`).
+
 Ported: ``run_round`` (vmap mode, waves), ``run_rounds`` (with the
-server optimizer's state and a checkpointer), ``evaluate_round``,
-``evaluate_clients``. Not ported yet, and refused with
-NotImplementedError: a device mesh, DP-SGD, ``auto_wave_size``
-(``wave_size="auto"``) and ``run_rounds_fused``.
+server optimizer's state and a checkpointer), ``run_rounds_fused``,
+``auto_wave_size``, ``evaluate_round``, ``evaluate_clients``. Not ported
+yet, and refused with NotImplementedError: a device mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -46,9 +55,16 @@ from baton_tpu_torch import resolve_device
 from baton_tpu_torch.core import optim
 from baton_tpu_torch.core.model import FedModel, Params
 from baton_tpu_torch.core.partition import PathPredicate, make_partition
-from baton_tpu_torch.core.training import LocalTrainer, make_local_trainer, random_perms
+from baton_tpu_torch.core.training import (
+    LocalTrainer,
+    draws_on,
+    make_local_trainer,
+    noise_seed,
+    random_perms,
+)
 from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
+from baton_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -139,6 +155,12 @@ class FedSim:
         self.partition = None
         self.compute_probe = ComputeProbe(model)
         self.last_compute: Optional[dict] = None
+        # wave_size="auto" answers per cohort signature, and the line
+        # behind the last measured answer (auto_wave_size)
+        self._auto_wave_cache: Dict[tuple, Optional[int]] = {}
+        self.wave_footprint: Optional[dict] = None
+        # the last run_rounds_fused call: graph or loop, capture seconds
+        self.last_fused: Optional[dict] = None
 
     def _split(self, params: Params):
         """(trainable, frozen); (params, None) without a partition."""
@@ -156,10 +178,104 @@ class FedSim:
         trainable, _ = self._split(params)
         return self.server_optimizer.init(trainable)
 
-    def auto_wave_size(self, *args, **kw):
-        raise NotImplementedError(
-            "auto_wave_size is not ported yet: it reads XLA's static memory plan, which "
-            "torch has no counterpart of; pass an explicit wave_size")
+    def auto_wave_size(self, params: Params, data, n_samples, n_epochs: int = 1,
+                       budget_gb: Optional[float] = None,
+                       footprint: Optional[Callable[[int], float]] = None) -> Optional[int]:
+        """The largest wave whose peak device memory fits ``budget_gb``
+        (GiB; default ``profiling.device_budget_gb``, the card less a
+        stated headroom): ``None`` when the whole cohort fits as one wave,
+        else the wave halved until it fits. Raises ``RuntimeError`` when
+        not even one client fits, and ``NotImplementedError`` for robust
+        aggregators (they keep every client's params, a different
+        footprint: pass an explicit ``wave_size``).
+
+        The reference reads XLA's static memory plan; torch has none, so
+        ``footprint(w)`` (GiB at a wave of ``w``) is by default a line fit
+        on the card: one trial wave of 1 client and one of 2 clients (one
+        epoch of this round's training step each, results thrown away,
+        ``profiling.fedsim_wave_footprint_gb``) give each one's peak above
+        the memory in use, and ``in use + base + w * per_client`` is the
+        line (left in ``wave_footprint``); ``n_epochs`` only keys the
+        cache of ``wave_size="auto"``, as an epoch's peak is every
+        epoch's. On the CPU there is no allocator peak and the answer is
+        ``None``, as the reference answers without a plan. ``footprint``
+        is the search's seam."""
+        if self.aggregator[0] != "mean":
+            raise NotImplementedError(
+                "the wave sizer measures the weighted-sums wave; "
+                f"aggregator={self.aggregator[0]!r} keeps every client's params, a "
+                "different footprint — pass an explicit wave_size")
+        c = int(len(n_samples))
+        if footprint is None:
+            footprint = self._fit_wave_footprint(params, data, n_samples)
+            if footprint is None:
+                return None
+        if budget_gb is None:
+            budget_gb = profiling.device_budget_gb(self.device)
+        w = c
+        while footprint(w) > budget_gb:
+            if w <= 1:
+                raise RuntimeError(
+                    f"no wave size down to 1 fits the {budget_gb:.3g} GiB budget (one client "
+                    f"needs {footprint(1):.3g} GiB) — shrink the per-client batch or dataset "
+                    "instead of risking an out-of-memory round")
+            w = max(1, w // 2)
+        return None if w >= c else w
+
+    def _fit_wave_footprint(self, params, data, n_samples):
+        """``footprint(w)`` for ``auto_wave_size`` from trial waves of 1
+        and 2 clients on the card; None off the card."""
+        if self.device.type != "cuda":
+            return None
+        in_use = torch.cuda.memory_allocated(self.device) / profiling.GIB
+
+        def trial(wave_size):
+            """The trial wave's peak, infinite where it ran out of memory."""
+            try:
+                return profiling.fedsim_wave_footprint_gb(self, params, data, n_samples,
+                                                          wave_size)
+            except RuntimeError as e:
+                if not profiling.is_oom_error(e):
+                    raise
+                torch.cuda.empty_cache()
+                return float("inf")
+
+        one, two = trial(1), trial(2)
+        if one == float("inf"):
+            raise RuntimeError("no wave size down to 1 fits: one client's trial wave ran out "
+                               "of device memory")
+        per_client = two - one
+        base = one if two == float("inf") else one - per_client
+        self.wave_footprint = {"in_use_gb": in_use, "base_gb": base,
+                               "per_client_gb": per_client, "trial_gb": [one, two]}
+        return lambda w: in_use + (one if w <= 1 else base + w * per_client)
+
+    def _auto_wave(self, params, data, n_samples, n_epochs) -> Optional[int]:
+        """``auto_wave_size``'s answer, once per cohort signature (its
+        size, the epochs, the data's shapes and dtypes)."""
+        key = (int(len(n_samples)), int(n_epochs),
+               tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in data.items())))
+        if key not in self._auto_wave_cache:
+            self._auto_wave_cache[key] = self.auto_wave_size(params, data, n_samples,
+                                                             n_epochs=n_epochs)
+        return self._auto_wave_cache[key]
+
+    def _trial_wave(self, params, data, n_samples, wave_size: int):
+        """One epoch of one wave of the first ``wave_size`` clients
+        (phantoms past the cohort), trained and folded as ``run_round``
+        does, on throwaway shuffles and noise: what
+        ``profiling.fedsim_wave_footprint_gb`` measures (an epoch's peak is
+        every epoch's: nothing of one is kept into the next)."""
+        trainable, frozen = self._split(params)
+        anchor = trainable if self.trainer.regularizer is not None else None
+        data, n_samples = self._to_device(data, n_samples)
+        stop = min(wave_size, int(n_samples.shape[0]))
+        d, n, _ = self._pad_wave({k: v[:stop] for k, v in data.items()}, n_samples[:stop],
+                                 None, wave_size)
+        gen = torch.Generator().manual_seed(0)
+        perms = random_perms(wave_size, 1, next(iter(d.values())).shape[1], gen)
+        return self._fold_waves(trainable, frozen, anchor, d, n, perms.to(self.device),
+                                wave_size, 1, [gen])
 
     def init(self, generator: torch.Generator) -> Params:
         return {k: v.to(self.device) for k, v in self.model.init(generator).items()}
@@ -206,8 +322,6 @@ class FedSim:
         ``progress_fn(waves_done, n_waves)`` runs on the host after each
         wave and waits for the device to finish it.
         """
-        if wave_size == "auto":
-            self.auto_wave_size()
         trainable, frozen = self._split(params)
         anchor = trainable if self.trainer.regularizer is not None else None
         data, n_samples = self._to_device(data, n_samples)
@@ -215,6 +329,8 @@ class FedSim:
             idx = torch.as_tensor(client_indices, device=self.device)
             data = {k: v[idx] for k, v in data.items()}
             n_samples = n_samples[idx]
+        if wave_size == "auto":
+            wave_size = self._auto_wave(params, data, n_samples, n_epochs)
         c = int(n_samples.shape[0])
         capacity = next(iter(data.values())).shape[1]
         if perms is None:
@@ -223,18 +339,50 @@ class FedSim:
         wave_size = c if wave_size is None else wave_size
 
         robust = self.aggregator[0] != "mean"
+        per_client = [] if collect_client_losses else None
+        t0 = time.perf_counter()
+        folded, lsum, wsum = self._fold_waves(
+            trainable, frozen, anchor, data, n_samples, perms, wave_size, n_epochs,
+            [generator] * -(-c // wave_size), robust, per_client, progress_fn)
+        # the round's one device sync closes the timed window over the waves
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._record_compute(time.perf_counter() - t0, data, n_samples, capacity, wave_size,
+                             n_epochs, robust)
+
+        new_params, server_opt_state = self._aggregate(trainable, folded, n_samples, wsum,
+                                                       server_opt_state, robust)
+        if self.partition is not None:
+            new_params = self.partition.merge(new_params, frozen)
+        return RoundResult(
+            params=new_params,
+            loss_history=lsum / wsum.clamp_min(1e-9),
+            client_losses=torch.cat(per_client) if per_client else None,
+            n_samples_total=wsum,
+            server_opt_state=server_opt_state,
+        )
+
+    def _fold_waves(self, trainable, frozen, anchor, data, n_samples, perms, wave_size: int,
+                    n_epochs: int, generators, robust: bool = False, per_client=None,
+                    progress_fn=None):
+        """Train the cohort ``wave_size`` clients at a time (wave ``i``
+        draws its DP noise from ``generators[i]``) and fold each wave:
+        returns ``(folded, lsum [n_epochs], wsum)``, ``folded`` the fp32
+        sample-weighted param sums, or under a robust aggregator the list
+        of each wave's per-client params. Appends each wave's client
+        losses to ``per_client`` when given. Host syncs only for
+        ``progress_fn``."""
+        c = int(n_samples.shape[0])
         psum_acc = lsum_acc = w_acc = None
         stacked_parts = []
-        per_client = [] if collect_client_losses else None
         n_waves = -(-c // wave_size)
-        t0 = time.perf_counter()
-        for start in range(0, c, wave_size):
+        for i, start in enumerate(range(0, c, wave_size)):
             stop = min(start + wave_size, c)
             d, n, pm = self._pad_wave(
                 {k: v[start:stop] for k, v in data.items()},
                 n_samples[start:stop], perms[start:stop], wave_size)
             client_params, client_losses = self.trainer.train_clients(
-                trainable, d, n, n_epochs, pm, anchor=anchor, frozen=frozen)
+                trainable, d, n, n_epochs, pm, generators[i], anchor=anchor, frozen=frozen)
             w = n.float()
             lsum = w @ client_losses.float()
             if robust:
@@ -252,36 +400,24 @@ class FedSim:
                 per_client.append(client_losses[: stop - start])
             if progress_fn is not None:
                 lsum.sum().item()  # wait for the wave's device work
-                progress_fn(start // wave_size + 1, n_waves)
+                progress_fn(i + 1, n_waves)
+        return (stacked_parts if robust else psum_acc), lsum_acc, w_acc
 
-        # the round's one device sync closes the timed window over the waves
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._record_compute(time.perf_counter() - t0, data, n_samples, capacity, wave_size,
-                             n_epochs, robust)
-
-        denom = w_acc.clamp_min(1e-9)
+    def _aggregate(self, trainable, folded, n_samples, wsum, server_opt_state, robust: bool):
+        """The new trainable params from a round's fold (the weighted mean,
+        or the robust rule over the stacked parts), through the server
+        optimizer when there is one; returns ``(params, server_opt_state)``."""
         if robust:
-            stacked = {k: torch.cat([part[k] for part in stacked_parts]) for k in trainable}
+            stacked = {k: torch.cat([part[k] for part in folded]) for k in trainable}
             aggregate = agg.aggregate_stacked(self.aggregator, stacked, n_samples, trainable)
         else:
-            aggregate = {k: (s / denom).to(trainable[k].dtype) for k, s in psum_acc.items()}
-        if self.server_optimizer is not None:
-            if server_opt_state is None:
-                server_opt_state = self.server_optimizer.init(trainable)
-            new_params, server_opt_state = server_update(
-                self.server_optimizer, trainable, aggregate, server_opt_state)
-        else:
-            new_params = aggregate
-        if self.partition is not None:
-            new_params = self.partition.merge(new_params, frozen)
-        return RoundResult(
-            params=new_params,
-            loss_history=lsum_acc / denom,
-            client_losses=torch.cat(per_client) if per_client else None,
-            n_samples_total=w_acc,
-            server_opt_state=server_opt_state,
-        )
+            denom = wsum.clamp_min(1e-9)
+            aggregate = {k: (s / denom).to(trainable[k].dtype) for k, s in folded.items()}
+        if self.server_optimizer is None:
+            return aggregate, server_opt_state
+        if server_opt_state is None:
+            server_opt_state = self.server_optimizer.init(trainable)
+        return server_update(self.server_optimizer, trainable, aggregate, server_opt_state)
 
     def _record_compute(self, train_s, data, n_samples, capacity, wave_size, n_epochs, robust):
         """Set ``last_compute`` to the round's compute record. A probe
@@ -339,8 +475,149 @@ class FedSim:
             return params, history, server_opt_state
         return params, history
 
-    def run_rounds_fused(self, *args, **kw):
-        raise NotImplementedError("run_rounds_fused is not ported yet")
+    def run_rounds_fused(self, params: Params, data, n_samples, generator: torch.Generator,
+                         n_rounds: int, n_epochs: int = 1, wave_size=None,
+                         server_opt_state=None, return_server_opt_state: bool = False,
+                         donate_buffers: bool = True):
+        """``run_rounds`` with one round's device work captured once as a
+        CUDA graph and replayed; returns what ``run_rounds`` returns (no
+        checkpointer). Robust aggregators are refused (the fused round
+        streams weighted sums; use ``run_round``/``run_rounds``).
+
+        Round ``i`` draws from ``round_generator(generator, i)`` as
+        ``run_rounds`` does, so both get the same shuffles (and DP noise
+        seeds); every draw happens on the host before capture. The round's
+        body (every wave's steps, the weighted fold, the divide and the
+        server optimizer's step) has no host sync. Round 0 runs it eagerly
+        on a side stream, which is also the warm-up in which cuBLAS and
+        cuDNN pick their plans; the body is then captured once into a
+        ``torch.cuda.CUDAGraph`` and replayed for rounds 1..n-1, each
+        round's shuffles copied into the graph's static buffer before its
+        replay. Under DP with noise each wave draws from its own device
+        generator, registered with the graph and seeded before every
+        replay. The losses stay on the device until one sync at the end.
+        A capture that fails raises: nothing falls back to the eager loop.
+        On the CPU the same body runs in a plain loop. ``last_fused``
+        records which ran, the capture's seconds and the replays' span on
+        the device (``replay_s``, from CUDA events).
+
+        ``donate_buffers`` is kept for the reference's signature and
+        changes nothing here: the port copies ``params`` (and any
+        ``server_opt_state``) into buffers of its own, so the caller's
+        tensors are never mutated or invalidated.
+        """
+        if self.aggregator[0] != "mean":
+            raise NotImplementedError(
+                "the fused rounds stream weighted sums and cannot apply the "
+                f"{self.aggregator[0]!r} aggregator; use run_round/run_rounds for robust "
+                "aggregation")
+        data, n_samples = self._to_device(data, n_samples)
+        if wave_size == "auto":
+            wave_size = self._auto_wave(params, data, n_samples, n_epochs)
+        trainable, frozen = self._split(params)
+        c = int(n_samples.shape[0])
+        capacity = next(iter(data.values())).shape[1]
+        wave = c if wave_size is None else wave_size
+        n_waves = -(-c // wave)
+        dp = self.trainer.dp
+        noisy = dp is not None and dp.noise_multiplier > 0
+        # every round's draws, in run_round's order: the shuffles, then a
+        # noise seed a wave where the noise generator lives elsewhere
+        derive = noisy and not draws_on(generator, self.device)
+        round_gens, perms, seeds = [], [], []
+        for i in range(n_rounds):
+            g = round_generator(generator, i)
+            perms.append(random_perms(c, n_epochs, capacity, g))
+            round_gens.append(g)
+            seeds.append([noise_seed(g) for _ in range(n_waves)] if derive else None)
+        if self.server_optimizer is not None and server_opt_state is None:
+            server_opt_state = self.server_optimizer.init(trainable)
+
+        def body(p, sos, pm, wave_gens):
+            """One round on ``p``: (new params, new server state, losses)."""
+            anchor = p if self.trainer.regularizer is not None else None
+            psum, lsum, wsum = self._fold_waves(p, frozen, anchor, data, n_samples, pm, wave,
+                                                n_epochs, wave_gens)
+            new, sos = self._aggregate(p, psum, n_samples, wsum, sos, robust=False)
+            return new, sos, lsum / wsum.clamp_min(1e-9)
+
+        if self.device.type != "cuda":
+            history = []
+            p, sos = trainable, server_opt_state
+            for i in range(n_rounds):
+                p, sos, loss = body(p, sos, perms[i].to(self.device), [round_gens[i]] * n_waves)
+                history.extend(loss.tolist())
+            self.last_fused = {"graph": False, "rounds": n_rounds}
+        else:
+            p, sos, history = self._rounds_as_graph(body, trainable, server_opt_state, perms,
+                                                    seeds if derive else None, n_waves)
+        if self.partition is not None:
+            p = self.partition.merge(p, frozen)
+        if return_server_opt_state:
+            return p, history, sos
+        return p, history
+
+    def _rounds_as_graph(self, body, trainable, server_opt_state, perms, seeds, n_waves):
+        """``run_rounds_fused`` on the card: round 0 eagerly on a side
+        stream, the body captured once, replays for the other rounds.
+        ``seeds[i]`` seeds each wave's noise generator for round ``i``
+        (None: no noise). Returns the final params, server state and the
+        loss history, read back in the run's one sync."""
+        dev = self.device
+        p = {k: v.clone() for k, v in trainable.items()}
+        sos = (None if server_opt_state is None
+               else optim.tree_map(lambda v: v.clone(), server_opt_state))
+        perm_buf = torch.empty_like(perms[0], device=dev)
+        gens = [torch.Generator(device=dev) for _ in range(n_waves)] if seeds else [None] * n_waves
+        out = {}
+
+        def step():
+            new, new_sos, loss = body(p, sos, perm_buf, gens)
+            for k, v in new.items():
+                p[k].copy_(v)
+            if sos is not None:
+                optim.tree_map(lambda dst, src: dst.copy_(src), sos, new_sos)
+            out["loss"] = loss
+
+        def start_round(i):
+            perm_buf.copy_(perms[i])
+            if seeds:
+                for g, seed in zip(gens, seeds[i]):
+                    g.manual_seed(seed)
+
+        losses = []
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            start_round(0)
+            step()
+            losses.append(out["loss"].clone())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        record = {"graph": True, "rounds": len(perms), "capture_s": None, "replays": 0,
+                  "replay_s": None}
+        if len(perms) > 1:
+            graph = torch.cuda.CUDAGraph()
+            for g in gens:
+                if g is not None:
+                    graph.register_generator_state(g)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                step()
+            record["capture_s"] = time.perf_counter() - t0
+            # the replays' span on the device, read after the sync below
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for i in range(1, len(perms)):
+                start_round(i)
+                graph.replay()
+                losses.append(out["loss"].clone())
+            end.record()
+            record["replays"] = len(perms) - 1
+        history = torch.stack(losses).reshape(-1).tolist()  # the run's one sync
+        if record["replays"]:
+            record["replay_s"] = start.elapsed_time(end) / 1e3
+        self.last_fused = record
+        return p, sos, history
 
     @torch.no_grad()
     def _client_eval_sums(self, params: Params, data: Dict, n_samples,

@@ -11,8 +11,14 @@
 * :func:`timed` — wall-clock a function, synchronising the device of its
   tensor outputs, so asynchronous CUDA launches don't fake instant
   completion.
-
-The reference's XLA memory-plan readers have no counterpart here.
+* The wave sizer's measurements (``FedSim.auto_wave_size``):
+  :func:`is_oom_error`, :func:`device_budget_gb` and
+  :func:`fedsim_wave_footprint_gb`. They take the place of the
+  reference's XLA memory-plan readers (``hbm_budget_gb``,
+  ``fedsim_wave_plan_gb``, ``fedsim_wave_hbm``): torch has no static
+  plan, so a wave's footprint is measured from the caching allocator's
+  peak in a trial wave, and the budget is the card's own memory, not a
+  table of TPU budgets.
 """
 
 from __future__ import annotations
@@ -143,3 +149,45 @@ def timed(fn: Callable, *args: Any, **kwargs: Any) -> Tuple[Any, float]:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     return out, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# wave sizing on the card (FedSim.auto_wave_size)
+
+GIB = float(1 << 30)
+# the share of the card a wave's peak may not use: the CUDA context,
+# cuBLAS/cuDNN workspaces and the caching allocator's fragmentation live
+# outside the allocated bytes that max_memory_allocated counts
+DEVICE_HEADROOM = 0.10
+
+
+def is_oom_error(exc: BaseException) -> bool:
+    """True for the caching allocator's out-of-memory error."""
+    return isinstance(exc, torch.cuda.OutOfMemoryError)
+
+
+def device_budget_gb(device) -> float:
+    """GiB a wave may reach on ``device``: the card's total memory
+    (``torch.cuda.mem_get_info``) less ``DEVICE_HEADROOM`` of it."""
+    _, total = torch.cuda.mem_get_info(torch.device(device))
+    return total * (1.0 - DEVICE_HEADROOM) / GIB
+
+
+def fedsim_wave_footprint_gb(sim, params, data, n_samples, wave_size: int) -> Optional[float]:
+    """Peak GiB that one wave of ``wave_size`` clients of ``sim``'s round
+    (``FedSim._trial_wave``: one epoch of its training step on the first
+    clients, folded as the round folds it, the results thrown away)
+    allocates above the memory already in use on the card; None off the
+    card (the CPU has no allocator peak). An out-of-memory error
+    propagates (:func:`is_oom_error`)."""
+    device = sim.device
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    in_use = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = sim._trial_wave(params, data, n_samples, wave_size)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - in_use
+    del out
+    return peak / GIB

@@ -156,6 +156,37 @@ exits non-zero:
    ``configure_attention_dispatch`` must read the printed crossover from
    (the dispatch itself is left at ``_FLASH_MIN_LEN = 0``). The kernels
    line's ``launches_config4`` counts 16a's rounds.
+17. BASELINE config 5 (``examples/05_vit_dp_secure.py --scale full``'s
+   shape: ViT-B/16, 1,000 classes, DP-SGD clip 1.0 sigma 0.5, batch 64,
+   delta 1e-5, Poisson cohorts at 0.75) in bf16 with remat, as
+   ``benchmarks/tpu_suite.py``'s ``vit_dp`` stage runs it, cut to 4
+   clients x 128 images (2 steps a client): a warm-up, 2 timed rounds and
+   a profiled one, each wave sized by ``wave_size="auto"`` (the sizing
+   timed apart); s/round, images/s, peak memory, device time by kind,
+   busy share; each flash kernel on mma once per layer per wave-step (the
+   forward twice: remat), the accountant's epsilon, the example's secure
+   aggregation of every client's delta (``err < 1e-3``), the noise
+   replayed from its generator (noised minus sigma-0 gradients equal
+   sigma·clip·N/64 within 1e-5 relative) and a 2-layer fp32 DP round
+   card against the CPU (1e-4). Then the kernels' times at config 5's
+   attention shape (B = wave x 64, 12 heads, L 197, D 64). The kernels
+   line's ``launches_config5`` counts the rounds.
+18. ``auto_wave_size`` against the allocator on phase 17's cohort and
+   phase 6's ResNet-18 cohort: the wave and the line fitted from the
+   trial waves; a round at that wave peaks at or under the budget, the
+   line at twice the wave is over it; then a tighter budget that must
+   halve the wave, under which the round's peak must stay too.
+19. ``run_rounds_fused`` as a CUDA graph against ``run_rounds`` on phase
+   3's BERT-base and phase 6's ResNet-18 cohorts, 4 rounds each from the
+   same params and generator: params and losses within 1e-5 (bit-equality
+   printed), s/round of both and of the replays, busy shares, capture
+   time, and the flash launches of the fused run counted as the eager
+   round plus the captured launches times the replays
+   (``launches_fused_bert``); then a DP run with noise (a 2-layer ViT in
+   waves of 2, the noise from generators registered with the graph)
+   within 1e-5.
+20. examples 02 and 09 at their tiny presets on the card, under their
+   own assertions.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -286,10 +317,11 @@ def device_breakdown(prof, wall_s):
     if total_ms == 0:
         print("  profiler saw no device time: breakdown not measured")
         return None
-    kinds = {}
+    kinds, kind_counts = {}, {}
     for e in kernels:
         kind = kernel_kind(e.key)
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+        kind_counts[kind] = kind_counts.get(kind, 0) + e.count
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     busy = total_ms / (wall_s * 1e3)
     print(f"  profiled round: wall {wall_s * 1e3:.1f} ms, device busy {total_ms:.1f} ms "
@@ -299,7 +331,7 @@ def device_breakdown(prof, wall_s):
     for e in top:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} {e.key[:110]}")
     return {"wall_ms": wall_s * 1e3, "device_ms": total_ms, "busy_share": busy,
-            "by_kind_ms": kinds,
+            "by_kind_ms": kinds, "by_kind_count": kind_counts,
             "top": [[e.key[:110], e.count, e.self_device_time_total / 1e3] for e in top]}
 
 
@@ -823,20 +855,28 @@ def vmap_against_clients_alone(sim, reference_model, params, data, n_samples, ge
     return stats
 
 
-def resnet_round_phase(fa):
-    """``bench.py``'s round (bench.py:32-41, 430-461) on the port."""
-    from baton_tpu_torch import FedSim
-    from baton_tpu_torch.models.resnet import resnet18_cifar_model
-    from baton_tpu_torch.obs.compute import validate_record
+def resnet18_cohort(n_clients=32, per_client=48, batch=32):
+    """``bench.py``'s clients (phase 6's): CIFAR-shaped random images and
+    labels drawn from numpy seed 0, staged on the card as bench stages
+    them. Returns ``(data, n_samples)``."""
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
-    n_clients, per_client, batch, lr = 32, 48, 32, 0.05
     rng = np.random.default_rng(0)
     datasets = [{"x": rng.normal(size=(per_client, 32, 32, 3)).astype(np.float32),
                  "y": rng.integers(0, 10, size=(per_client,)).astype(np.int32)}
                 for _ in range(n_clients)]
     data, n_samples = stack_client_datasets(datasets, batch_size=batch)
-    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}  # staged, as bench
+    return {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}, n_samples
+
+
+def resnet_round_phase(fa):
+    """``bench.py``'s round (bench.py:32-41, 430-461) on the port."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.obs.compute import validate_record
+
+    n_clients, per_client, batch, lr = 32, 48, 32, 0.05
+    data, n_samples = resnet18_cohort(n_clients, per_client, batch)
     n_total = int(n_samples.sum())
 
     def make_sim(impl):
@@ -1195,15 +1235,9 @@ def resnet_optimizer_phase(phase6):
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.core import optim
     from baton_tpu_torch.models.resnet import resnet18_cifar_model
-    from baton_tpu_torch.ops.padding import stack_client_datasets
 
     n_clients, per_client, batch, lr = 32, 48, 32, 0.05
-    rng = np.random.default_rng(0)
-    datasets = [{"x": rng.normal(size=(per_client, 32, 32, 3)).astype(np.float32),
-                 "y": rng.integers(0, 10, size=(per_client,)).astype(np.int32)}
-                for _ in range(n_clients)]
-    data, n_samples = stack_client_datasets(datasets, batch_size=batch)
-    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    data, n_samples = resnet18_cohort(n_clients, per_client, batch)
     n_total = int(n_samples.sum())
     model = resnet18_cifar_model(compute_dtype=torch.bfloat16)
     params = model.init(torch.Generator().manual_seed(0))
@@ -3017,42 +3051,42 @@ def crossover_phase(name, out_dir):
     return {"results": results, "crossover": crossover}
 
 
-def llama_timing_phase(fa, name):
-    """Kernel, plain and SDPA times at Llama-3-8B's attention shape (B 8,
-    32/8 heads, L 1024, D 128, causal, no bias, bf16) and the card's bound,
-    counting only the tiles the causal mask leaves (the kernels skip tiles
-    wholly in the future)."""
+def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed):
+    """Kernel, plain and SDPA times at one bf16 attention shape and the
+    card's bound, counting only the (query, key) pairs a causal mask keeps
+    (the kernels skip tiles wholly in the future)."""
     import torch.nn.functional as F
 
     from baton_tpu_torch.obs.compute import card_peaks
 
-    b, hq, hkv, l, d = LLAMA_ATTENTION
-    q, k, v, dout, bias = attention_inputs(13, b, hq, hkv, l, d, torch.bfloat16, None)
+    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, torch.bfloat16, bias_kind)
     scale = d ** -0.5
-    out, lse = fa._fwd_plain(q, k, v, bias, True, scale)
+    out, lse = fa._fwd_plain(q, k, v, bias, causal, scale)
     delta = (dout.float() * out.float()).sum(-1)
-    args = (q, k, v, bias, dout, lse, delta, True, scale)
+    args = (q, k, v, bias, dout, lse, delta, causal, scale)
+    sdpa_kw = ({"is_causal": True} if causal
+               else {"attn_mask": bias[:, None, None, :].to(q.dtype)})
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=hq != hkv, **sdpa_kw)
 
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=hq != hkv, **sdpa_kw)
 
     def sdpa_bwd():
         return torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
 
     timed_fns = {
-        "flash_fwd": (lambda: fa._fwd(q, k, v, bias, True, scale),
-                      lambda: fa._fwd_plain(q, k, v, bias, True, scale), sdpa),
+        "flash_fwd": (lambda: fa._fwd(q, k, v, bias, causal, scale),
+                      lambda: fa._fwd_plain(q, k, v, bias, causal, scale), sdpa),
         "flash_bwd_dkv": (lambda: fa._bwd_dkv(*args), lambda: fa._bwd_dkv_plain(*args),
                           sdpa_bwd),
         "flash_bwd_dq": (lambda: fa._bwd_dq(*args), lambda: fa._bwd_dq_plain(*args), sdpa_bwd),
     }
     el = q.element_size()
     q_el, kv_el, rows, bias_b = b * hq * l * d, b * hkv * l * d, b * hq * l, 4 * b * l
-    pairs = b * hq * l * (l + 1) // 2  # (query, key) pairs the causal mask keeps
-    work = {
+    pairs = b * hq * (l * (l + 1) // 2 if causal else l * l)  # the (query, key) pairs computed
+    work = {  # bytes each input read once and each output written once, FLOPs
         "flash_fwd": (el * (2 * q_el + 2 * kv_el) + bias_b + 4 * rows, 4 * pairs * d),
         "flash_bwd_dkv": (el * (2 * q_el + 2 * kv_el) + bias_b + 8 * rows + 8 * q_el + 4 * rows,
                           8 * pairs * d),
@@ -3060,8 +3094,9 @@ def llama_timing_phase(fa, name):
                          6 * pairs * d),
     }
     bw, bf16_peak = card_peaks(name)
-    print(f"phase 5 (Llama): times at Llama-3-8B's attention shape (B={b}, Hq={hq}, Hkv={hkv}, "
-          f"L={l}, D={d}, causal, no bias, bf16); the bound counts the causal half")
+    print(f"phase 5 ({label}): times at B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, "
+          f"{'causal' if causal else 'not causal'}, bias {bias_kind}, bf16"
+          + ("; the bound counts the causal half" if causal else ""))
     out_rows = {}
     for kname, (kernel, plain, library) in timed_fns.items():
         ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain, iters=3), time_ms(library)
@@ -3077,6 +3112,449 @@ def llama_timing_phase(fa, name):
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
               f"{100 * max(t_bytes, t_ops) / ms:.1f}% of the bound)")
     return out_rows
+
+
+def llama_timing_phase(fa, name):
+    """Kernel, plain and SDPA times at Llama-3-8B's attention shape (B 8,
+    32/8 heads, L 1024, D 128, causal, no bias, bf16) and the card's bound."""
+    return attention_times(fa, name, "Llama", *LLAMA_ATTENTION, causal=True, bias_kind=None,
+                           seed=13)
+
+
+# phases 17-20: BASELINE config 5 (ViT-B/16 with DP-SGD and secure
+# aggregation, examples/05_vit_dp_secure.py --scale full in bf16 with remat,
+# as benchmarks/tpu_suite.py's vit_dp stage runs it), the wave sizer
+# against the allocator, run_rounds_fused as a CUDA graph, and examples 02
+# and 09 on the card.
+
+CONFIG5_CLIENTS, CONFIG5_PER_CLIENT = 4, 128  # cut from 16 x 4,096 (PERF.md §4)
+CONFIG5_TIMED_ROUNDS = 2  # cut from 20: a warm-up, 2 timed rounds and a profiled one
+CONFIG5_BATCH, CONFIG5_CLIP, CONFIG5_SIGMA, CONFIG5_DELTA = 64, 1.0, 0.5, 1e-5
+NOISE_REPLAY_TOL = 1e-5  # relative: noised minus quiet gradients against sigma·clip·N/64
+FUSED_TOL = 1e-5  # fused rounds against run_rounds, params and losses
+FUSED_ROUNDS = 4
+
+
+def config5_cohort():
+    """Phase 17's ViT-B/16 (1,000 classes, bf16 compute, remat) DP sim and
+    its clients, drawn as the example draws them (numpy seed 0). Returns
+    ``(cfg, sim, params, data, n_samples, rng)``; ``rng`` then draws the
+    Poisson cohorts."""
+    from baton_tpu_torch.examples import vit_dp_secure as ex
+    from baton_tpu_torch.models.vit import ViTConfig
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = ViTConfig.b16()
+    rng = np.random.default_rng(0)
+    data, n_samples = stack_client_datasets(
+        ex.make_data(rng, cfg, CONFIG5_CLIENTS, CONFIG5_PER_CLIENT), batch_size=CONFIG5_BATCH)
+    sim = ex.make_sim(cfg, CONFIG5_BATCH, CONFIG5_CLIP, CONFIG5_SIGMA, remat=True,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    params = sim.init(torch.Generator(device="cuda").manual_seed(0))
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    return cfg, sim, params, data, torch.as_tensor(n_samples, device="cuda"), rng
+
+
+def noise_replay_gap(trainer, params, batch, seed) -> float:
+    """One DP step of ``trainer`` on ``batch`` (leaves [C, B, ...]) with the
+    noise a generator seeded ``seed`` gives, minus the same step at sigma
+    0, against ``sigma·clip·N / B``: the largest gap over the largest
+    expected value (relative)."""
+    from baton_tpu_torch.core.training import noise_generator, stack_copies
+    from baton_tpu_torch.ops.privacy import DPConfig, gaussian_noise_like
+
+    c, b = batch["mask"].shape
+    stacked = stack_copies(params, c)
+    dp = trainer.dp
+    normals = gaussian_noise_like(stacked, 1.0, noise_generator(
+        torch.Generator().manual_seed(seed), next(iter(params.values())).device))
+    quiet = dataclasses.replace(trainer, dp=DPConfig(dp.clip_norm, 0.0))
+    noised = torch.func.vmap(trainer._dp_grads, in_dims=(0, None, None, 0, 0))(
+        stacked, None, None, batch, normals)[0]
+    plain = torch.func.vmap(quiet._dp_grads, in_dims=(0, None, None, 0, None))(
+        stacked, None, None, batch, None)[0]
+    gap = scale = 0.0
+    for k, n in normals.items():
+        want = dp.noise_multiplier * dp.clip_norm * n / b
+        gap = max(gap, (noised[k].float() - plain[k].float() - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+    return gap / scale
+
+
+def dp_parity_against_cpu(fa) -> dict:
+    """A 2-layer ViT-B/16-width DP round (fp32, sigma 0, clip 1.0) on the
+    card against the same round on the CPU: 2 clients (8 and 5 images,
+    batch 4), same weights and shuffles; params and losses within
+    ``ZOO_CPU_TOL``, the fp32 kernels (simt) once per layer per step."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.vit import ViTConfig, vit_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.ops.privacy import DPConfig
+
+    cfg = ViTConfig.b16(n_layers=2)
+    rng = np.random.default_rng(5)
+    datasets = [{"x": rng.normal(size=(n, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+                 "y": rng.integers(0, cfg.n_classes, n).astype(np.int32)} for n in (8, 5)]
+    data, n_samples = stack_client_datasets(datasets, batch_size=4)
+    perms = torch.from_numpy(np.stack([rng.permutation(8)[None] for _ in datasets]))
+    model = vit_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    kw = dict(batch_size=4, learning_rate=0.05, dp=DPConfig(CONFIG5_CLIP, 0.0))
+    before = launch_counts(fa)
+    card = FedSim(model, **kw).run_round({k: v.cuda() for k, v in params.items()}, data,
+                                         n_samples, perms=perms)
+    by_pass, by_design = launches_since(fa, before)
+    cpu = FedSim(model, device="cpu", **kw).run_round(params, data, n_samples, perms=perms)
+    err = max((card.params[k].cpu() - cpu.params[k]).abs().max().item() for k in params)
+    loss_err = (card.loss_history.cpu() - cpu.loss_history).abs().max().item()
+    moved = max((cpu.params[k] - params[k]).abs().max().item() for k in params)
+    print(f"  2-layer fp32 DP round (sigma 0) card against the CPU: max |param diff| {err:.3e}, "
+          f"loss {loss_err:.3e} (tol {ZOO_CPU_TOL}; max |param change| {moved:.3e}); launches "
+          f"{by_pass} by design {by_design}")
+    check(err <= ZOO_CPU_TOL and loss_err <= ZOO_CPU_TOL,
+          f"DP round card against CPU: params {err:.3e}, loss {loss_err:.3e}")
+    steps = 2  # two batches of 4 a client, one wave
+    check(by_pass == {"fwd": 2 * steps, "bwd_dkv": 2 * steps, "bwd_dq": 2 * steps}
+          and set(by_design) <= {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
+          f"DP fp32 round launches {by_pass} by design {by_design}")
+    return {"param_err": err, "loss_err": loss_err, "moved": moved}
+
+
+def config5_phase(fa, name):
+    """Phase 17: BASELINE config 5 at ViT-B/16 width (bf16 compute, remat,
+    DP-SGD clip 1.0 sigma 0.5, batch 64, delta 1e-5, Poisson cohorts at
+    0.75), cut to 4 clients x 128 images: a warm-up, 2 timed rounds and a
+    profiled one, waves from ``wave_size="auto"``; the accountant's
+    epsilon, the example's secure-aggregation half, the noise replayed
+    from its generator, and a 2-layer round card against the CPU."""
+    from baton_tpu_torch.examples import vit_dp_secure as ex
+    from baton_tpu_torch.ops.privacy import poisson_sample
+    from baton_tpu_torch.parallel.engine import round_generator
+
+    cfg, sim, params, data, n_samples, rng = config5_cohort()
+    n_params = sum(v.numel() for v in params.values())
+    steps = CONFIG5_PER_CLIENT // CONFIG5_BATCH
+    print(f"phase 17: BASELINE config 5, ViT-B/16 ({n_params / 1e6:.1f} M params, "
+          f"{cfg.n_classes} classes, L {cfg.n_patches + 1}, bf16, remat) with DP-SGD (clip "
+          f"{CONFIG5_CLIP}, sigma {CONFIG5_SIGMA}, batch {CONFIG5_BATCH}), {CONFIG5_CLIENTS} "
+          f"clients x {CONFIG5_PER_CLIENT} images ({steps} steps a client), Poisson cohorts at "
+          f"{ex.cohort_rate(CONFIG5_CLIENTS)}, waves from wave_size='auto'")
+    base = torch.Generator().manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    total = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    times, images_s, losses, breakdown, sizing_s, waves = [], [], [], None, [], []
+    profiled_round = CONFIG5_TIMED_ROUNDS + 1
+    r = 0
+    while r <= profiled_round:
+        cohort = poisson_sample(rng, CONFIG5_CLIENTS, ex.cohort_rate(CONFIG5_CLIENTS))
+        if cohort.size == 0:  # an empty cohort is a no-op round, as in the example
+            continue
+        idx = torch.as_tensor(cohort, device="cuda")
+        # the wave sizer's trial waves (once per cohort size: the round then
+        # finds its answer cached), outside the timed window
+        wave, dt_size = timed(lambda: sim._auto_wave(
+            params, {k: v[idx] for k, v in data.items()}, n_samples[idx], 1))
+        sizing_s.append(dt_size)
+        wave = cohort.size if wave is None else wave
+        waves.append(wave)
+        before = launch_counts(fa)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with (torch.profiler.profile(activities=activities) if r == profiled_round
+              else contextlib.nullcontext()) as prof:
+            res, dt = timed(lambda: sim.run_round(params, data, n_samples,
+                                                  round_generator(base, r),
+                                                  client_indices=cohort, wave_size="auto"))
+        params = res.params
+        by_pass, by_design = launches_since(fa, before)
+        loss = res.loss_history.tolist()
+        losses.extend(loss)
+        n_waves = -(-cohort.size // wave)
+        label = {0: " (warm-up)", profiled_round: " (profiled)"}.get(r, "")
+        print(f"  round {r}{label}: cohort {cohort.tolist()}, wave {wave} ({n_waves} waves, sizing "
+              f"{dt_size:.2f} s), loss {loss} {dt:.4f} s, launches {by_pass} by design {by_design}")
+        check(all(math.isfinite(x) for x in loss), f"config 5 round {r}: non-finite loss")
+        # one launch per layer per step covers the wave's clients x examples;
+        # remat runs the forward again in the backward
+        per_round = check_step_launches(f"config 5 round {r}", by_pass, by_design, cfg.n_layers,
+                                        n_waves * steps, fwd_extra=n_waves * steps)
+        for k in total:
+            total[k] += per_round[k]
+        if r == profiled_round:
+            breakdown = device_breakdown(prof, dt)
+        elif r > 0:
+            times.append(dt)
+            images_s.append(float(n_samples[idx].sum()) / dt)
+        r += 1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    s_median = float(np.median(times))
+    n_steps_run, eps, eps_amp, q = ex.epsilons(profiled_round + 1, 1, CONFIG5_PER_CLIENT,
+                                               CONFIG5_BATCH, CONFIG5_PER_CLIENT, CONFIG5_SIGMA,
+                                               CONFIG5_DELTA)
+    check(math.isfinite(eps) and math.isfinite(eps_amp) and 0 < eps_amp < eps,
+          f"accountant: epsilon {eps}, amplified {eps_amp}")
+    print(f"  s/round median {s_median:.4f} ({', '.join(f'{t:.4f}' for t in times)}), images/s "
+          f"median {float(np.median(images_s)):.1f}; peak memory {peak:.2f} GB; wave sizing "
+          f"{', '.join(f'{t:.2f}' for t in sizing_s)} s; epsilon {eps:.3f} at delta "
+          f"{CONFIG5_DELTA} after {n_steps_run} steps ({eps_amp:.3f} amplified at q={q:.3f}); "
+          f"footprint line {json.dumps(sim.wave_footprint)}")
+    per_step = {"fwd": 2 * cfg.n_layers, "bwd_dkv": cfg.n_layers, "bwd_dq": cfg.n_layers}
+
+    # the example's secure-aggregation half: each client's delta masked
+    deltas, dt_deltas = timed(lambda: ex.client_deltas(sim, params, data, n_samples))
+    t0 = time.perf_counter()
+    err = ex.secure_sum_error(deltas, 0)
+    mask_s = time.perf_counter() - t0
+    del deltas
+    print(f"  secure aggregation of {CONFIG5_CLIENTS} clients' deltas: masked-sum error {err:.2e} "
+          f"(the example's limit 1e-3); the clients alone {dt_deltas:.2f} s, masking and "
+          f"unmasking on the host {mask_s:.2f} s")
+    check(err < 1e-3, f"secure aggregation's sum error {err:.2e}")
+
+    # the noise, replayed from its generator on two clients' first batches
+    batch = {k: v[:2, :CONFIG5_BATCH] for k, v in data.items()}
+    batch["mask"] = torch.ones(2, CONFIG5_BATCH, device="cuda")
+    replay = noise_replay_gap(sim.trainer, params, batch, seed=5)
+    print(f"  noise replay: noised minus sigma-0 gradients against sigma*clip*N/{CONFIG5_BATCH}: "
+          f"{replay:.3e} relative (tol {NOISE_REPLAY_TOL})")
+    check(replay <= NOISE_REPLAY_TOL, f"noise replay gap {replay:.3e}")
+    del batch
+    torch.cuda.empty_cache()
+    parity = dp_parity_against_cpu(fa)
+    stats = {"round_s": times, "s_per_round_median": s_median, "images_per_s": images_s,
+             "peak_memory_gb": peak, "losses": losses, "breakdown": breakdown,
+             "waves": waves, "wave": max(waves), "wave_sizing_s": sizing_s,
+             "wave_footprint": sim.wave_footprint,
+             "epsilon": eps, "epsilon_amplified": eps_amp, "steps": n_steps_run,
+             "secure_err": err, "secure_mask_s": mask_s, "noise_replay": replay,
+             "cpu_parity": parity, "n_params": n_params, "per_step": per_step}
+    return total, per_round, stats, (sim, params, data, n_samples)
+
+
+def config5_timing_phase(fa, name, wave):
+    """Kernel, plain and SDPA times at config 5's attention shape (B = wave
+    x 64 examples, 12 heads, L 197, D 64, bf16, padding bias): the batch
+    one launch sees under the per-example vmap."""
+    return attention_times(fa, name, "config 5", wave * CONFIG5_BATCH, 12, 12, 197, 64,
+                           causal=False, bias_kind="lengths", seed=17)
+
+
+def wave_check(label, sim, params, data, n_samples, budget_gb, gen_seed):
+    """``auto_wave_size`` at ``budget_gb`` (None: the card's), a round at
+    the wave it picks, and the checks: the round's measured peak at or
+    under the budget, and the fitted line over it at twice the wave."""
+    from baton_tpu_torch.utils.profiling import GIB, device_budget_gb
+
+    c = int(len(n_samples))
+    budget = device_budget_gb("cuda") if budget_gb is None else budget_gb
+    wave, dt = timed(lambda: sim.auto_wave_size(params, data, n_samples, budget_gb=budget))
+    line = sim.wave_footprint
+
+    def estimate(w):
+        return line["in_use_gb"] + (line["trial_gb"][0] if w <= 1
+                                    else line["base_gb"] + w * line["per_client_gb"])
+
+    w = c if wave is None else wave
+    torch.cuda.reset_peak_memory_stats()
+    res, dt_round = timed(lambda: sim.run_round(params, data, n_samples,
+                                                torch.Generator().manual_seed(gen_seed),
+                                                wave_size=wave))
+    peak = torch.cuda.max_memory_allocated() / GIB
+    print(f"  {label}: budget {budget:.2f} GiB -> wave {wave} (of {c}; sizing {dt:.2f} s); line "
+          f"in use {line['in_use_gb']:.3f} + base {line['base_gb']:.3f} + {line['per_client_gb']:.3f}"
+          f" a client GiB (trials {line['trial_gb'][0]:.3f}, {line['trial_gb'][1]:.3f}); round at "
+          f"wave {w}: peak {peak:.3f} GiB (line {estimate(w):.3f}), {dt_round:.2f} s"
+          + (f"; line at {2 * w}: {estimate(2 * w):.3f}" if w < c else ""))
+    check(bool(torch.isfinite(res.loss_history).all()), f"{label}: non-finite loss")
+    check(peak <= budget, f"{label}: the round's peak {peak:.3f} GiB is over the {budget:.3f} budget")
+    if w < c:
+        check(estimate(2 * w) > budget, f"{label}: the line at {2 * w} fits the budget too")
+    return {"budget_gb": budget, "wave": wave, "line": dict(line), "peak_gib": peak,
+            "line_at_wave_gib": estimate(w), "sizing_s": dt, "round_s": dt_round}, estimate
+
+
+def auto_wave_phase(config5_ctx):
+    """Phase 18: ``auto_wave_size`` against the allocator on phase 17's
+    cohort (all 4 clients) and phase 6's ResNet-18 cohort (32 x 48): the
+    wave and line at the card's budget, then at a budget that forces the
+    search to halve at least once."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+
+    print("phase 18: auto_wave_size against the allocator (trial waves of 1 and 2 clients, "
+          "a line, the halving search)")
+    out = {}
+    sim, params, data, n_samples = config5_ctx
+    out["config5"], line = wave_check("config 5", sim, params, data, n_samples, None, 2)
+    w = out["config5"]["wave"] or CONFIG5_CLIENTS
+    half = max(1, w // 2)
+    # a budget half a client over the line at half the wave: the search must halve
+    tight = line(half) + 0.5 * out["config5"]["line"]["per_client_gb"]
+    out["config5_tight"], _ = wave_check("config 5, tight budget", sim, params, data, n_samples,
+                                         tight, 3)
+    check(out["config5_tight"]["wave"] is not None and out["config5_tight"]["wave"] < w,
+          f"the tight budget did not halve the wave: {out['config5_tight']['wave']}")
+    del config5_ctx, sim, params, data
+    torch.cuda.empty_cache()
+
+    data, n_samples = resnet18_cohort()
+    sim = FedSim(resnet18_cifar_model(compute_dtype=torch.bfloat16), batch_size=32,
+                 learning_rate=0.05)
+    params = sim.init(torch.Generator().manual_seed(0))
+    out["resnet18"], line = wave_check("ResNet-18 (32 x 48)", sim, params, data, n_samples, None, 4)
+    c = int(len(n_samples))
+    w = out["resnet18"]["wave"] or c
+    tight = (line(w) + line(max(1, w // 2))) / 2
+    out["resnet18_tight"], _ = wave_check("ResNet-18, tight budget", sim, params, data, n_samples,
+                                          tight, 5)
+    check(out["resnet18_tight"]["wave"] is not None and out["resnet18_tight"]["wave"] < w,
+          f"the tight budget did not halve the ResNet wave: {out['resnet18_tight']['wave']}")
+    return out
+
+
+def fused_against_loop(fa, label, sim, params, data, n_samples):
+    """``FedSim.run_rounds_fused`` against ``run_rounds`` for
+    ``FUSED_ROUNDS`` rounds from the same params and generator (after a
+    warm-up round): timed, then each profiled; params and losses within
+    ``FUSED_TOL``. The fused run's steady s/round is its replays' span on
+    the device over the replays, and its busy share the profiled device
+    time a round over that. Returns the stats, the flash launches the
+    fused run made (the eager round 0 plus the captured ones times the
+    replays) and the captured launches a round."""
+    gen = torch.Generator().manual_seed(1)
+    timed(lambda: sim.run_rounds(params, data, n_samples, gen, n_rounds=1))  # warm-up
+    (p_loop, h_loop), dt_loop = timed(lambda: sim.run_rounds(params, data, n_samples, gen,
+                                                             n_rounds=FUSED_ROUNDS))
+    before = launch_counts(fa)
+    (p_fused, h_fused), dt_fused = timed(lambda: sim.run_rounds_fused(
+        params, data, n_samples, gen, n_rounds=FUSED_ROUNDS))
+    # the Python counters saw the eager round 0 and the capture; each replay
+    # re-runs the captured launches without Python
+    seen, _ = launches_since(fa, before)
+    record = dict(sim.last_fused)
+    check(record["graph"] and record["replays"] == FUSED_ROUNDS - 1,
+          f"{label}: the fused run did not replay a graph: {record}")
+    per_round = {k: n // 2 for k, n in seen.items()}
+    launched = {k: per_round[k] * (1 + record["replays"]) for k in per_round}
+    err = max((p_loop[k].float() - p_fused[k].float()).abs().max().item() for k in p_loop)
+    loss_err = max(abs(a - b) for a, b in zip(h_loop, h_fused))
+    bit_equal = all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop) and h_loop == h_fused
+    _, loop_prof = profiled(lambda: sim.run_rounds(params, data, n_samples, gen,
+                                                   n_rounds=FUSED_ROUNDS), f"{label} run_rounds")
+    _, fused_prof = profiled(lambda: sim.run_rounds_fused(params, data, n_samples, gen,
+                                                          n_rounds=FUSED_ROUNDS),
+                             f"{label} run_rounds_fused")
+    # the profiler sees the kernels a graph replays: its flash count must be
+    # the eager round's plus the captured launches times the replays
+    traced = fused_prof and fused_prof["by_kind_count"].get("flash attention (this port)", 0)
+    if traced is not None:
+        check(traced == sum(launched.values()),
+              f"{label}: the profiler saw {traced} flash launches in the fused run, the "
+              f"count gives {sum(launched.values())}")
+    replay_round_s = record["replay_s"] / record["replays"]
+    busy_replays = (fused_prof["device_ms"] / 1e3 / FUSED_ROUNDS / replay_round_s
+                    if fused_prof else None)
+    loop_busy = f"{100 * loop_prof['busy_share']:.1f}%" if loop_prof else "not measured"
+    fused_busy = f"{100 * busy_replays:.1f}%" if busy_replays else "not measured"
+    print(f"  {label}: run_rounds {dt_loop / FUSED_ROUNDS:.4f} s/round (busy {loop_busy}); fused "
+          f"{dt_fused / FUSED_ROUNDS:.4f} s/round over the call (capture {record['capture_s']:.3f}"
+          f" s), replays {replay_round_s:.4f} s/round on the device (busy {fused_busy}: the "
+          f"profiled device time a round over that); max |param diff| {err:.3e}, losses "
+          f"{loss_err:.3e} (tol {FUSED_TOL}), bit-equal {bit_equal}; flash launches per round "
+          f"{per_round}, in the fused run {launched} (the profiler saw {traced})")
+    check(err <= FUSED_TOL and loss_err <= FUSED_TOL,
+          f"{label}: fused and run_rounds differ: params {err:.3e}, losses {loss_err:.3e}")
+    return {"s_per_round_loop": dt_loop / FUSED_ROUNDS, "s_per_round_fused": dt_fused / FUSED_ROUNDS,
+            "s_per_round_replay": replay_round_s, "capture_s": record["capture_s"],
+            "param_err": err, "loss_err": loss_err, "bit_equal": bit_equal,
+            "busy_loop": loop_prof and loop_prof["busy_share"], "busy_replays": busy_replays,
+            "device_ms_loop": loop_prof and loop_prof["device_ms"],
+            "device_ms_fused": fused_prof and fused_prof["device_ms"],
+            "flash_launches_traced": traced}, launched, per_round
+
+
+def fused_phase(fa):
+    """Phase 19: ``run_rounds_fused`` as a CUDA graph on phase 3's BERT-base
+    cohort (8 x 32, bf16) and phase 6's ResNet-18 cohort (32 x 48, bf16)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+
+    print(f"phase 19: run_rounds_fused as a CUDA graph against run_rounds, {FUSED_ROUNDS} rounds "
+          "each from the same params and generator")
+    cfg, model, data, n_samples = bert_base_cohort(8, 32)
+    sim = FedSim(model, batch_size=32, learning_rate=0.01)
+    params = sim.init(torch.Generator().manual_seed(0))
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    bert, launched, per_round = fused_against_loop(fa, "BERT-base", sim, params, data, n_samples)
+    check(per_round == {"fwd": cfg.n_layers, "bwd_dkv": cfg.n_layers, "bwd_dq": cfg.n_layers},
+          f"fused BERT round launches {per_round}")
+    del sim, params, data
+    torch.cuda.empty_cache()
+    data, n_samples = resnet18_cohort()
+    sim = FedSim(resnet18_cifar_model(compute_dtype=torch.bfloat16), batch_size=32,
+                 learning_rate=0.05)
+    params = sim.init(torch.Generator().manual_seed(0))
+    resnet, resnet_launched, _ = fused_against_loop(fa, "ResNet-18", sim, params, data, n_samples)
+    check(all(n == 0 for n in resnet_launched.values()), "flash kernels in the ResNet rounds")
+    del sim, params, data
+    dp = fused_dp_round(fa)
+    return {"bert": bert, "resnet18": resnet, "dp": dp, "launches_fused_bert": launched,
+            "launches_per_round_fused_bert": per_round}
+
+
+def fused_dp_round(fa):
+    """The fused rounds under DP-SGD with noise: a 2-layer ViT (D 64, bf16,
+    flash on mma) on 4 clients x 16 images in waves of 2, each wave's noise
+    from a device generator registered with the graph and seeded before
+    every replay; against ``run_rounds`` within ``FUSED_TOL``."""
+    from baton_tpu_torch.examples import vit_dp_secure as ex
+    from baton_tpu_torch.models.vit import ViTConfig
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = ViTConfig(image_size=64, patch=16, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+                    n_classes=10)
+    rng = np.random.default_rng(7)
+    data, n_samples = stack_client_datasets(ex.make_data(rng, cfg, 4, 16), batch_size=8)
+    sim = ex.make_sim(cfg, 8, CONFIG5_CLIP, CONFIG5_SIGMA, compute_dtype=torch.bfloat16)
+    params = sim.init(torch.Generator().manual_seed(0))
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    gen = torch.Generator().manual_seed(1)
+    p_loop, h_loop = sim.run_rounds(params, data, n_samples, gen, n_rounds=3, wave_size=2)
+    p_fused, h_fused = sim.run_rounds_fused(params, data, n_samples, gen, n_rounds=3,
+                                            wave_size=2)
+    record = dict(sim.last_fused)
+    err = max((p_loop[k] - p_fused[k]).abs().max().item() for k in p_loop)
+    loss_err = max(abs(a - b) for a, b in zip(h_loop, h_fused))
+    moved = max((p_loop[k] - params[k]).abs().max().item() for k in p_loop)
+    bit_equal = all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop)
+    print(f"  DP-SGD (sigma {CONFIG5_SIGMA}), 2-layer ViT, 4 clients in waves of 2, 3 rounds: max "
+          f"|param diff| {err:.3e}, losses {loss_err:.3e} (tol {FUSED_TOL}; max |param change| "
+          f"{moved:.3e}), bit-equal {bit_equal}; {record}")
+    check(record["graph"] and record["replays"] == 2, f"DP fused run: {record}")
+    check(err <= FUSED_TOL and loss_err <= FUSED_TOL,
+          f"DP fused and run_rounds differ: params {err:.3e}, losses {loss_err:.3e}")
+    return {"param_err": err, "loss_err": loss_err, "bit_equal": bit_equal, "moved": moved}
+
+
+def examples_phase():
+    """Phase 20: examples 02 (ResNet-18 on Dirichlet shards of the CIFAR
+    loader's synthetic fallback, nothing downloaded) and 09 (the HTTP
+    federation with the bandwidth levers) at their tiny presets on the
+    card, each under its own assertions."""
+    from baton_tpu_torch.examples import bandwidth_efficient_http, resnet_cifar_dirichlet
+
+    print("phase 20: examples 02 and 09 at their tiny presets on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        (history, metrics), dt02 = timed(lambda: resnet_cifar_dirichlet.run(data_dir=tmp))
+    check(history[-1] < history[0], f"example 02: loss should fall, {history}")
+    out09, dt09 = timed(lambda: bandwidth_efficient_http.run())
+    check(out09["accuracy"] > 0.8, f"example 09: accuracy {out09['accuracy']}")
+    check(out09["mean_upload_bytes"] < out09["full_upload_bytes"] / 2,
+          f"example 09: uploads {out09}")
+    print(f"  example 02: loss {history[0]:.4f} -> {history[-1]:.4f}, accuracy "
+          f"{metrics['accuracy']:.3f}, {dt02:.1f} s; example 09: accuracy {out09['accuracy']:.3f}, "
+          f"uploads {out09['mean_upload_bytes']:.0f} of {out09['full_upload_bytes']} B, {dt09:.1f} s")
+    return {"example02": {"history": history, "eval": metrics, "s": dt02},
+            "example09": dict(out09, s=dt09)}
 
 
 def main() -> int:
@@ -3154,6 +3632,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         zoo_stats["crossover"] = crossover_phase(name, tmp)
     print(f"phase 16 took {time.perf_counter() - zoo:.1f} s")
+    slice10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    config5_launches, config5_per_round, config5_stats, config5_ctx = config5_phase(fa, name)
+    config5_times = config5_timing_phase(fa, name, config5_stats["wave"])
+    auto_stats = auto_wave_phase(config5_ctx)
+    del config5_ctx
+    fused_stats = fused_phase(fa)
+    examples_stats = examples_phase()
+    print(f"phases 17-20 took {time.perf_counter() - slice10:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -3163,12 +3650,20 @@ def main() -> int:
         row["launches_per_round_config4"] = config4_per_round[counter]
         row["launches_per_step_config4"] = (config4_per_round[counter]
                                             // config4_stats["steps_per_round"])
+        row["launches_config5"] = config5_launches[counter]
+        row["launches_per_round_config5"] = config5_per_round[counter]
+        row["launches_per_step_config5"] = config5_stats["per_step"][counter]
+        row["config5_shape"] = config5_times[row["name"]]
+        row["launches_fused_bert"] = fused_stats["launches_fused_bert"][counter]
+        row["launches_per_round_fused_bert"] = fused_stats["launches_per_round_fused_bert"][counter]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
                       "options_parity": parity_errs, "http_round": http_stats,
                       "bandwidth": bandwidth_stats, "secure": secure_stats,
-                      "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats}))
+                      "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats,
+                      "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
+                      "examples": examples_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -199,13 +199,20 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "fedprox_bert_phase", "resnet_optimizer_phase", "options_parity_phase",
           "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
           "variants_phase", "config4_phase", "remat_phase", "vit_phase", "lstm_phase",
-          "zoo_parity_phase", "crossover_phase")
+          "zoo_parity_phase", "crossover_phase", "config5_phase", "config5_timing_phase",
+          "auto_wave_phase", "fused_phase", "examples_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
 CONFIG4_COUNTS = {"fwd": 1024, "bwd_dkv": 512, "bwd_dq": 512}
 CONFIG4_PER_ROUND = {"fwd": 256, "bwd_dkv": 128, "bwd_dq": 128}
 LLAMA_ROW = {"ms": 0.2, "bound_ms": 0.1}
+# config 5 with remat: 12 layers, 2 waves x 2 steps a round, 3 rounds
+CONFIG5_COUNTS = {"fwd": 288, "bwd_dkv": 144, "bwd_dq": 144}
+CONFIG5_PER_ROUND = {"fwd": 96, "bwd_dkv": 48, "bwd_dq": 48}
+CONFIG5_PER_STEP = {"fwd": 24, "bwd_dkv": 12, "bwd_dq": 12}
+CONFIG5_ROW = {"ms": 0.3, "bound_ms": 0.1}
+FUSED_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -233,6 +240,13 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                                       {"steps_per_round": 4}),
                     "remat_phase": {}, "vit_phase": {}, "lstm_phase": {},
                     "zoo_parity_phase": {}, "crossover_phase": {},
+                    "config5_phase": (CONFIG5_COUNTS, CONFIG5_PER_ROUND,
+                                      {"wave": 2, "per_step": CONFIG5_PER_STEP}, None),
+                    "config5_timing_phase": {"flash_fwd": CONFIG5_ROW},
+                    "auto_wave_phase": {},
+                    "fused_phase": {"launches_fused_bert": FUSED_COUNTS,
+                                    "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
+                    "examples_phase": {},
                     }.get(phase)
         return run
 
@@ -266,7 +280,10 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
     assert json.loads(lines[-2]) == {"kernels": [{
         "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12,
         "launches_variants": 816, "llama_shape": LLAMA_ROW, "launches_config4": 1024,
-        "launches_per_round_config4": 256, "launches_per_step_config4": 64}]}
+        "launches_per_round_config4": 256, "launches_per_step_config4": 64,
+        "launches_config5": 288, "launches_per_round_config5": 96,
+        "launches_per_step_config5": 24, "config5_shape": CONFIG5_ROW,
+        "launches_fused_bert": 48, "launches_per_round_fused_bert": 12}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -276,7 +293,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                      "bandwidth_phase", "secure_phase", "config1_phase",
                                      "variants_phase", "config4_phase", "remat_phase",
                                      "vit_phase", "lstm_phase", "zoo_parity_phase",
-                                     "crossover_phase"])
+                                     "crossover_phase", "config5_phase", "auto_wave_phase",
+                                     "fused_phase", "examples_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -700,3 +718,34 @@ def test_sweep_written_and_read_back(tmp_path, flash_ms, crossover):
     finally:
         T._FLASH_MIN_LEN, T._FLASH_BLOCKS = orig
     assert read == (orig if crossover is None else (crossover, (64, 64)))
+
+
+def _tiny_dp_trainer(sigma=0.5):
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.mlp import mlp_classifier_model
+    from baton_tpu_torch.ops.privacy import DPConfig
+
+    model = mlp_classifier_model(5, (8,), 3)
+    trainer = make_local_trainer(model, batch_size=4, dp=DPConfig(1.0, sigma))
+    rng = np.random.default_rng(0)
+    batch = {"x": torch.from_numpy(rng.normal(size=(2, 4, 5)).astype(np.float32)),
+             "y": torch.from_numpy(rng.integers(0, 3, (2, 4)).astype(np.int64)),
+             "mask": torch.ones(2, 4)}
+    return trainer, model.init(torch.Generator().manual_seed(0)), batch
+
+
+def test_noise_replay_check():
+    """Phase 17's noise replay: the trainer's DP step minus its sigma-0
+    step is sigma·clip·N/B for N from the generator seeded the same way;
+    a step that scales its noise by the count of real rows is caught."""
+    trainer, params, batch = _tiny_dp_trainer()
+    assert chip_smoke.noise_replay_gap(trainer, params, batch, seed=5) < 1e-6
+
+    class Rescaled(type(trainer)):
+        def _dp_grads(self, p, frozen, anchor, b, noise):
+            if noise is not None:
+                noise = {k: v * 4 / 3 for k, v in noise.items()}
+            return super()._dp_grads(p, frozen, anchor, b, noise)
+
+    wrong = Rescaled(**{f.name: getattr(trainer, f.name) for f in dataclasses.fields(trainer)})
+    assert chip_smoke.noise_replay_gap(wrong, params, batch, seed=5) > 1e-2

@@ -18,7 +18,7 @@ identical inputs the default is held to optax at 1e-6
 Also: ``make_partition`` selects JAX's names and its errors,
 ``evaluate_clients`` against JAX (1e-5, NaN for a client without
 samples), chained ``run_rounds`` carrying the server state, and the
-options still refused."""
+one option still refused (the mesh)."""
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +37,9 @@ from baton_tpu_torch import FedSim
 from baton_tpu_torch.core import optim
 from baton_tpu_torch.core.partition import make_partition
 from baton_tpu_torch.core.regularizers import fedprox
+from baton_tpu_torch.core.training import random_perms
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+from baton_tpu_torch.ops.privacy import DPConfig
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from _torch_variants import jax_round_perms
 
@@ -273,12 +275,17 @@ def test_init_server_opt_state_covers_the_trainable_params(setup):
 
 
 def test_refused_options(setup):
+    """Only the mesh is still refused: ``dp=`` builds a DP trainer, and
+    ``wave_size="auto"`` answers the whole cohort off the card, so its
+    round equals the one-wave round."""
     data, n_samples, _, _, tmodel, tparams = setup
-    for kw in ({"dp": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            FedSim(tmodel, device="cpu", **kw)
-    sim = FedSim(tmodel, device="cpu")
-    with pytest.raises(NotImplementedError, match="auto_wave_size"):
-        sim.run_round(tparams, data, n_samples, wave_size="auto")
-    with pytest.raises(NotImplementedError, match="auto_wave_size"):
-        sim.auto_wave_size(tparams, data, n_samples)
+    with pytest.raises(NotImplementedError):
+        FedSim(tmodel, device="cpu", mesh=object())
+    dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
+    assert FedSim(tmodel, device="cpu", dp=dp).trainer.dp == dp
+    sim = FedSim(tmodel, batch_size=BATCH, learning_rate=LR, device="cpu")
+    assert sim.auto_wave_size(tparams, data, n_samples) is None
+    perms = random_perms(len(n_samples), 1, data["x"].shape[1], torch.Generator().manual_seed(0))
+    auto = sim.run_round(tparams, data, n_samples, wave_size="auto", perms=perms)
+    whole = sim.run_round(tparams, data, n_samples, perms=perms)
+    assert all(torch.equal(auto.params[k], whole.params[k]) for k in whole.params)

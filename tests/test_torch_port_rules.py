@@ -1,10 +1,11 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
-demo, the advanced-aggregation, Llama-LoRA and char-LSTM examples, and
-FedSim over each model of the zoo) refuse to run without a GPU
-unless asked for the CPU, every option not ported yet raises
-``NotImplementedError`` while the ported ones build, the federation
-variants refuse the reference's incompatible sims with its
+demo, the examples, and FedSim over each model of the zoo) refuse to run
+without a GPU unless asked for the CPU, every option not ported yet
+raises ``NotImplementedError`` while the ported ones build, the only
+such refusal left names the mesh (no ``NotImplementedError`` in the
+port's source names DP-SGD, the wave sizer or the fused rounds), the
+federation variants refuse the reference's incompatible sims with its
 ``ValueError``s, and the chip smoke test has no CPU fallback."""
 
 import ast
@@ -22,8 +23,14 @@ import baton_tpu_torch
 from baton_tpu_torch import FedSim, demo
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.core import optim
-from baton_tpu_torch.examples import advanced_aggregation, llama_lora, lstm_shakespeare
+from baton_tpu_torch.examples import (
+    advanced_aggregation,
+    llama_lora,
+    lstm_shakespeare,
+    vit_dp_secure,
+)
 from baton_tpu_torch.models.linear import linear_regression_model
+from baton_tpu_torch.ops.privacy import DPConfig
 from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
 from baton_tpu_torch.server import http_worker
 from baton_tpu_torch.server.http_manager import Manager
@@ -58,6 +65,11 @@ def test_the_import_scan_covers_the_federation_variants():
             ("transformer", "llama", "lora", "moe", "vit", "lstm")} <= names
     assert {f"baton_tpu_torch/examples/{m}.py" for m in
             ("llama_lora", "lstm_shakespeare")} <= names
+    # DP-SGD, config 5 and the single-device examples of the last slice
+    assert "baton_tpu_torch/ops/privacy.py" in names
+    assert {f"baton_tpu_torch/examples/{m}.py" for m in
+            ("vit_dp_secure", "resnet_cifar_dirichlet", "real_digits",
+             "bandwidth_efficient_http")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -77,7 +89,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert FedSim(model, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         advanced_aggregation.run()
-    for example in (llama_lora, lstm_shakespeare):
+    for example in (llama_lora, lstm_shakespeare, vit_dp_secure):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.run()
 
@@ -208,19 +220,25 @@ def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
 
 
 def test_unported_options_are_refused():
+    """Only the mesh is refused now; ``dp=``, ``auto_wave_size``,
+    ``wave_size="auto"`` and ``run_rounds_fused`` run on the CPU."""
     model = bert_classifier_model(BertConfig.tiny())
-    for kw in ({"mesh": object()}, {"dp": object()}):
-        with pytest.raises(NotImplementedError):
-            FedSim(model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        FedSim(model, device="cpu", mesh=object())
+    dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
+    assert FedSim(model, device="cpu", dp=dp).trainer.dp == dp
     with pytest.raises(ValueError, match="unknown aggregator"):
         FedSim(model, device="cpu", aggregator="krum")
-    sim = FedSim(model, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.run_rounds_fused()
-    with pytest.raises(NotImplementedError):
-        sim.auto_wave_size()
-    with pytest.raises(NotImplementedError):
-        sim.run_round({}, {}, [], wave_size="auto")
+    sim = FedSim(linear_regression_model(2), batch_size=2, device="cpu")
+    params = sim.init(torch.Generator().manual_seed(0))
+    data = {"x": torch.ones(3, 2, 2), "y": torch.zeros(3, 2)}
+    n = torch.tensor([2, 1, 2])
+    assert sim.auto_wave_size(params, data, n) is None
+    res = sim.run_round(params, data, n, torch.Generator().manual_seed(1), wave_size="auto")
+    assert torch.isfinite(res.loss_history).all()
+    _, history = sim.run_rounds_fused(params, data, n, torch.Generator().manual_seed(1),
+                                      n_rounds=2)
+    assert len(history) == 2
     # run_rounds(checkpointer=) is ported: a run restored at its last
     # round trains no further and hands back what was restored
     restored = {"w": torch.ones(2)}
@@ -276,6 +294,24 @@ REFUSED = [
 def test_federation_variants_refuse_incompatible_sims(build, match):
     with pytest.raises(ValueError, match=match):
         build()
+
+
+def _not_implemented_messages(path):
+    """The literal text of every ``raise NotImplementedError(...)`` in a file."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+            yield " ".join(c.value for c in ast.walk(node.exc)
+                           if isinstance(c, ast.Constant) and isinstance(c.value, str))
+
+
+def test_the_only_refusal_left_on_one_device_is_the_mesh():
+    messages = [m for path in PORT_FILES for m in _not_implemented_messages(path)]
+    assert any("ROADMAP item 11" in m for m in messages)
+    for m in messages:
+        assert "not ported" not in m or "mesh" in m, m
+        for name in ("DP-SGD", "dp=", "auto_wave_size", "run_rounds_fused"):
+            assert name not in m, m
 
 
 def test_a_mesh_is_refused_naming_its_roadmap_item():

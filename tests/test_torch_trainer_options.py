@@ -32,6 +32,7 @@ from baton_tpu_torch.core.regularizers import fedprox
 from baton_tpu_torch.core.training import make_evaluator, make_local_trainer
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.models.mlp import mlp_classifier_model
+from baton_tpu_torch.ops.privacy import DPConfig
 
 torch.set_num_threads(1)
 
@@ -230,5 +231,7 @@ def test_a_regularizer_or_partition_needs_its_params(models):
     trainable, _ = part.split(tparams)
     with pytest.raises(ValueError, match="frozen"):
         make_local_trainer(tmodel, batch_size=BATCH, partition=part).train(trainable, data, N)
-    with pytest.raises(NotImplementedError):
-        make_local_trainer(tmodel, dp=object())
+    # DP-SGD's noise needs its generator
+    with pytest.raises(ValueError, match="Generator"):
+        make_local_trainer(tmodel, batch_size=BATCH, dp=DPConfig(1.0, 0.5)).train(
+            tparams, data, N)
