@@ -30,6 +30,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 # imported after resolve_device: the engine imports it from here
 from baton_tpu_torch.core.model import FedModel  # noqa: E402
-from baton_tpu_torch.parallel.engine import FedSim  # noqa: E402
+from baton_tpu_torch.core.training import LocalTrainer, make_local_trainer  # noqa: E402
+from baton_tpu_torch.ops.aggregation import weighted_tree_mean  # noqa: E402
+from baton_tpu_torch.parallel.engine import FedSim, RoundResult  # noqa: E402
 
-__all__ = ["FedModel", "FedSim", "resolve_device"]
+__all__ = ["FedModel", "FedSim", "LocalTrainer", "RoundResult", "make_local_trainer",
+           "resolve_device", "weighted_tree_mean"]

@@ -30,10 +30,12 @@ from baton_tpu_torch.parallel.engine import FedSim
 from baton_tpu_torch.utils.checkpoint import Checkpointer
 
 
-def make_data(rng, n_total, n_clients, alpha, image_size=32, data_dir=None, download=False):
+def make_data(rng, n_total, n_clients, alpha, image_size=32, n_classes=10, data_dir=None,
+              download=False):
     """Real CIFAR-10 when available (``data_dir`` / ``download``), otherwise
     the loader's synthetic surrogate, cut to ``n_total`` images and split
-    into Dirichlet(``alpha``) label-skew shards."""
+    into Dirichlet(``alpha``) label-skew shards. ``n_classes`` is the
+    reference's parameter (unused there too: CIFAR-10 has ten)."""
     train, _test, info = load_cifar10(data_dir=data_dir, download=download,
                                       fallback="synthetic", seed=int(rng.integers(1 << 31)))
     print(f"dataset: {info['name']} (synthetic={info['synthetic']}, "

@@ -22,6 +22,10 @@ wrapper            CUDA kernel (design)              TPU kernel it replaces
                    ``dq_kernel`` (simt, fp32)
 =================  ================================  ===========================
 
+``flash_block_fwd`` and ``flash_block_bwd`` expose one k/v block's
+passes (out with its lse; the gradients against a global out and lse)
+for ring × flash (``parallel/ring_attention.py``).
+
 A wrapper takes its plain version only because the tensor it was given
 lies on the CPU; a CUDA tensor goes to a kernel or raises. Each kernel
 launch adds one to ``launches_by_design[pass_design]``, and nothing else
@@ -411,6 +415,34 @@ def flash_attention(
         bias2d = bias.reshape(b, lk).float()
     out, _ = _FlashAttention.apply(q, k, v, bias2d, causal, d ** -0.5)
     return out
+
+
+# ======================================================================
+# block entry points for ring × flash (parallel/ring_attention.py): one k/v
+# block's forward with its lse, and its backward against the GLOBAL out and
+# lse, which gives exactly that block's share of the global gradients.
+# The kernels take any L, so JAX's padding to whole tiles has no
+# counterpart; its dtypes do.
+
+
+def flash_block_fwd(q, k, v, bias2d, causal):
+    """One block's flash forward (``baton_tpu/ops/flash_attention.py``
+    ``flash_block_fwd``): ``(out [B, Hq, Lq, D]`` normalised in q's dtype,
+    ``lse [B, Hq, Lq]`` fp32). ``bias2d`` is the per-key additive bias
+    [B, Lk]. Not differentiable: pair it with :func:`flash_block_bwd`
+    inside an outer ``autograd.Function``."""
+    with torch.no_grad():
+        return _fwd(q, k, v, bias2d, causal, q.shape[-1] ** -0.5)
+
+
+def flash_block_bwd(q, k, v, bias2d, out, dout, lse, causal):
+    """One block's flash backward against the GLOBAL ``out`` and ``lse``:
+    ``(dq, dk, dv, dbias2d)``, this block's exact contributions to the
+    global gradients; dq, dk and dv in their inputs' dtypes, dbias2d
+    [B, Lk] in fp32. Not differentiable."""
+    with torch.no_grad():
+        dq, dk, dv, db = _bwd(q, k, v, bias2d, out, dout, lse, causal, q.shape[-1] ** -0.5)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db
 
 
 def make_flash_attention_fn():

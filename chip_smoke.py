@@ -51,7 +51,8 @@ exits non-zero:
    aggregator: params and losses within 1e-4;
 8. BASELINE config 3 at BERT-base width (``examples/03_bert_fedprox.py``
    ``--scale full``: vocab 512, bf16 compute, FedProx mu 0.1, local SGD
-   lr 5e-3, batch 32, 2 epochs) on its label-skewed synthetic data, cut
+   lr 5e-3, batch 32, 2 epochs) on its label-skewed synthetic data (the
+   port's example 03, ``baton_tpu_torch/examples/bert_fedprox.py``), cut
    to 8 clients x 64 samples, one wave: a warm-up, five timed rounds and
    a profiled one; every flash kernel launches once per layer per step.
    The same clients at mu = 0 must drift farther from the global params;
@@ -187,6 +188,25 @@ exits non-zero:
    within 1e-5.
 20. examples 02 and 09 at their tiny presets on the card, under their
    own assertions.
+21. sequence parallelism (example 06, ``examples/06_long_context_ring.py``,
+   ported as ``baton_tpu_torch/examples/long_context_ring.py``) on a mesh
+   of 8 shards of the one card: (a) the ``--scale full`` preset as written
+   (vocab 32,000, L 32,768, d 512, 8/4 heads, 8 layers, d_ff 1,536, batch
+   1, remat, fp32, 5 steps through ring × flash): s/step, tokens/s, peak
+   memory, a profiled step's busy share; each kernel's launches a step
+   against what the ring implies (N + N(N-1)/2 block calls a pass and
+   layer, the forward twice under remat); step 0's loss and gradients
+   against one flash call over the whole 32,768 (1e-4 of each tensor's
+   largest value); (b) the ``--striped`` preset (L 8,192, the dense ring,
+   2 steps): step 0's loss against the flash model, no flash launch; (c)
+   ring × flash alone at (a)'s shape, causal, with and without a ragged
+   padding bias (half the shards all padding), bf16 and fp32, forward and
+   the q, k, v and bias gradients against one ``flash_attention`` call
+   shard by shard (fp32 1e-4, bf16 2e-2), every launch's design checked;
+   times of both and of SDPA on the whole sequence; each kernel's time at
+   the ring block's shape (B 1, 8/4 heads, L 4,096, D 64) in fp32 and
+   bf16 beside its bound; (d) the dense ring, Ulysses (N = 4) and the
+   striped fn against the flash call at L 8,192 in fp32.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -335,7 +355,7 @@ def device_breakdown(prof, wall_s):
             "top": [[e.key[:110], e.count, e.self_device_time_total / 1e3] for e in top]}
 
 
-def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind):
+def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind, device="cuda"):
     """q, k, v, dout and a [B, L] bias made from a seed, on the card."""
     gen = torch.Generator().manual_seed(seed)
     q, dout = (torch.randn(b, hq, l, d, generator=gen) for _ in range(2))
@@ -347,7 +367,7 @@ def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind):
     elif bias_kind is None:
         valid[:] = True
     bias = torch.from_numpy(np.where(valid, 0.0, -1e30).astype(np.float32))
-    return [t.to("cuda", dtype) for t in (q, k, v, dout)] + [bias.cuda()]
+    return [t.to(device, dtype) for t in (q, k, v, dout)] + [bias.to(device)]
 
 
 def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
@@ -415,10 +435,68 @@ def kernel_phase(fa):
         # phase 16's shapes: Llama-3-8B's attention and ViT-B/16's ragged L = 197
         ("llama3_8b", 8, 32, 8, 1024, 128, bf16, True, None),
         ("vit_b16", 16, 12, 12, 197, 64, bf16, False, None),
+        # phase 21's ring block (B 1, 8/4 heads, L/N = 4,096, D 64): the fp32
+        # SIMT kernels of example 06's full preset and the bf16 mma kernels of
+        # 21c, past blocks and the causal diagonal, with and without padding
+        *((f"ring_block_{str(dtype)[6:]}{tag}", *RING_BLOCK, dtype, causal, bias_kind)
+          for dtype in (f32, bf16)
+          for tag, causal, bias_kind in (("", False, None), ("_causal", True, "lengths"),
+                                         ("_padded", False, "lengths"))),
     ]
     print("phase 2: kernels against their plain versions")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
+    wrapper_cases = [(dtype, causal, False) for dtype in (f32, bf16) for causal in (False, True)]
+    wrapper_cases += [(f32, False, True), (bf16, False, True)]
+    for seed, case in enumerate(wrapper_cases):
+        block_wrapper_case(fa, 100 + seed, *case)
     return results["bert_base"]
+
+
+def block_wrapper_case(fa, seed, dtype, causal, all_padding=False):
+    """``flash_block_fwd`` and ``flash_block_bwd`` on card tensors at the
+    ring block's shape with a ragged padding bias: one launch of each
+    kernel, the reference's dtypes (out in q's, lse and dbias fp32, dq, dk,
+    dv in their inputs'), and each output against the plain versions on the
+    same inputs. The backward takes the wrapper's own out and lse, except
+    for a block whose keys are ``all_padding``: as in the ring, it takes
+    the out and lse of the row's valid keys, and the block's own lse must
+    give it no weight in the ring's combine."""
+    b, hq, hkv, l, d = RING_BLOCK
+    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, dtype, "lengths")
+    scale = d ** -0.5
+    row = fa._fwd_plain(q, k, v, bias, causal, scale) if all_padding else None
+    if all_padding:
+        bias = torch.full_like(bias, -1e30)
+    before = launch_counts(fa)
+    out, lse = fa.flash_block_fwd(q, k, v, bias, causal)
+    g_out, g_lse = row or (out, lse)
+    grads = fa.flash_block_bwd(q, k, v, bias, g_out, dout, g_lse, causal)
+    torch.cuda.synchronize()
+    _, by_design = launches_since(fa, before)
+    design = "mma" if dtype == torch.bfloat16 else "simt"
+    name = (f"block wrappers {str(dtype)[6:]} causal={int(causal)}"
+            + (" all padding" if all_padding else ""))
+    check(by_design == {f"{p}_{design}": 1 for p in ("fwd", "bwd_dkv", "bwd_dq")},
+          f"{name}: launches by design {by_design}")
+    check((out.dtype, lse.dtype) == (dtype, torch.float32)
+          and [g.dtype for g in grads] == [dtype] * 3 + [torch.float32]
+          and grads[3].shape == (b, l), f"{name}: dtypes or dbias shape")
+    check(not all_padding or lse.max().item() < -1e29, f"{name}: lse {lse.max().item()}")
+    delta = (dout.float() * g_out.float()).sum(-1)
+    args = (q, k, v, bias, dout, g_lse, delta, causal, scale)
+    dk_h, dv_h, db_h = fa._bwd_dkv_plain(*args)
+    fold = lambda t: t.reshape(b, hkv, hq // hkv, l, d).sum(2)  # noqa: E731  GQA
+    want = (*fa._fwd_plain(q, k, v, bias, causal, scale), fa._bwd_dq_plain(*args).to(dtype),
+            fold(dk_h).to(dtype), fold(dv_h).to(dtype), db_h.sum(1))
+    tol, errs = TOL[dtype], []
+    for what, g, w in zip(("out", "lse", "dq", "dk", "dv", "dbias"), (out, lse, *grads), want):
+        g, w = g.float(), w.float()
+        errs.append(f"{what}={(g - w).abs().max().item():.2e}")
+        check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=tol, atol=tol),
+              f"{name} {what}: max abs err {(g - w).abs().max().item():.3e} beyond "
+              f"rtol=atol={tol}")
+    print(f"  {name:44s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} {design}: "
+          + " ".join(errs) + f" (tol {tol})")
 
 
 # flip_check's fp32 summation allowance, 2^-20 of a sum's magnitude, holds
@@ -1019,21 +1097,6 @@ def vision_parity_phase():
 CONFIG3_HEAD = ("pooler/", "head/")
 
 
-def config3_datasets(rng, cfg, n_clients, n_per_client):
-    """BASELINE config 3's synthetic AG-News stand-in, as ``make_data`` in
-    ``examples/03_bert_fedprox.py:42-56`` draws it: each class a topic
-    distribution over the vocabulary, each client skewed to two classes."""
-    topics = rng.dirichlet(np.full(cfg.vocab_size, 0.1), size=cfg.n_classes)
-    datasets = []
-    for _ in range(n_clients):
-        fav = rng.choice(cfg.n_classes, size=2, replace=False)
-        y = rng.choice(fav, size=n_per_client).astype(np.int32)
-        x = np.stack([rng.choice(cfg.vocab_size, size=cfg.max_len, p=topics[label])
-                      for label in y]).astype(np.int32)
-        datasets.append({"x": x, "y": y})
-    return datasets
-
-
 def mean_client_drift(sim, params, data, n_samples, n_epochs, perms):
     """Mean over the clients with samples of ``||p_i - global||`` (all
     params), each client trained by ``sim``'s trainer (no partition) from
@@ -1072,6 +1135,7 @@ def fedprox_bert_phase(fa):
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.core.regularizers import fedprox
     from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.examples.bert_fedprox import make_data
     from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
@@ -1079,7 +1143,7 @@ def fedprox_bert_phase(fa):
                      d_ff=3072, n_classes=4)
     n_clients, per_client, batch, n_epochs, lr, mu = 8, 64, 32, 2, 5e-3, 0.1
     t0 = time.perf_counter()
-    datasets = config3_datasets(np.random.default_rng(0), cfg, n_clients, per_client)
+    datasets = make_data(np.random.default_rng(0), cfg, n_clients, per_client)
     data, n_samples = stack_client_datasets(datasets, batch_size=batch)
     data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
     t_data = time.perf_counter() - t0
@@ -3051,20 +3115,22 @@ def crossover_phase(name, out_dir):
     return {"results": results, "crossover": crossover}
 
 
-def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed):
-    """Kernel, plain and SDPA times at one bf16 attention shape and the
-    card's bound, counting only the (query, key) pairs a causal mask keeps
-    (the kernels skip tiles wholly in the future)."""
+def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
+                    dtype=torch.bfloat16):
+    """Kernel, plain and SDPA times at one attention shape and the card's
+    bound (FLOPs over the dtype's peak), counting only the (query, key)
+    pairs a causal mask keeps (the kernels skip tiles wholly in the
+    future)."""
     import torch.nn.functional as F
 
     from baton_tpu_torch.obs.compute import card_peaks
 
-    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, torch.bfloat16, bias_kind)
+    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind)
     scale = d ** -0.5
     out, lse = fa._fwd_plain(q, k, v, bias, causal, scale)
     delta = (dout.float() * out.float()).sum(-1)
     args = (q, k, v, bias, dout, lse, delta, causal, scale)
-    sdpa_kw = ({"is_causal": True} if causal
+    sdpa_kw = ({"is_causal": True} if causal else {} if bias_kind is None
                else {"attn_mask": bias[:, None, None, :].to(q.dtype)})
 
     def sdpa():
@@ -3094,14 +3160,15 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed):
                          6 * pairs * d),
     }
     bw, bf16_peak = card_peaks(name)
-    print(f"phase 5 ({label}): times at B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, "
-          f"{'causal' if causal else 'not causal'}, bias {bias_kind}, bf16"
+    peak = bf16_peak if dtype == torch.bfloat16 else FP32_PEAK
+    print(f"times at {label}'s shape: B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, "
+          f"{'causal' if causal else 'not causal'}, bias {bias_kind}, {str(dtype)[6:]}"
           + ("; the bound counts the causal half" if causal else ""))
     out_rows = {}
     for kname, (kernel, plain, library) in timed_fns.items():
         ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain, iters=3), time_ms(library)
         nbytes, flops = work[kname]
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
         out_rows[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                            "bound_ms": max(t_bytes, t_ops),
                            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3557,6 +3624,316 @@ def examples_phase():
             "example09": dict(out09, s=dt09)}
 
 
+# phase 21: sequence parallelism on a mesh of 8 shards of the one card.
+# Example 06's full preset (ring × flash, fp32), its striped preset (the
+# dense ring), ring × flash alone in bf16 and fp32, and the dense ring,
+# Ulysses and striped fns, each against one flash call over the sequence.
+
+RING_SHARDS = 8
+RING_ATTENTION = (1, 8, 4, 32768, 64)  # B, Hq, Hkv, L, D of example 06's full preset
+# one block of its ring: B, Hq, Hkv, Lq = Lk = L/N, D (phases 2 and 21)
+RING_BLOCK = (*RING_ATTENTION[:3], RING_ATTENTION[3] // RING_SHARDS, RING_ATTENTION[4])
+RING_SEAMS_LEN = 8192  # (d): the dense seams hold (L/N)^2 scores a block under autograd
+RING_PADDED_LEN = 13000  # (c)'s valid keys: shard 3 partly, shards 4-7 all padding
+RING_STRIPED_STEPS = 2  # (b): cut from the preset's 5
+FP32_PEAK = 67e12  # FLOP/s in fp32 outside the tensor cores (H100 SXM data sheet)
+RING_TOL = 1e-4  # (a)-(b): loss and each gradient against the flash model, relative
+
+
+def ring_block_calls(n: int, causal: bool = True) -> int:
+    """Flash block calls of one ring pass over ``n`` shards: each shard's
+    diagonal block, then (causal) only the blocks from its past, so
+    ``n + n(n-1)/2``; not causal ``n²``."""
+    return n + n * (n - 1) // 2 if causal else n * n
+
+
+def ring_step_launches(n: int, n_layers: int, remat: bool) -> dict:
+    """Kernel launches of one training step of a causal decoder whose
+    attention is a ring × flash of ``n`` shards: a pass's block calls a
+    layer, the forward once more under remat (the backward recomputes each
+    block), each backward kernel once a block."""
+    calls = ring_block_calls(n) * n_layers
+    return {"fwd": calls * (2 if remat else 1), "bwd_dkv": calls, "bwd_dq": calls}
+
+
+def check_shards(name, got, want, n, tol, dim=2) -> float:
+    """``got`` against ``want`` on each of the ``n`` shards along ``dim``
+    (rtol = atol = ``tol``); fails naming the first shard that is off.
+    Returns the largest error."""
+    errs = []
+    for j, (g, w) in enumerate(zip(torch.chunk(got.float(), n, dim),
+                                   torch.chunk(want.float(), n, dim))):
+        check(bool(torch.isfinite(g).all()), f"{name}: shard {j} not finite")
+        err = (g - w).abs().max().item()
+        check(torch.allclose(g, w, rtol=tol, atol=tol),
+              f"{name}: shard {j} off by {err:.3e}, beyond rtol=atol={tol}")
+        errs.append(err)
+    return max(errs)
+
+
+def check_model_grads(name, got, want, tol=RING_TOL) -> float:
+    """Every param's gradient within ``tol`` of the reference's at its own
+    scale (max |got - want| over max |want|); returns the largest gap."""
+    gaps = {k: ((got[k].float() - w.float()).abs().max()
+                / w.float().abs().max().clamp_min(1e-30)).item() for k, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    check(set(got) == set(want) and gaps[worst] <= tol,
+          f"{name}: gradient of {worst} off by {gaps[worst]:.3e} of its largest value (tol {tol})")
+    return gaps[worst]
+
+
+def ring_inputs(seed, b, hq, hkv, l, d, dtype, valid=None):
+    """``attention_inputs``' q, k, v and dout, and a [B, 1, 1, L] bias that
+    masks the keys past ``valid`` (None for no bias)."""
+    q, k, v, dout, _ = attention_inputs(seed, b, hq, hkv, l, d, dtype, None)
+    bias = None
+    if valid is not None:
+        keep = torch.arange(l, device=q.device) < valid
+        bias = torch.where(keep, 0.0, -1e30).expand(b, l)[:, None, None, :].contiguous()
+    return q, k, v, dout, bias
+
+
+def attention_vjp(fn, q, k, v, dout, bias, causal=True):
+    """``fn``'s output and its vjp of ``dout`` for q, k, v (and the bias)."""
+    args = [t.detach().requires_grad_() for t in (q, k, v)]
+    if bias is not None:
+        args.append(bias.detach().requires_grad_())
+    out = fn(*args[:3], bias=None if bias is None else args[3], causal=causal)
+    grads = torch.autograd.grad(out, args, dout)
+    return out.detach(), grads
+
+
+def hold_attention(name, fn, ref, inputs, n, tol, causal=True) -> dict:
+    """``fn`` against ``ref`` on ``inputs``, forward and gradients, shard
+    by shard; returns the largest error of each."""
+    q, k, v, dout, bias = inputs
+    got, want = attention_vjp(fn, *inputs, causal), attention_vjp(ref, *inputs, causal)
+    errs = {"out": check_shards(f"{name} out", got[0], want[0], n, tol)}
+    for what, g, w in zip(("dq", "dk", "dv", "dbias"), got[1], want[1]):
+        # dbias is [B, 1, 1, L]: its length axis is the last
+        errs[what] = check_shards(f"{name} {what}", g, w, n, tol, dim=3 if what == "dbias" else 2)
+    return errs
+
+
+def long_context_phase(fa):
+    """Phase 21a: example 06's full preset as written, 5 steps of ring ×
+    flash over 8 shards of the card; step 0 held against the flash model."""
+    from baton_tpu_torch.examples import long_context_ring as ex
+    from baton_tpu_torch.models.llama import llama_lm_model
+    from baton_tpu_torch.ops.flash_attention import make_flash_attention_fn
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    full = ex.full_preset()
+    cfg, n, steps, batch = full["config"], full["n_devices"], full["n_steps"], full["batch_size"]
+    mesh = make_mesh(n, ("seq",), devices=[torch.device("cuda")] * n)
+    ring_model = llama_lm_model(cfg, attention_fn=ex.make_attention_fn(mesh), remat=True)
+    flash_model = llama_lm_model(cfg, attention_fn=make_flash_attention_fn(), remat=True)
+    params = ring_model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(ex.make_tokens(cfg, batch, 0), device="cuda")
+    batch_t = {"x": toks, "y": toks}
+    n_params = sum(v.numel() for v in params.values())
+    print(f"phase 21a: example 06 --scale full, ring x flash over {n} shards of the card "
+          f"(vocab {cfg.vocab_size}, L {cfg.max_len}, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, {cfg.n_layers} layers, d_ff {cfg.d_ff}; {n_params / 1e6:.1f} M "
+          f"params, batch {batch}, remat, fp32, {steps} steps)")
+
+    def loss_and_grads(model):
+        fn = torch.func.grad_and_value(lambda p: model.per_example_loss(p, batch_t).mean())
+        grads, loss = fn(params)
+        return loss.item(), grads
+
+    (ring_loss, ring_grads), ring_s = timed(lambda: loss_and_grads(ring_model))
+    (flash_loss, flash_grads), flash_s = timed(lambda: loss_and_grads(flash_model))
+    loss_gap = abs(ring_loss - flash_loss) / abs(flash_loss)
+    check(loss_gap <= RING_TOL, f"21a: step 0 loss {ring_loss} against the flash model's "
+          f"{flash_loss} (relative {loss_gap:.3e}, tol {RING_TOL})")
+    grad_gap = check_model_grads("21a", ring_grads, flash_grads)
+    del ring_grads, flash_grads
+    torch.cuda.empty_cache()
+    print(f"  step 0 against one flash call over all {cfg.max_len} tokens: loss {ring_loss:.6f} "
+          f"vs {flash_loss:.6f} (relative {loss_gap:.2e}), gradients within {grad_gap:.2e} of "
+          f"each tensor's largest value (tol {RING_TOL}); {ring_s:.1f} s ring, {flash_s:.1f} s "
+          "flash")
+
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = ex.run(**full, device="cuda", params=params,
+                    progress_fn=lambda step, loss: stamps.append(time.perf_counter()))
+    by_pass, by_design = fa.launches(), {k: v for k, v in fa.launches_by_design.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = np.diff([t0] + stamps).tolist()
+    per_step = ring_step_launches(n, cfg.n_layers, remat=True)
+    check(by_pass == {k: c * steps for k, c in per_step.items()},
+          f"21a: launches {by_pass}, want {per_step} a step x {steps}")
+    check(set(by_design) <= {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
+          f"21a: launches by design {by_design}, want every fp32 launch on simt")
+    check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
+          f"21a: losses {losses}")
+    check(abs(losses[0] - ring_loss) <= RING_TOL * abs(ring_loss),
+          f"21a: run's step 0 loss {losses[0]} against the held {ring_loss}")
+    median_s = float(np.median(step_s[1:]))
+    tokens_s = batch * cfg.max_len / median_s
+    print(f"  {steps} steps: s/step {[round(x, 4) for x in step_s]} (median after the first "
+          f"{median_s:.4f}), {tokens_s:.1f} tokens/s, peak {peak_gb:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}; launches {by_pass} ({per_step} a step: "
+          f"{ring_block_calls(n)} block calls a pass and layer), {by_design}")
+    _, breakdown = profiled(lambda: ex.run(**dict(full, n_steps=1), device="cuda",
+                                           params=params), "one step")
+    return by_pass, {k: c // steps for k, c in by_pass.items()}, {
+        "s_per_step": step_s, "median_s_per_step": median_s, "tokens_per_s": tokens_s,
+        "peak_memory_gb": peak_gb, "losses": losses, "step0_loss_gap": loss_gap,
+        "step0_grad_gap": grad_gap, "launches_by_design": by_design,
+        "busy_share": breakdown["busy_share"] if breakdown else None, "profile": breakdown}
+
+
+def striped_phase(fa):
+    """Phase 21b: the ``--striped`` full preset (L 8,192, the dense ring),
+    2 steps; step 0's loss against the flash model, no flash launch."""
+    from baton_tpu_torch.examples import long_context_ring as ex
+    from baton_tpu_torch.models.llama import llama_lm_model
+    from baton_tpu_torch.ops.flash_attention import make_flash_attention_fn
+
+    full = dict(ex.full_preset(striped=True), n_steps=RING_STRIPED_STEPS)
+    cfg = full["config"]
+    params = llama_lm_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(ex.make_tokens(cfg, full["batch_size"], 0), device="cuda")
+    print(f"phase 21b: example 06 --scale full --striped (L {cfg.max_len}, the dense ring over "
+          f"{full['n_devices']} shards, fp32, remat), {RING_STRIPED_STEPS} of its 5 steps")
+    with torch.no_grad():
+        want = llama_lm_model(cfg, attention_fn=make_flash_attention_fn()).per_example_loss(
+            params, {"x": toks, "y": toks}).mean().item()
+    stamps = []
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = ex.run(**full, device="cuda", params=params,
+                    progress_fn=lambda step, loss: stamps.append(time.perf_counter()))
+    launched = fa.launches()
+    check(not any(launched.values()), f"21b: the striped ring launched flash kernels {launched}")
+    gap = abs(losses[0] - want) / abs(want)
+    check(gap <= RING_TOL, f"21b: step 0 loss {losses[0]} against the flash model's {want}")
+    step_s = np.diff([t0] + stamps).tolist()
+    print(f"  losses {[round(x, 4) for x in losses]}, step 0 against the flash model {want:.6f} "
+          f"(relative {gap:.2e}); s/step {[round(x, 4) for x in step_s]}; no flash launch")
+    return {"losses": losses, "step0_loss_gap": gap, "s_per_step": step_s}
+
+
+def ring_flash_alone_phase(fa):
+    """Phase 21c: ring × flash at (a)'s attention shape against one
+    ``flash_attention`` call, causal, with and without a ragged padding
+    bias, bf16 and fp32; times of both and of SDPA on the whole sequence."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from baton_tpu_torch.ops.flash_attention import flash_attention
+    from baton_tpu_torch.parallel.mesh import make_mesh
+    from baton_tpu_torch.parallel.ring_attention import make_flash_ring_attention_fn
+
+    b, hq, hkv, l, d = RING_ATTENTION
+    n = RING_SHARDS
+    ring = make_flash_ring_attention_fn(make_mesh(n, ("seq",),
+                                                  devices=[torch.device("cuda")] * n))
+    print(f"phase 21c: ring x flash alone over {n} shards (B {b}, {hq}/{hkv} heads, L {l}, "
+          f"D {d}, causal) against one flash call over the sequence")
+    errs, times = {}, {}
+    calls = ring_block_calls(n)
+    for dtype in (torch.bfloat16, torch.float32):
+        design = "mma" if dtype == torch.bfloat16 else "simt"
+        dname = str(dtype)[6:]
+        for valid in (None, RING_PADDED_LEN):
+            inputs = ring_inputs(21, b, hq, hkv, l, d, dtype, valid)
+            label = f"{dname} {'no bias' if valid is None else f'{valid} valid keys'}"
+            before = launch_counts(fa)
+            got = attention_vjp(ring, *inputs)
+            by_pass, by_design = launches_since(fa, before)
+            check(by_pass == {"fwd": calls, "bwd_dkv": calls, "bwd_dq": calls}
+                  and set(by_design) == {f"{p}_{design}" for p in ("fwd", "bwd_dkv", "bwd_dq")},
+                  f"21c {label}: launches {by_pass} {by_design}, want {calls} each on {design}")
+            del got
+            errs[label] = hold_attention(f"21c {label}", ring, flash_attention, inputs, n,
+                                         TOL[dtype])
+            print(f"  {label}: " + " ".join(f"{k}={e:.2e}" for k, e in errs[label].items())
+                  + f" (tol {TOL[dtype]}); {calls} launches of each kernel, all {design}")
+        q, k, v, dout, _ = ring_inputs(21, b, hq, hkv, l, d, dtype)
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+
+        def fwd_bwd(fn, *xs):
+            xs = [x.detach().requires_grad_() for x in xs]
+            out = fn(*xs)
+            return torch.autograd.grad(out, xs, dout)
+
+        def sdpa(q, k, v):
+            # never the math backend: its L x L scores would not fit
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        causal = lambda fn: (lambda q, k, v: fn(q, k, v, causal=True))  # noqa: E731
+        t = {"ring_fwd": time_ms(lambda: causal(ring)(q, k, v), iters=1, warmup=1),
+             "flash_fwd": time_ms(lambda: causal(flash_attention)(q, k, v), iters=1, warmup=1),
+             "sdpa_fwd": time_ms(lambda: sdpa(q, ke, ve), iters=1, warmup=1),
+             "ring_fwd_bwd": time_ms(lambda: fwd_bwd(causal(ring), q, k, v), iters=1, warmup=1),
+             "flash_fwd_bwd": time_ms(lambda: fwd_bwd(causal(flash_attention), q, k, v),
+                                      iters=1, warmup=1),
+             "sdpa_fwd_bwd": time_ms(lambda: fwd_bwd(sdpa, q, ke, ve), iters=1, warmup=1)}
+        times[dname] = t
+        print(f"  {dname} times (ms, median of 5 readings): " + ", ".join(
+            f"{k} {ms:.3f}" for k, ms in t.items()) + " (SDPA on k, v repeated to 8 heads)")
+    return {"errors": errs, "times_ms": times}
+
+
+def ring_seams_phase():
+    """Phase 21d: the dense ring (8 shards), Ulysses (4: the kv heads are
+    4) and the striped fn (8) against one flash call at L 8,192, fp32,
+    causal, forward and q, k, v gradients."""
+    from baton_tpu_torch.ops.flash_attention import flash_attention
+    from baton_tpu_torch.parallel.mesh import make_mesh
+    from baton_tpu_torch.parallel.ring_attention import (
+        make_ring_attention_fn,
+        make_striped_attention_fn,
+        make_ulysses_attention_fn,
+    )
+
+    b, hq, hkv, _, d = RING_ATTENTION
+    inputs = ring_inputs(41, b, hq, hkv, RING_SEAMS_LEN, d, torch.float32)
+
+    def mesh(n):
+        return make_mesh(n, ("seq",), devices=[torch.device("cuda")] * n)
+
+    print(f"phase 21d: the dense seams at L {RING_SEAMS_LEN} (B {b}, {hq}/{hkv} heads, D {d}, "
+          "fp32, causal) against one flash call")
+    errs = {}
+    for label, fn, n in (("dense ring", make_ring_attention_fn(mesh(8)), 8),
+                         ("ulysses", make_ulysses_attention_fn(mesh(hkv)), hkv),
+                         ("striped", make_striped_attention_fn(mesh(8)), 8)):
+        errs[label], dt = timed(lambda: hold_attention(f"21d {label}", fn, flash_attention,
+                                                         inputs, n, TOL[torch.float32]))
+        print(f"  {label} over {n} shards: " + " ".join(
+            f"{k}={e:.2e}" for k, e in errs[label].items()) + f" (tol 1e-4), {dt:.1f} s")
+    return errs
+
+
+def sequence_parallel_phase(fa, name):
+    """Phase 21: (a)-(d) above; returns (launches of (a) by pass, the same
+    a step, ring-block rows by kernel and dtype, stats)."""
+    torch.cuda.empty_cache()
+    launches, per_step, stats = long_context_phase(fa)
+    torch.cuda.empty_cache()
+    stats = {"long_context": stats, "striped": striped_phase(fa)}
+    torch.cuda.empty_cache()
+    stats["ring_flash_alone"] = ring_flash_alone_phase(fa)
+    block_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):  # not causal: 28 of a layer's 36 block calls
+        rows = attention_times(fa, name, "the ring block", *RING_BLOCK, causal=False,
+                               bias_kind=None, seed=31, dtype=dtype)
+        for kname, row in rows.items():
+            block_rows.setdefault(kname, {})[str(dtype)[6:]] = row
+    stats["seams"] = ring_seams_phase()
+    return launches, per_step, block_rows, stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kernels_only = sys.argv[1:] == ["--kernels-only"]
@@ -3641,6 +4018,9 @@ def main() -> int:
     fused_stats = fused_phase(fa)
     examples_stats = examples_phase()
     print(f"phases 17-20 took {time.perf_counter() - slice10:.1f} s")
+    slice11 = time.perf_counter()
+    ring_launches, ring_per_step, ring_rows, ring_stats = sequence_parallel_phase(fa, name)
+    print(f"phase 21 took {time.perf_counter() - slice11:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -3656,6 +4036,9 @@ def main() -> int:
         row["config5_shape"] = config5_times[row["name"]]
         row["launches_fused_bert"] = fused_stats["launches_fused_bert"][counter]
         row["launches_per_round_fused_bert"] = fused_stats["launches_per_round_fused_bert"][counter]
+        row["launches_ring_flash"] = ring_launches[counter]
+        row["launches_per_step_ring_flash"] = ring_per_step[counter]
+        row["ring_block_shape"] = ring_rows[row["name"]]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
@@ -3663,7 +4046,7 @@ def main() -> int:
                       "bandwidth": bandwidth_stats, "secure": secure_stats,
                       "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats,
                       "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
-                      "examples": examples_stats}))
+                      "examples": examples_stats, "sequence_parallel": ring_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -20,11 +20,15 @@ launches per step, each passing and failing a broken input, and its
 card-against-CPU runs of the four variants at a tiny size; phase 16's
 host-side helpers (the 4·P·tokens count, the memory estimate and the wave
 it picks, the frozen-base check, the sweep artifact's writer and what
-``configure_attention_dispatch`` reads from it); and ``main`` with every
-phase, the card and nvidia-smi stubbed: it runs phases 2-16 in order and
-ends with the card's name and power limit, the kernels line (with its
-config-4 launches) and the ok/device line; a failing phase from 6 on
-fails it before any result line."""
+``configure_attention_dispatch`` reads from it); phase 21's checks (the
+ring's launch count against a counted CPU step of example 06, the shard
+by shard comparator and the model-gradient check, each failing a broken
+input) and phase 2's check of the flash block wrappers, passing them and
+failing a broken dk, dtype or launch; and ``main`` with every phase, the card and nvidia-smi stubbed:
+it runs phases 2-21 in order and ends with the card's name and power
+limit, the kernels line (with its config-4 and ring launches) and the
+ok/device line; a failing phase from 6 on fails it before any result
+line."""
 
 import dataclasses
 import importlib.util
@@ -200,7 +204,7 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
           "variants_phase", "config4_phase", "remat_phase", "vit_phase", "lstm_phase",
           "zoo_parity_phase", "crossover_phase", "config5_phase", "config5_timing_phase",
-          "auto_wave_phase", "fused_phase", "examples_phase")
+          "auto_wave_phase", "fused_phase", "examples_phase", "sequence_parallel_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -213,6 +217,10 @@ CONFIG5_PER_ROUND = {"fwd": 96, "bwd_dkv": 48, "bwd_dq": 48}
 CONFIG5_PER_STEP = {"fwd": 24, "bwd_dkv": 12, "bwd_dq": 12}
 CONFIG5_ROW = {"ms": 0.3, "bound_ms": 0.1}
 FUSED_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
+# example 06's full preset: 36 block calls a pass and layer, 8 layers, remat, 5 steps
+RING_PER_STEP = {"fwd": 576, "bwd_dkv": 288, "bwd_dq": 288}
+RING_COUNTS = {k: 5 * n for k, n in RING_PER_STEP.items()}
+RING_ROW = {"float32": {"ms": 2.0, "bound_ms": 0.5}, "bfloat16": {"ms": 0.5, "bound_ms": 0.1}}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -247,6 +255,8 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "fused_phase": {"launches_fused_bert": FUSED_COUNTS,
                                     "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
                     "examples_phase": {},
+                    "sequence_parallel_phase": (RING_COUNTS, RING_PER_STEP,
+                                                {"flash_fwd": RING_ROW}, {}),
                     }.get(phase)
         return run
 
@@ -283,7 +293,9 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_per_round_config4": 256, "launches_per_step_config4": 64,
         "launches_config5": 288, "launches_per_round_config5": 96,
         "launches_per_step_config5": 24, "config5_shape": CONFIG5_ROW,
-        "launches_fused_bert": 48, "launches_per_round_fused_bert": 12}]}
+        "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
+        "launches_ring_flash": 2880, "launches_per_step_ring_flash": 576,
+        "ring_block_shape": RING_ROW}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -294,7 +306,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                      "variants_phase", "config4_phase", "remat_phase",
                                      "vit_phase", "lstm_phase", "zoo_parity_phase",
                                      "crossover_phase", "config5_phase", "auto_wave_phase",
-                                     "fused_phase", "examples_phase"])
+                                     "fused_phase", "examples_phase",
+                                     "sequence_parallel_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -307,8 +320,10 @@ def _tiny_bert_cohort():
     from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
+    from baton_tpu_torch.examples.bert_fedprox import make_data
+
     cfg = BertConfig.tiny()
-    datasets = chip_smoke.config3_datasets(np.random.default_rng(0), cfg, 4, 8)
+    datasets = make_data(np.random.default_rng(0), cfg, 4, 8)
     datasets[2] = {k: v[:0] for k, v in datasets[2].items()}  # a client without samples
     data, n_samples = stack_client_datasets(datasets, batch_size=4)
     model = bert_classifier_model(cfg)
@@ -316,17 +331,24 @@ def _tiny_bert_cohort():
 
 
 def test_config3_data_is_the_examples():
-    """Phase 8's copy of ``make_data`` (examples/03_bert_fedprox.py) draws
-    the example's arrays bit for bit: each client skewed to two classes."""
+    """Phase 8 draws its clients with the port's example 03
+    (``baton_tpu_torch/examples/bert_fedprox.py``), whose ``make_data``
+    draws the JAX example's arrays bit for bit: each client skewed to two
+    classes."""
+    import inspect
+
+    from baton_tpu_torch.examples.bert_fedprox import make_data
     from baton_tpu_torch.models.bert import BertConfig
 
+    assert "from baton_tpu_torch.examples.bert_fedprox import make_data" in inspect.getsource(
+        chip_smoke.fedprox_bert_phase)
     spec = importlib.util.spec_from_file_location(
         "bert_fedprox_example",
         Path(__file__).resolve().parents[1] / "examples" / "03_bert_fedprox.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     cfg = BertConfig.tiny()
-    datasets = chip_smoke.config3_datasets(np.random.default_rng(0), cfg, 6, 16)
+    datasets = make_data(np.random.default_rng(0), cfg, 6, 16)
     want = example.make_data(np.random.default_rng(0), example.BertConfig.tiny(), 6, 16)
     for d, w in zip(datasets, want, strict=True):
         assert d.keys() == w.keys()
@@ -749,3 +771,129 @@ def test_noise_replay_check():
 
     wrong = Rescaled(**{f.name: getattr(trainer, f.name) for f in dataclasses.fields(trainer)})
     assert chip_smoke.noise_replay_gap(wrong, params, batch, seed=5) > 1e-2
+
+
+# ---------------------------------------------------------------------------
+# phase 21's checks
+
+
+def test_ring_launch_count_is_what_example06_launches(monkeypatch):
+    """The count phase 21 holds the card to, against a counted CPU step of
+    example 06 (the flash wrappers counting as their kernels do): a causal
+    ring of N shards makes N + N(N-1)/2 block calls a pass and layer, and
+    remat runs the forward twice; 36 at N = 8, so 576 / 288 / 288 a step of
+    the full preset's 8 layers."""
+    from baton_tpu_torch.examples import long_context_ring as ex
+    from baton_tpu_torch.models.llama import LlamaConfig
+
+    assert [chip_smoke.ring_block_calls(n) for n in (1, 2, 4, 8)] == [1, 3, 10, 36]
+    assert chip_smoke.ring_block_calls(8, causal=False) == 64
+    assert chip_smoke.ring_step_launches(8, 8, remat=True) == RING_PER_STEP
+    counted = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    for name in counted:
+        real = getattr(fa, f"_{name}")
+
+        def wrapper(*args, _real=real, _name=name):
+            counted[_name] += 1
+            return _real(*args)
+
+        monkeypatch.setattr(fa, f"_{name}", wrapper)
+    cfg = LlamaConfig.tiny(max_len=32, n_heads=4, n_kv_heads=2, n_layers=2)
+    for remat in (True, False):
+        for k in counted:
+            counted[k] = 0
+        ex.run(n_devices=4, seq_len=32, n_steps=2, batch_size=1, config=cfg, remat=remat,
+               device="cpu")
+        want = chip_smoke.ring_step_launches(4, cfg.n_layers, remat)
+        assert counted == {k: 2 * n for k, n in want.items()}
+
+
+def test_shard_comparator_names_the_shard_that_is_off():
+    want = torch.randn(1, 2, 32, 4)
+    assert chip_smoke.check_shards("ok", want + 1e-6, want, 8, 1e-4) < 1e-5
+    for j in (0, 5, 7):
+        got = want.clone()
+        got[:, :, 4 * j + 1] += 1e-2  # one row of shard j
+        with pytest.raises(RuntimeError, match=f"shard {j} off"):
+            chip_smoke.check_shards("out", got, want, 8, 1e-4)
+    bias_grad = torch.randn(1, 1, 1, 32)
+    off = bias_grad.clone()
+    off[..., 30] = float("nan")
+    with pytest.raises(RuntimeError, match="shard 7 not finite"):
+        chip_smoke.check_shards("dbias", off, bias_grad, 8, 1e-4, dim=3)
+
+
+def test_hold_attention_passes_the_ring_and_fails_a_broken_one():
+    """Phase 21's comparison of a seam with one flash call, on the CPU at a
+    tiny size: ring × flash passes; a ring that drops one shard's diagonal
+    block fails on that shard."""
+    from baton_tpu_torch.ops.flash_attention import flash_attention
+    from baton_tpu_torch.parallel.mesh import make_mesh
+    from baton_tpu_torch.parallel.ring_attention import make_flash_ring_attention_fn
+
+    gen = torch.Generator().manual_seed(0)
+    q, dout = (torch.randn(1, 4, 32, 8, generator=gen) for _ in range(2))
+    k, v = (torch.randn(1, 2, 32, 8, generator=gen) for _ in range(2))
+    bias = torch.where(torch.arange(32) < 13, 0.0, -1e30)[None, None, None, :]
+    ring = make_flash_ring_attention_fn(make_mesh(8, ("seq",), devices=["cpu"] * 8))
+    errs = chip_smoke.hold_attention("ring", ring, flash_attention, (q, k, v, dout, bias), 8,
+                                     1e-4)
+    assert set(errs) == {"out", "dq", "dk", "dv", "dbias"} and max(errs.values()) < 1e-4
+
+    def broken(q, k, v, bias=None, causal=False):
+        out = ring(q, k, v, bias=bias, causal=causal)
+        return torch.cat([out[:, :, :8], 0.5 * out[:, :, 8:12], out[:, :, 12:]], dim=2)
+
+    with pytest.raises(RuntimeError, match="out: shard 2 off"):
+        chip_smoke.hold_attention("ring", broken, flash_attention, (q, k, v, dout, bias), 8,
+                                  1e-4)
+
+
+@pytest.mark.parametrize("dtype,fault", [(torch.float32, None), (torch.bfloat16, None),
+                                         (torch.float32, "dk"), (torch.bfloat16, "dq_dtype"),
+                                         (torch.float32, "fallback")])
+def test_block_wrapper_check(monkeypatch, dtype, fault):
+    """Phase 2's check of ``flash_block_fwd`` / ``flash_block_bwd`` on the
+    CPU at a tiny ring block (the wrappers take their plain path here, so
+    the launches are stubbed): it passes the wrappers, and fails a dk off
+    at one key, a dq not cast back to bf16, and a call that launched no
+    kernel; a block of padding keys takes the row's out and lse, as in the
+    ring."""
+    import functools
+
+    monkeypatch.setattr(chip_smoke, "RING_BLOCK", (1, 4, 2, 40, 8))
+    monkeypatch.setattr(chip_smoke, "attention_inputs",
+                        functools.partial(chip_smoke.attention_inputs, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    design = "mma" if dtype == torch.bfloat16 else "simt"
+    launched = {} if fault == "fallback" else {
+        f"{p}_{design}": 1 for p in ("fwd", "bwd_dkv", "bwd_dq")}
+    monkeypatch.setattr(chip_smoke, "launches_since", lambda fa, before: ({}, launched))
+    real_bwd = fa.flash_block_bwd
+
+    def bwd(*args):
+        dq, dk, dv, db = real_bwd(*args)
+        if fault == "dk":
+            dk = dk.clone()
+            dk[0, 1, 7, 3] += 1e-2
+        if fault == "dq_dtype":
+            dq = dq.float()
+        return dq, dk, dv, db
+
+    monkeypatch.setattr(fa, "flash_block_bwd", bwd)
+    for causal, all_padding in ((False, False), (True, False), (False, True)):
+        if fault is None:
+            chip_smoke.block_wrapper_case(fa, 100, dtype, causal, all_padding)
+            continue
+        match = {"dk": "dk: max abs err", "dq_dtype": "dtypes",
+                 "fallback": "launches by design"}[fault]
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.block_wrapper_case(fa, 100, dtype, causal, all_padding)
+
+
+def test_model_gradient_check():
+    want = {"a": torch.tensor([1.0, -2.0]), "b": torch.tensor([1e-3, 0.0])}
+    got = {"a": want["a"] + 1e-5, "b": want["b"] * (1 + 1e-5)}
+    assert chip_smoke.check_model_grads("ok", got, want) < 1e-4
+    with pytest.raises(RuntimeError, match="gradient of b"):
+        chip_smoke.check_model_grads("bad", dict(got, b=want["b"] * 1.01), want)

@@ -25,13 +25,15 @@ from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.core import optim
 from baton_tpu_torch.examples import (
     advanced_aggregation,
+    bert_fedprox,
     llama_lora,
+    long_context_ring,
     lstm_shakespeare,
     vit_dp_secure,
 )
 from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.ops.privacy import DPConfig
-from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
+from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients, make_mesh
 from baton_tpu_torch.server import http_worker
 from baton_tpu_torch.server.http_manager import Manager
 from baton_tpu_torch.server.http_worker import ExperimentWorker
@@ -70,6 +72,10 @@ def test_the_import_scan_covers_the_federation_variants():
     assert {f"baton_tpu_torch/examples/{m}.py" for m in
             ("vit_dp_secure", "resnet_cifar_dirichlet", "real_digits",
              "bandwidth_efficient_http")} <= names
+    # sequence parallelism, examples 03 and 06
+    assert {f"baton_tpu_torch/parallel/{m}.py" for m in ("mesh", "ring_attention")} <= names
+    assert {f"baton_tpu_torch/examples/{m}.py" for m in
+            ("bert_fedprox", "long_context_ring")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -89,9 +95,14 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert FedSim(model, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         advanced_aggregation.run()
-    for example in (llama_lora, lstm_shakespeare, vit_dp_secure):
+    for example in (llama_lora, lstm_shakespeare, vit_dp_secure, bert_fedprox,
+                    long_context_ring):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.run()
+    # a mesh is every CUDA device unless given its devices
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh(8, ("seq",), devices=["cpu"] * 8).shape == {"seq": 8}
 
 
 def _zoo():
