@@ -41,7 +41,7 @@ reproduce; callers that need JAX's exact shuffles inject them as
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -106,6 +106,31 @@ def stack_copies(tree, c: int):
     """``c`` copies of every leaf of nested dicts, along a new leading
     client axis."""
     return optim.tree_map(lambda v: v.unsqueeze(0).repeat(c, *([1] * v.dim())), tree)
+
+
+def stack_shapes(params: Params, total: int) -> dict:
+    """``{name: [total, *shape]}`` meta tensors for stacked ``params``
+    (shape templates: nothing is allocated)."""
+    return {k: torch.empty((total,) + tuple(v.shape[1:]), device="meta")
+            for k, v in params.items()}
+
+
+def noise_rows_of(params: Params, generator: torch.Generator,
+                  noise_rows: Tuple[int, int, int], device) -> Params:
+    """Rows ``lo:hi`` (``noise_rows = (lo, hi, total)``) of one step's
+    standard-normal noise for a cohort of ``total`` clients stacked like
+    ``params``, on ``device``: ``privacy.gaussian_noise_like`` of the
+    cohort's ``[total, ...]`` shapes from ``generator``, drawn leaf by leaf
+    in the params' order (the draws of the whole cohort's noise) and cut
+    to the rows at once, so one leaf's whole draw is alive at a time and
+    the rows kept own their memory."""
+    lo, hi, total = noise_rows
+    out = {}
+    for k, shape in stack_shapes(params, total).items():
+        full = privacy.gaussian_noise_like({k: shape}, 1.0, generator)[k]
+        out[k] = (full.to(device, non_blocking=True) if (lo, hi) == (0, total)
+                  else full[lo:hi].to(device, non_blocking=True, copy=True))
+    return out
 
 
 def _where(keep: torch.Tensor, new, old):
@@ -231,23 +256,26 @@ class LocalTrainer:
     def train_clients(self, params: Params, data: Batch, n_samples: torch.Tensor,
                       n_epochs: int = 1, perms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      anchor: Optional[Params] = None, frozen: Optional[Params] = None):
+                      anchor: Optional[Params] = None, frozen: Optional[Params] = None,
+                      noise_rows: Optional[Tuple[int, int, int]] = None):
         """C clients from the same ``params``, each from a fresh optimizer
         state (as JAX's ``train`` under vmap): ``data`` leaves are
         [C, capacity, ...], ``n_samples`` [C], ``perms`` an optional
         [C, n_epochs, capacity]. Returns the per-client params (leaves
         [C, ...]) and losses [C, n_epochs]; the optimizer states are
-        dropped, as the engine drops them."""
+        dropped, as the engine drops them. ``noise_rows``: see
+        ``train_stacked``."""
         c = n_samples.shape[0]
         p, _, losses = self.train_stacked(
             stack_copies(params, c), self.init_opt_states(params, c), data, n_samples,
-            n_epochs, perms, generator, anchor, frozen)
+            n_epochs, perms, generator, anchor, frozen, noise_rows)
         return p, losses
 
     def train_stacked(self, params: Params, opt_state, data: Batch, n_samples: torch.Tensor,
                       n_epochs: int = 1, perms: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      anchor: Optional[Params] = None, frozen: Optional[Params] = None):
+                      anchor: Optional[Params] = None, frozen: Optional[Params] = None,
+                      noise_rows: Optional[Tuple[int, int, int]] = None):
         """C clients, each from its own starting point: ``params`` and
         ``opt_state`` leaves are [C, ...] (``init_opt_states`` gives fresh
         states), ``data`` leaves [C, capacity, ...], ``n_samples`` [C],
@@ -257,7 +285,13 @@ class LocalTrainer:
         dict, never batched. Under DP with noise, each step draws
         ``privacy.gaussian_noise_like(params, 1.0, g)`` of the stacked
         params from ``g = noise_generator(generator, device)``, after the
-        shuffles. Returns ``(params, opt_state, losses [C, n_epochs])``."""
+        shuffles. ``noise_rows = (lo, hi, total)`` makes these C clients rows
+        ``lo:hi`` of a cohort of ``total``: each step draws the cohort's
+        ``[total, ...]`` noise from ``generator`` itself (a replica of the
+        cohort's noise generator, one a shard of a clients mesh) and keeps
+        those rows (:func:`noise_rows_of`), so a client gets the noise it
+        gets without the mesh.
+        Returns ``(params, opt_state, losses [C, n_epochs])``."""
         p = params
         if self.regularizer is not None and anchor is None:
             raise ValueError("a trainer with a regularizer needs the anchor params")
@@ -281,12 +315,19 @@ class LocalTrainer:
                 return grads, sums
         else:
             noisy = self.dp.noise_multiplier > 0
-            gen = noise_generator(generator, device) if noisy else None
+            if noisy and noise_rows is not None and generator is None:
+                raise ValueError("DP-SGD noise needs a torch.Generator")
+            gen = (None if not noisy else generator if noise_rows is not None
+                   else noise_generator(generator, device))
             dp_fn = torch.func.vmap(self._dp_grads,
                                     in_dims=(0, None, anchor_dim, 0, 0 if noisy else None))
 
             def step_grads(p, batch):
-                noise = privacy.gaussian_noise_like(p, 1.0, gen) if noisy else None
+                noise = None
+                if noisy and noise_rows is None:
+                    noise = privacy.gaussian_noise_like(p, 1.0, gen)
+                elif noisy:
+                    noise = noise_rows_of(p, gen, noise_rows, device)
                 return dp_fn(p, frozen, anchor, batch, noise)
         rows = torch.arange(c, device=device)[:, None]
         history = []

@@ -33,6 +33,7 @@ from baton_tpu_torch.data.synthetic import synthetic_image_clients
 from baton_tpu_torch.models.cnn import cnn_mnist_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.parallel.engine import FedSim
+from baton_tpu_torch.parallel.mesh import cuda_clients_mesh
 from baton_tpu_torch.utils.checkpoint import Checkpointer
 
 
@@ -57,10 +58,11 @@ def client_data(n_clients=4, batch_size=32, n_per_client=64, seed=0,
     return stack_client_datasets(datasets, batch_size=batch_size)
 
 
-def make_sim(batch_size=32, device="cuda") -> FedSim:
-    """The example's FedSim: the 2-layer CNN, local SGD(0.01, momentum 0.9)."""
+def make_sim(batch_size=32, device="cuda", mesh=None) -> FedSim:
+    """The example's FedSim: the 2-layer CNN, local SGD(0.01, momentum 0.9),
+    on ``mesh`` (a clients mesh) when given."""
     return FedSim(cnn_mnist_model(), batch_size=batch_size,
-                  optimizer=optim.sgd(0.01, momentum=0.9), device=device)
+                  optimizer=optim.sgd(0.01, momentum=0.9), mesh=mesh, device=device)
 
 
 def run(n_clients=4, n_rounds=4, n_epochs=2, batch_size=32,
@@ -72,14 +74,11 @@ def run(n_clients=4, n_rounds=4, n_epochs=2, batch_size=32,
     ``loss_history`` (one entry per epoch), and the host seconds spent
     making the client data (``data_s``) and in the rounds (``train_s``,
     which ends on the last round's losses read back from the device)."""
-    if use_mesh:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP item 11)")
     t0 = time.perf_counter()
     data, n_samples = client_data(n_clients, batch_size, n_per_client, seed,
                                   data_dir, download, real_data)
     data_s = time.perf_counter() - t0
-    sim = make_sim(batch_size, device)
+    sim = make_sim(batch_size, device, cuda_clients_mesh() if use_mesh else None)
     params = sim.init(torch.Generator().manual_seed(seed))
     checkpointer = Checkpointer(checkpoint_dir) if checkpoint_dir else None
     t0 = time.perf_counter()

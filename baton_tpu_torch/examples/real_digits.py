@@ -23,14 +23,13 @@ from baton_tpu_torch.data import dirichlet_partition, load_digits_real
 from baton_tpu_torch.models.cnn import cnn_mnist_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.parallel.engine import FedSim
+from baton_tpu_torch.parallel.mesh import cuda_clients_mesh
 
 
 def run(n_clients=8, n_rounds=20, n_epochs=2, alpha=0.5, batch_size=32,
         use_mesh=False, fedbuff=False, seed=0, device="cuda"):
     """Train on Dirichlet shards of the real digits (synchronous FedAvg,
     or asynchronous FedBuff); returns the held-out accuracy."""
-    if use_mesh:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP item 11)")
     train, test, info = load_digits_real(seed=seed)
     print(f"dataset: {info['dataset']} (real={info['real']}) "
           f"train={info['n_train']} test={info['n_test']}")
@@ -43,8 +42,11 @@ def run(n_clients=8, n_rounds=20, n_epochs=2, alpha=0.5, batch_size=32,
           f"sizes {min(sizes)}..{max(sizes)}")
     data, n_samples = stack_client_datasets(clients, batch_size=batch_size)
 
+    mesh = cuda_clients_mesh() if use_mesh else None
+    if mesh is not None:
+        print(f"clients mesh over {mesh.devices.size} devices")
     model = cnn_mnist_model(image_size=8, channels=1, width=16, name="cnn_digits")
-    sim = FedSim(model, batch_size=batch_size, learning_rate=0.1, device=device)
+    sim = FedSim(model, batch_size=batch_size, learning_rate=0.1, mesh=mesh, device=device)
     params = sim.init(torch.Generator().manual_seed(seed))
     data = {k: torch.as_tensor(v, device=sim.device) for k, v in data.items()}
     n_samples = torch.as_tensor(n_samples, device=sim.device)

@@ -2,11 +2,11 @@
 port of ``examples/02_resnet_cifar_dirichlet.py``).
 
 Simulated FedAvg clients with label-skew shards, trained in bf16 on one
-card. Shows the scale levers of one device: ``wave_size`` (the memory
-ceiling: clients are processed in accumulating waves; ``"auto"`` sizes
-them from the card) and checkpoint/resume for long runs. The clients
-mesh of the reference waits for the multi-device port (``use_mesh=True``
-is refused).
+card. Shows the scale levers: ``wave_size`` (the memory ceiling: clients
+are processed in accumulating waves; ``"auto"`` sizes them from the
+card), ``use_mesh=True`` (a clients mesh over every CUDA device when
+there is more than one; one device runs meshless) and checkpoint/resume
+for long runs.
 
 CIFAR-10 is read through the offline loaders: ``data_dir`` files when
 present, else the loader's deterministic synthetic surrogate (reported
@@ -27,6 +27,7 @@ from baton_tpu_torch.data.partition import dirichlet_partition, partition_stats
 from baton_tpu_torch.models.resnet import resnet18_cifar_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.parallel.engine import FedSim
+from baton_tpu_torch.parallel.mesh import cuda_clients_mesh
 from baton_tpu_torch.utils.checkpoint import Checkpointer
 
 
@@ -57,8 +58,6 @@ def run(n_clients=16, n_total=1024, alpha=0.5, n_rounds=3, n_epochs=1,
     """Train ``n_rounds`` FedAvg rounds; returns ``(loss history,
     federated evaluation)``. A ``checkpoint_dir`` that holds a run's
     steps resumes it."""
-    if use_mesh:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP item 11)")
     rng = np.random.default_rng(seed)
     shards = make_data(rng, n_total, n_clients, alpha, image_size=image_size,
                        data_dir=data_dir, download=download)
@@ -67,8 +66,9 @@ def run(n_clients=16, n_total=1024, alpha=0.5, n_rounds=3, n_epochs=1,
           f"sizes {[s['n'] for s in stats[:8]]}…")
     data, n_samples = stack_client_datasets(shards, batch_size=batch_size)
 
+    mesh = cuda_clients_mesh() if use_mesh else None
     model = (model_fn or resnet18_cifar_model)(compute_dtype=compute_dtype)
-    sim = FedSim(model, batch_size=batch_size, learning_rate=0.05, device=device)
+    sim = FedSim(model, batch_size=batch_size, learning_rate=0.05, mesh=mesh, device=device)
     params = sim.init(torch.Generator().manual_seed(seed))
     data = {k: torch.as_tensor(v, device=sim.device) for k, v in data.items()}
     n_samples = torch.as_tensor(n_samples, device=sim.device)

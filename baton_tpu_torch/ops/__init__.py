@@ -1,8 +1,7 @@
-"""The port's ops, with the names ``baton_tpu/ops/__init__.py`` exports
-that have a counterpart here (the mesh form ``psum_weighted_mean`` waits
-for the multi-device port)."""
+"""The port's ops, with the names ``baton_tpu/ops/__init__.py`` exports."""
 
 from baton_tpu_torch.ops.aggregation import (
+    psum_weighted_mean,
     tree_stack,
     tree_unstack,
     weighted_tree_mean,
@@ -22,6 +21,7 @@ from baton_tpu_torch.ops.privacy import (
 from baton_tpu_torch.ops.secure_agg import aggregate_masked, mask_update, net_mask_of
 
 __all__ = [
+    "psum_weighted_mean",
     "weighted_tree_mean",
     "weighted_tree_sum",
     "tree_stack",

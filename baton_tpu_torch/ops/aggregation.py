@@ -10,8 +10,17 @@
   ``{name: array}`` updates as they arrive, copied from the JAX package.
 
 Params are flat ``{name: tensor}`` dicts; a stacked dict has a leading
-client axis on every leaf. The mesh (``psum``) forms wait for the
-multi-device port.
+client axis on every leaf.
+
+On a clients mesh (``parallel/mesh.py``) a value is a list of per-shard
+parts, one for each shard this process holds. :func:`psum` is the one
+reduction over the client axis: the parts' fp32 values are added in shard
+order on the first shard's device, added across processes by one
+``torch.distributed.all_reduce`` where the mesh spans them (:func:`_all_reduce`,
+the only transport), and copied back to every shard's device.
+:func:`psum_weighted_mean` and :func:`psum_weighted_scalar_mean` are
+FedAvg's forms of it, :func:`gather_clients` the gather of per-client
+rows that rides on it.
 """
 
 from __future__ import annotations
@@ -58,6 +67,105 @@ def weighted_scalar_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.T
     history), in fp32."""
     w = weights.float()
     return torch.tensordot(w, values.float(), dims=([0], [0])) / w.sum().clamp_min(1e-9)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tensor or of nested dicts of tensors, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(like, it):
+    """``like``'s structure with its leaves taken in order from ``it``."""
+    if isinstance(like, dict):
+        return {k: _rebuild(v, it) for k, v in like.items()}
+    return next(it)
+
+
+def _all_reduce(leaves: list, group) -> list:
+    """The sum of fp32 ``leaves`` over the processes of ``group``: the
+    client axis's only transport across processes. The leaves travel as
+    one flat buffer in one ``torch.distributed.all_reduce`` (gloo copies a
+    CUDA buffer through the host)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = [], 0
+    for t in leaves:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+def psum(parts: Sequence, mesh, axis: str = "clients") -> list:
+    """The sum over every shard of the mesh's ``axis`` of ``parts`` (one
+    tensor, or nested dict of tensors, for each shard this process holds,
+    in shard order), in fp32: added in shard order on the first shard's
+    device, then across processes (:func:`_all_reduce`), and returned as
+    one copy on each shard's device."""
+    devices = [d for _, d in mesh.local_shards(axis)]
+    if len(parts) != len(devices):
+        raise ValueError(f"{len(parts)} parts for the {len(devices)} shards of {axis!r} "
+                         "this process holds")
+    home = devices[0]
+    total = [t.float().to(home, non_blocking=True) for t in _leaves(parts[0])]
+    for part in parts[1:]:
+        total = [acc + t.float().to(home, non_blocking=True)
+                 for acc, t in zip(total, _leaves(part))]
+    if mesh.spans_processes:
+        total = _all_reduce(total, mesh.process_group)
+    return [_rebuild(parts[0], iter([t.to(d, non_blocking=True) for t in total]))
+            for d in devices]
+
+
+def gather_clients(parts: Sequence[torch.Tensor], mesh, axis: str = "clients") -> torch.Tensor:
+    """The per-client rows of every shard of ``axis`` (``parts``: this
+    process's ``[C_shard, ...]`` tensors, in shard order), concatenated in
+    shard order on the first shard's device (one shard's rows are returned
+    as they are). Across processes each one fills its own rows of a zero
+    tensor and :func:`psum` adds them (exact: every row is one process's
+    value plus zeros)."""
+    home = mesh.local_shards(axis)[0][1]
+    if not mesh.spans_processes:
+        if len(parts) == 1:
+            return parts[0].to(home, non_blocking=True)
+        return torch.cat([p.to(home, non_blocking=True) for p in parts])
+    per = parts[0].shape[0]
+    full = [torch.zeros((mesh.shape[axis] * per,) + tuple(parts[0].shape[1:]),
+                        dtype=torch.float32, device=d) for _, d in mesh.local_shards(axis)]
+    for (j, _), f, p in zip(mesh.local_shards(axis), full, parts):
+        f[j * per:(j + 1) * per] = p.float()
+    return psum(full, mesh, axis)[0].to(parts[0].dtype)
+
+
+def gather_client_tree(parts: Sequence, mesh, n: int, axis: str = "clients"):
+    """:func:`gather_clients` leaf by leaf over per-shard nested dicts (an
+    optimizer state's stack), each cut to its first ``n`` clients."""
+    if isinstance(parts[0], dict):
+        return {k: gather_client_tree([p[k] for p in parts], mesh, n, axis) for k in parts[0]}
+    return gather_clients(parts, mesh, axis)[:n]
+
+
+def psum_weighted_mean(local_stacked: Sequence[Params], local_weights: Sequence[torch.Tensor],
+                       mesh, axis: str = "clients") -> list:
+    """FedAvg across a sharded client axis: each shard holds ``[C_shard,
+    ...]`` client params and their sample weights; the fp32 weighted mean
+    is one :func:`psum` of ``(Σ_shard w·p, Σ_shard w)``. Returns the mean
+    on each shard's device (fp32; callers cast with :func:`tree_cast_like`)."""
+    tot = psum([{"sums": weighted_tree_sum(t, w), "w": w.float().sum()}
+                for t, w in zip(local_stacked, local_weights)], mesh, axis)
+    return [{k: s / t["w"].clamp_min(1e-9) for k, s in t["sums"].items()} for t in tot]
+
+
+def psum_weighted_scalar_mean(values: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
+                              mesh, axis: str = "clients") -> list:
+    """:func:`weighted_scalar_mean` across a sharded client axis (the loss
+    history): one :func:`psum` of ``(Σ_shard w·values, Σ_shard w)``."""
+    tot = psum([{"l": torch.tensordot(w.float(), v.float(), dims=([0], [0])),
+                 "w": w.float().sum()} for v, w in zip(values, weights)], mesh, axis)
+    return [t["l"] / t["w"].clamp_min(1e-9) for t in tot]
 
 
 def tree_sub(a: Params, b: Params) -> Params:

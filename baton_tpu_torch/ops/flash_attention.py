@@ -29,9 +29,10 @@ for ring × flash (``parallel/ring_attention.py``).
 A wrapper takes its plain version only because the tensor it was given
 lies on the CPU; a CUDA tensor goes to a kernel or raises. Each kernel
 launch adds one to ``launches_by_design[pass_design]``, and nothing else
-does; ``launches()`` sums them by pass. The kernels are built with one
-``nvcc`` call for ``sm_90a`` at the first CUDA launch (into ``_build/``
-beside this file, keyed by the sources' hash) and bound with ctypes. The
+does; ``launches()`` sums them by pass. The kernels are built for
+``sm_90a`` at the first CUDA launch, one ``nvcc`` a source started
+together and one link (into ``_build/`` beside this file, keyed by the
+sources' hash), and bound with ctypes. The
 sources note what bounds each kernel on the card.
 
 Semantics are those of the JAX kernels: q [B, Hq, Lq, D], k/v
@@ -68,7 +69,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("flash_attention.cu", "flash_attention_mma.cu")
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
 # chip_smoke.py resets them before the path it counts
@@ -124,12 +125,25 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp),
-                               *(str(_CSRC / name) for name in _SOURCES)],
-                              capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+        # one nvcc a source, all started together, then one link
+        objs = [so.with_name(f"{Path(name).stem}.{os.getpid()}.o") for name in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, obj in zip(_SOURCES, objs)]
+        outs = [p.communicate() for p in procs]
+        log = "".join(out + err for out, err in outs)
+        failed = [err for p, (_, err) in zip(procs, outs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.append(link.stderr)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        so.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

@@ -1,4 +1,4 @@
-from baton_tpu_torch.parallel.mesh import make_mesh
+from baton_tpu_torch.parallel.mesh import make_mesh, client_sharding, replicated_sharding
 from baton_tpu_torch.parallel.engine import FedSim, RoundResult
 from baton_tpu_torch.parallel.fedbuff import AsyncResult, FedBuff
 from baton_tpu_torch.parallel.personalization import FedPer, PersonalizedRoundResult
@@ -11,9 +11,12 @@ from baton_tpu_torch.parallel.ring_attention import (
     make_striped_attention_fn,
     make_ulysses_attention_fn,
 )
+from baton_tpu_torch.parallel.multihost import initialize_multihost, make_hybrid_mesh
 
 __all__ = [
     "make_mesh",
+    "client_sharding",
+    "replicated_sharding",
     "FedSim",
     "RoundResult",
     "FedBuff",
@@ -29,4 +32,6 @@ __all__ = [
     "make_ring_attention_fn",
     "make_striped_attention_fn",
     "make_ulysses_attention_fn",
+    "initialize_multihost",
+    "make_hybrid_mesh",
 ]

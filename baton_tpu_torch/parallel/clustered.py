@@ -21,7 +21,13 @@ Cluster params are one stacked dict ``[K, ...]``, and a round is:
 The caller threads ``cluster_params`` between rounds and owns
 checkpointing them (``Checkpointer.save(extra=)``).
 
-One device only: a sim with a mesh cannot be built (ROADMAP item 11).
+A round runs on the sim's clients mesh (``sim.mesh``;
+``require_clients_mesh``; without one, a mesh of one shard on the sim's
+device): the cohort is padded to a multiple of the shards with phantom
+clients, each shard assigns and trains its clients on its own device from
+the cluster params copied there, and the per-cluster sums and weights are one psum over the
+client axis (``kernel_specs("clustered.round")``); assignments and losses
+come back unpadded, in client order.
 """
 
 from __future__ import annotations
@@ -34,7 +40,17 @@ import torch
 
 from baton_tpu_torch.core.model import FedModel, Params
 from baton_tpu_torch.ops import aggregation as agg
+from baton_tpu_torch.core.training import random_perms
+from baton_tpu_torch.ops.padding import round_up
 from baton_tpu_torch.parallel.engine import FedSim, client_eval_sums, federation_eval
+from baton_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    client_sharding,
+    device_put,
+    replicate,
+    require_clients_mesh,
+    shard_client_arrays,
+)
 
 
 @dataclasses.dataclass
@@ -73,6 +89,8 @@ class ClusteredFedSim:
             raise ValueError(
                 "FedOpt server state per cluster is not threaded here; "
                 "configure the FedSim without a server optimizer")
+        if sim.mesh is not None:
+            require_clients_mesh(sim.mesh, sim.aggregator, "ClusteredFedSim")
         self.sim = sim
         self.n_clusters = n_clusters
 
@@ -102,28 +120,44 @@ class ClusteredFedSim:
         """One round. ``perms`` [C, n_epochs, capacity] injects the
         shuffles, otherwise they are drawn from ``generator``."""
         data, n_samples = self.sim._to_device(data, n_samples)
-        assign, mine = self._assign(cluster_params, data, n_samples)
-        trainer = self.sim.trainer
         c, k_clusters = int(n_samples.shape[0]), self.n_clusters
-        trained, _, closs = trainer.train_stacked(
-            mine, trainer.init_opt_states({k: v[0] for k, v in mine.items()}, c), data,
-            n_samples, n_epochs, perms, generator,
-            anchor=mine if trainer.regularizer is not None else None)
+        mesh = self.sim._clients_mesh
+        if perms is None:
+            perms = random_perms(c, n_epochs, next(iter(data.values())).shape[1], generator)
+        target = round_up(c, int(mesh.shape[CLIENT_AXIS]))
+        data_p, n_p, perms_p = self.sim._pad_wave(data, n_samples, perms.to(self.sim.device),
+                                                  target)
+        shards = zip(replicate(cluster_params, mesh), shard_client_arrays(data_p, mesh),
+                     device_put(n_p, client_sharding(mesh)),
+                     device_put(perms_p, client_sharding(mesh)))
+        trainer = self.sim.trainer
+        outs = []
+        for cp, d, n, pm in shards:
+            assign, mine = self._assign(cp, d, n)
+            trained, _, closs = trainer.train_stacked(
+                mine, trainer.init_opt_states({k: v[0] for k, v in mine.items()},
+                                              int(n.shape[0])), d,
+                n, n_epochs, pm, generator,
+                anchor=mine if trainer.regularizer is not None else None)
+            wk = torch.nn.functional.one_hot(assign, k_clusters).float() * n.float()[:, None]
+            # per-cluster sample-weighted sums [K, ...] and weights [K]
+            outs.append(({"sums": {k: torch.tensordot(wk, v.float(), dims=([0], [0]))
+                                   for k, v in trained.items()}, "denom": wk.sum(dim=0)},
+                         assign, closs))
+        total = agg.psum([o[0] for o in outs], mesh)[0]
+        assign = agg.gather_clients([o[1] for o in outs], mesh)[:c]
+        closs = agg.gather_clients([o[2] for o in outs], mesh)[:c]
+        denom = total["denom"]
 
-        w = n_samples.float()
-        wk = torch.nn.functional.one_hot(assign, k_clusters).float() * w[:, None]  # [C, K]
-        denom = wk.sum(dim=0)  # [K]
-
-        def combine(tr, old):
-            shape = (k_clusters,) + (1,) * (tr.dim() - 1)
-            sums = torch.tensordot(wk, tr.float(), dims=([0], [0]))  # [K, ...]
+        def combine(sums, old):
+            shape = (k_clusters,) + (1,) * (sums.dim() - 1)
             mean = sums / denom.clamp_min(1e-9).reshape(shape)
             return torch.where((denom <= 0).reshape(shape), old.float(), mean).to(old.dtype)
 
         return ClusteredRoundResult(
-            cluster_params={k: combine(trained[k], v) for k, v in cluster_params.items()},
+            cluster_params={k: combine(total["sums"][k], v) for k, v in cluster_params.items()},
             assignments=assign.cpu().numpy(),
-            loss_history=agg.weighted_scalar_mean(closs, w),
+            loss_history=agg.weighted_scalar_mean(closs, n_samples.float()),
             client_losses=closs,
         )
 

@@ -35,10 +35,23 @@ line of peak memory against the wave, and the reference's halving search
 runs over that line. ``run_rounds_fused`` captures one round's device
 work as a CUDA graph and replays it (:meth:`FedSim.run_rounds_fused`).
 
-Ported: ``run_round`` (vmap mode, waves), ``run_rounds`` (with the
-server optimizer's state and a checkpointer), ``run_rounds_fused``,
-``auto_wave_size``, ``evaluate_round``, ``evaluate_clients``. Not ported
-yet, and refused with NotImplementedError: a device mesh.
+``mesh=`` a clients mesh (``parallel/mesh.py``; the CPU's
+``make_mesh(n, devices=[torch.device("cpu")] * n)``, one card's
+``[torch.device("cuda", 0)] * n``, or one spanning processes from
+``multihost.make_hybrid_mesh``) shards every wave over its ``clients``
+axis, as the JAX engine's ``shard_map`` does; without one a round runs
+the same code on a clients mesh of one shard on ``device``. Waves are
+padded to a multiple of the shards with phantom clients, shard ``j`` trains its
+slice through ``LocalTrainer.train_clients`` on its own device from the
+globals copied there, every shard's wave is issued before any is read,
+and the per-shard fp32 sums meet in one psum a round
+(``ops/aggregation.py:psum``). Each client keeps the shuffle and the DP
+noise rows it gets in a meshless round of the same wave. Evaluation, the
+robust aggregators, ``run_rounds_fused`` (as a CUDA graph where every
+shard is on one card in this process) and the wave sizer (trial waves of
+one and two clients a shard) run on the mesh too. A mesh with a
+``model`` axis (the hybrid clients x model mesh) is the next slice of the
+port and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,11 +72,23 @@ from baton_tpu_torch.core.training import (
     LocalTrainer,
     draws_on,
     make_local_trainer,
+    noise_generator,
     noise_seed,
     random_perms,
 )
 from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
+from baton_tpu_torch.ops.padding import round_up
+from baton_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    client_sharding,
+    device_put,
+    make_mesh,
+    replicate,
+    shard_client_arrays,
+)
 from baton_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
@@ -115,7 +140,7 @@ def federation_eval(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 class FedSim:
-    """Simulated-clients federated training on one device.
+    """Simulated-clients federated training on one device or a clients mesh.
 
     ``data`` is a dict of ``[C, capacity, ...]`` arrays (numpy or tensors;
     see :func:`baton_tpu_torch.ops.padding.stack_client_datasets`) and
@@ -138,11 +163,23 @@ class FedSim:
         aggregator: str = "mean",
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FedSim(mesh=...) is not ported yet (ROADMAP item 11)")
         self.aggregator = agg.parse_aggregator(aggregator)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if MODEL_AXIS in mesh.axis_names:
+                raise NotImplementedError(
+                    "FedSim on a mesh with a 'model' axis (the hybrid clients x model mesh: "
+                    "the frozen base tensor-parallel over 'model') is the next slice of the "
+                    "port (ROADMAP Queue 1)")
+            if CLIENT_AXIS not in mesh.axis_names or any(
+                    n != 1 for a, n in mesh.shape.items() if a != CLIENT_AXIS):
+                raise ValueError(f"FedSim shards over a {CLIENT_AXIS!r} axis; got a mesh of "
+                                 f"shape {mesh.shape}")
+            # the mesh names the devices: the first shard this process holds
+            # keeps the globals, the folds and the round's results
+            self.device = mesh.local_shards(CLIENT_AXIS)[0][1]
+        else:
+            self.device = resolve_device(device)
         self.model = model
         self.trainer: LocalTrainer = make_local_trainer(
             model, optimizer=optimizer, batch_size=batch_size,
@@ -161,6 +198,16 @@ class FedSim:
         self.wave_footprint: Optional[dict] = None
         # the last run_rounds_fused call: graph or loop, capture seconds
         self.last_fused: Optional[dict] = None
+
+    @property
+    def _clients_mesh(self) -> Mesh:
+        """The mesh every wave runs on: ``mesh``, or without one a clients
+        mesh of one shard on ``device``."""
+        return self.mesh if self.mesh is not None else make_mesh(1, devices=[self.device])
+
+    def _clients_per_wave_unit(self) -> int:
+        """Waves are a multiple of the client axis's extent."""
+        return int(self._clients_mesh.shape[CLIENT_AXIS])
 
     def _split(self, params: Params):
         """(trainable, frozen); (params, None) without a partition."""
@@ -199,32 +246,39 @@ class FedSim:
         cache of ``wave_size="auto"``, as an epoch's peak is every
         epoch's. On the CPU there is no allocator peak and the answer is
         ``None``, as the reference answers without a plan. ``footprint``
-        is the search's seam."""
+        is the search's seam.
+
+        On a clients mesh of ``n`` shards the waves are multiples of ``n``
+        (the answer too), the trial waves hold one and two clients a shard
+        and run through the sharded round, and the peak is the first
+        shard's device's: where shards repeat one card it holds every
+        shard's share, as the round does."""
         if self.aggregator[0] != "mean":
             raise NotImplementedError(
                 "the wave sizer measures the weighted-sums wave; "
                 f"aggregator={self.aggregator[0]!r} keeps every client's params, a "
                 "different footprint — pass an explicit wave_size")
-        c = int(len(n_samples))
+        unit = self._clients_per_wave_unit()
+        full = round_up(int(len(n_samples)), unit)
         if footprint is None:
             footprint = self._fit_wave_footprint(params, data, n_samples)
             if footprint is None:
                 return None
         if budget_gb is None:
             budget_gb = profiling.device_budget_gb(self.device)
-        w = c
+        w = full
         while footprint(w) > budget_gb:
-            if w <= 1:
+            if w <= unit:
                 raise RuntimeError(
-                    f"no wave size down to 1 fits the {budget_gb:.3g} GiB budget (one client "
-                    f"needs {footprint(1):.3g} GiB) — shrink the per-client batch or dataset "
-                    "instead of risking an out-of-memory round")
-            w = max(1, w // 2)
-        return None if w >= c else w
+                    f"no wave size down to {unit} fits the {budget_gb:.3g} GiB budget (it "
+                    f"needs {footprint(unit):.3g} GiB) — shrink the per-client batch or "
+                    "dataset instead of risking an out-of-memory round")
+            w = round_up(max(unit, w // 2), unit)
+        return None if w >= full else w
 
     def _fit_wave_footprint(self, params, data, n_samples):
         """``footprint(w)`` for ``auto_wave_size`` from trial waves of 1
-        and 2 clients on the card; None off the card."""
+        and 2 clients a shard on the card; None off the card."""
         if self.device.type != "cuda":
             return None
         in_use = torch.cuda.memory_allocated(self.device) / profiling.GIB
@@ -240,15 +294,16 @@ class FedSim:
                 torch.cuda.empty_cache()
                 return float("inf")
 
-        one, two = trial(1), trial(2)
+        unit = self._clients_per_wave_unit()
+        one, two = trial(unit), trial(2 * unit)
         if one == float("inf"):
-            raise RuntimeError("no wave size down to 1 fits: one client's trial wave ran out "
-                               "of device memory")
-        per_client = two - one
+            raise RuntimeError(f"no wave size down to {unit} fits: the trial wave of one client "
+                               "a shard ran out of device memory")
+        per_client = two - one  # one more client on every shard
         base = one if two == float("inf") else one - per_client
         self.wave_footprint = {"in_use_gb": in_use, "base_gb": base,
                                "per_client_gb": per_client, "trial_gb": [one, two]}
-        return lambda w: in_use + (one if w <= 1 else base + w * per_client)
+        return lambda w: in_use + (one if w <= unit else base + (w / unit) * per_client)
 
     def _auto_wave(self, params, data, n_samples, n_epochs) -> Optional[int]:
         """``auto_wave_size``'s answer, once per cohort signature (its
@@ -336,7 +391,8 @@ class FedSim:
         if perms is None:
             perms = random_perms(c, n_epochs, capacity, generator)
         perms = perms.to(self.device)
-        wave_size = c if wave_size is None else wave_size
+        wave_size = round_up(c if wave_size is None else wave_size,
+                             self._clients_per_wave_unit())
 
         robust = self.aggregator[0] != "mean"
         per_client = [] if collect_client_losses else None
@@ -365,43 +421,96 @@ class FedSim:
     def _fold_waves(self, trainable, frozen, anchor, data, n_samples, perms, wave_size: int,
                     n_epochs: int, generators, robust: bool = False, per_client=None,
                     progress_fn=None):
-        """Train the cohort ``wave_size`` clients at a time (wave ``i``
-        draws its DP noise from ``generators[i]``) and fold each wave:
+        """Train the cohort ``wave_size`` clients at a time and fold each
+        wave on the clients mesh (``kernel_specs("engine.wave_sums" |
+        "engine.wave_params")``; meshless, the one shard of ``device``):
         returns ``(folded, lsum [n_epochs], wsum)``, ``folded`` the fp32
         sample-weighted param sums, or under a robust aggregator the list
-        of each wave's per-client params. Appends each wave's client
-        losses to ``per_client`` when given. Host syncs only for
+        of each wave's per-client params. The globals are copied to every
+        shard's device once, each wave is split over the shards, every
+        shard's training is issued before any result is read, and each
+        shard folds its clients into its own fp32 sums; one psum at the end
+        of the round adds the shards. Per-client losses (appended to
+        ``per_client`` when given) and robust params are gathered in client
+        order. ``generators[i]`` is wave ``i``'s generator, or under DP with
+        noise a list of the shards' replicas of its noise generator (made
+        before a CUDA graph's capture). Host syncs only for
         ``progress_fn``."""
+        mesh = self._clients_mesh
+        n_shards = len(mesh.local_shards(CLIENT_AXIS))
+        placed = {name: replicate(tree, mesh) if tree is not None else [None] * n_shards
+                  for name, tree in (("params", trainable), ("frozen", frozen),
+                                     ("anchor", anchor))}
         c = int(n_samples.shape[0])
-        psum_acc = lsum_acc = w_acc = None
-        stacked_parts = []
         n_waves = -(-c // wave_size)
+        sums, lsums, wsums = [None] * n_shards, [None] * n_shards, [None] * n_shards
+        stacked_parts = []
         for i, start in enumerate(range(0, c, wave_size)):
             stop = min(start + wave_size, c)
             d, n, pm = self._pad_wave(
                 {k: v[start:stop] for k, v in data.items()},
                 n_samples[start:stop], perms[start:stop], wave_size)
-            client_params, client_losses = self.trainer.train_clients(
-                trainable, d, n, n_epochs, pm, generators[i], anchor=anchor, frozen=frozen)
-            w = n.float()
-            lsum = w @ client_losses.float()
+            d_sh = shard_client_arrays(d, mesh)
+            n_sh, pm_sh = (device_put(t, client_sharding(mesh)) for t in (n, pm))
+            gens, rows, after = self._shard_noise(generators[i], wave_size)
+            outs = [self.trainer.train_clients(
+                placed["params"][s], d_sh[s], n_sh[s], n_epochs, pm_sh[s], gens[s],
+                anchor=placed["anchor"][s], frozen=placed["frozen"][s], noise_rows=rows[s])
+                for s in range(n_shards)]
+            after()
+            for s, (client_params, client_losses) in enumerate(outs):
+                w = n_sh[s].float()
+                lsum, wsum = w @ client_losses.float(), w.sum()
+                lsums[s] = lsum if lsums[s] is None else lsums[s] + lsum
+                wsums[s] = wsum if wsums[s] is None else wsums[s] + wsum
+                if not robust:
+                    psum = agg.weighted_tree_sum(client_params, w)
+                    if sums[s] is None:
+                        sums[s] = psum
+                    else:
+                        for k in psum:
+                            sums[s][k] += psum[k]
+            real = stop - start
             if robust:
-                stacked_parts.append({k: v[: stop - start] for k, v in client_params.items()})
-            else:
-                psum = agg.weighted_tree_sum(client_params, w)
-                if psum_acc is None:
-                    psum_acc = psum
-                else:
-                    for k in psum_acc:
-                        psum_acc[k] += psum[k]
-            lsum_acc = lsum if lsum_acc is None else lsum_acc + lsum
-            w_acc = w.sum() if w_acc is None else w_acc + w.sum()
-            if per_client is not None:
-                per_client.append(client_losses[: stop - start])
-            if progress_fn is not None:
-                lsum.sum().item()  # wait for the wave's device work
-                progress_fn(i + 1, n_waves)
-        return (stacked_parts if robust else psum_acc), lsum_acc, w_acc
+                stacked_parts.append({k: agg.gather_clients([o[0][k] for o in outs], mesh)[:real]
+                                      for k in trainable})
+            if per_client is not None or progress_fn is not None:
+                wave_losses = agg.gather_clients([o[1] for o in outs], mesh)[:real]
+                if per_client is not None:
+                    per_client.append(wave_losses)
+                if progress_fn is not None:
+                    wave_losses.sum().item()  # wait for the wave's device work
+                    progress_fn(i + 1, n_waves)
+        total = agg.psum([{"p": sums[s] or {}, "l": lsums[s], "w": wsums[s]}
+                          for s in range(n_shards)], mesh)[0]
+        return (stacked_parts if robust else total["p"]), total["l"], total["w"]
+
+    def _shard_noise(self, generator, wave_size: int):
+        """DP noise on the clients mesh for one wave of ``wave_size``
+        clients: ``(generators, noise_rows, after)``, a generator and a
+        ``train_stacked`` ``noise_rows`` for each shard this process holds,
+        and a call to make once the shards have trained. Without noise
+        every shard shares ``generator`` (nothing is drawn). With noise each
+        shard draws the whole wave's noise from its own replica of the
+        wave's noise generator (``noise_generator``; ``generator`` a list
+        is the replicas, made before a CUDA graph's capture) and keeps its
+        clients' rows; where that generator is ``generator`` itself,
+        ``after`` advances it past the wave's draws, as a meshless wave
+        leaves it."""
+        shards = self._clients_mesh.local_shards(CLIENT_AXIS)
+        dp = self.trainer.dp
+        if dp is None or dp.noise_multiplier == 0:
+            return [generator] * len(shards), [None] * len(shards), lambda: None
+        per = wave_size // self._clients_per_wave_unit()
+        rows = [(j * per, (j + 1) * per, wave_size) for j, _ in shards]
+        if isinstance(generator, (list, tuple)):
+            return list(generator), rows, lambda: None
+        g = noise_generator(generator, self.device)
+        replicas = [torch.Generator(device=g.device) for _ in shards]
+        for r in replicas:
+            r.set_state(g.get_state())
+        return replicas, rows, (lambda: g.set_state(replicas[0].get_state())
+                                if g is generator else None)
 
     def _aggregate(self, trainable, folded, n_samples, wsum, server_opt_state, robust: bool):
         """The new trainable params from a round's fold (the weighted mean,
@@ -517,7 +626,7 @@ class FedSim:
         trainable, frozen = self._split(params)
         c = int(n_samples.shape[0])
         capacity = next(iter(data.values())).shape[1]
-        wave = c if wave_size is None else wave_size
+        wave = round_up(c if wave_size is None else wave_size, self._clients_per_wave_unit())
         n_waves = -(-c // wave)
         dp = self.trainer.dp
         noisy = dp is not None and dp.noise_multiplier > 0
@@ -549,6 +658,13 @@ class FedSim:
                 history.extend(loss.tolist())
             self.last_fused = {"graph": False, "rounds": n_rounds}
         else:
+            mesh = self._clients_mesh
+            if mesh.spans_processes or any(d != self.device
+                                           for _, d in mesh.local_shards(CLIENT_AXIS)):
+                raise NotImplementedError(
+                    "run_rounds_fused captures one CUDA graph on one card: a clients mesh whose "
+                    "shards lie on more than one device or process cannot be captured here "
+                    "(run_rounds runs it)")
             p, sos, history = self._rounds_as_graph(body, trainable, server_opt_state, perms,
                                                     seeds if derive else None, n_waves)
         if self.partition is not None:
@@ -568,7 +684,12 @@ class FedSim:
         sos = (None if server_opt_state is None
                else optim.tree_map(lambda v: v.clone(), server_opt_state))
         perm_buf = torch.empty_like(perms[0], device=dev)
-        gens = [torch.Generator(device=dev) for _ in range(n_waves)] if seeds else [None] * n_waves
+        # each wave's noise generator, made before the capture: one replica
+        # a shard, every replica seeded alike
+        n_shards = len(self._clients_mesh.local_shards(CLIENT_AXIS))
+        replicas = [[torch.Generator(device=dev) for _ in range(n_shards)]
+                    for _ in range(n_waves)] if seeds else None
+        gens = replicas if seeds else [None] * n_waves
         out = {}
 
         def step():
@@ -582,8 +703,9 @@ class FedSim:
         def start_round(i):
             perm_buf.copy_(perms[i])
             if seeds:
-                for g, seed in zip(gens, seeds[i]):
-                    g.manual_seed(seed)
+                for wave_replicas, seed in zip(replicas, seeds[i]):
+                    for g in wave_replicas:
+                        g.manual_seed(seed)
 
         losses = []
         side = torch.cuda.Stream(dev)
@@ -597,9 +719,8 @@ class FedSim:
                   "replay_s": None}
         if len(perms) > 1:
             graph = torch.cuda.CUDAGraph()
-            for g in gens:
-                if g is not None:
-                    graph.register_generator_state(g)
+            for g in (g for wave_replicas in replicas or [] for g in wave_replicas):
+                graph.register_generator_state(g)
             t0 = time.perf_counter()
             with torch.cuda.graph(graph):
                 step()
@@ -623,18 +744,27 @@ class FedSim:
     def _client_eval_sums(self, params: Params, data: Dict, n_samples,
                           wave_size: Optional[int]) -> Dict[str, torch.Tensor]:
         """Every client's evaluation sums (``client_eval_sums``), each
-        [C], ``wave_size`` clients at a time."""
+        [C], ``wave_size`` clients at a time, each wave split over the
+        clients mesh's shards and the sums gathered in client order."""
         data, n_samples = self._to_device(data, n_samples)
         c = int(n_samples.shape[0])
-        wave = c if wave_size is None else wave_size
-        sums_fn = torch.func.vmap(
-            lambda d, n: client_eval_sums(self.model, params, d, n))
+        wave = round_up(c if wave_size is None else wave_size, self._clients_per_wave_unit())
+
+        def sums_fn(p):
+            return torch.func.vmap(lambda d, n: client_eval_sums(self.model, p, d, n))
+
+        mesh = self._clients_mesh
+        placed = replicate(params, mesh)
         parts = []
         for start in range(0, c, wave):
             stop = min(start + wave, c)
             d, n, _ = self._pad_wave({k: v[start:stop] for k, v in data.items()},
                                      n_samples[start:stop], None, wave)
-            parts.append({k: v[: stop - start] for k, v in sums_fn(d, n).items()})
+            shard_sums = [sums_fn(p)(d_s, n_s) for p, d_s, n_s in zip(
+                placed, shard_client_arrays(d, mesh), device_put(n, client_sharding(mesh)))]
+            sums = {k: agg.gather_clients([o[k] for o in shard_sums], mesh)
+                    for k in shard_sums[0]}
+            parts.append({k: v[: stop - start] for k, v in sums.items()})
         return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
 
     def evaluate_round(self, params: Params, data: Dict, n_samples,

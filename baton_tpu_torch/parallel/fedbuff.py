@@ -17,7 +17,13 @@ trainable partition are held once. The host keeps the queue. Each step
 reads the buffer's mean last-epoch loss back (``.item()``), one device
 sync a step, as the reference's ``float(...)`` does.
 
-One device only: a sim with a mesh cannot be built (ROADMAP item 11).
+On a clients mesh (``sim.mesh``; ``require_clients_mesh``; without one,
+the buffer is one shard) the buffer's stacked axis is split over the
+shards as a synchronous wave is (``kernel_specs("fedbuff.train")``):
+each shard trains ``buffer_size / n`` of the completions, and
+``buffer_size`` must be a multiple of the
+mesh's size (phantom-padding an async buffer would skew the staleness
+discount). The queue stays on the host.
 """
 
 from __future__ import annotations
@@ -33,6 +39,14 @@ from baton_tpu_torch.core.model import Params
 from baton_tpu_torch.core.training import random_perms
 from baton_tpu_torch.ops import aggregation as agg
 from baton_tpu_torch.parallel.engine import FedSim
+from baton_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    client_sharding,
+    device_put,
+    replicate,
+    require_clients_mesh,
+    shard_client_arrays,
+)
 
 
 @dataclasses.dataclass
@@ -67,6 +81,14 @@ class FedBuff:
                 "FedBuff applies server_lr-scaled mean deltas directly; "
                 "a FedOpt server optimizer would be silently ignored — "
                 "configure the FedSim without one for async runs")
+        if sim.mesh is not None:
+            require_clients_mesh(sim.mesh, sim.aggregator, "FedBuff")
+            n_dev = int(sim.mesh.shape[CLIENT_AXIS])
+            if buffer_size % n_dev != 0:
+                raise ValueError(
+                    f"buffer_size ({buffer_size}) must be a multiple of the clients-mesh size "
+                    f"({n_dev}) so each server step shards evenly — phantom-padding an async "
+                    "buffer would skew the staleness discount")
         self.sim = sim
         self.buffer_size = buffer_size
         self.concurrency = concurrency
@@ -75,14 +97,23 @@ class FedBuff:
 
     def _train_buffer(self, anchors: Params, data, n_samples, perms, n_epochs, frozen):
         """The buffer's clients, each from a fresh optimizer state at its
-        own stale anchor; returns (trained [K, ...], losses [K, n_epochs])."""
-        trainer = self.sim.trainer
-        k = int(n_samples.shape[0])
-        trained, _, losses = trainer.train_stacked(
-            anchors, trainer.init_opt_states({n: v[0] for n, v in anchors.items()}, k),
-            data, n_samples, n_epochs, perms,
-            anchor=anchors if trainer.regularizer is not None else None, frozen=frozen)
-        return trained, losses
+        own stale anchor, split over the sim's clients mesh (meshless: one
+        shard); returns (trained [K, ...], losses [K, n_epochs])."""
+        trainer, mesh = self.sim.trainer, self.sim._clients_mesh
+        outs = []
+        for a, d, n, pm, fz in zip(
+                shard_client_arrays(anchors, mesh), shard_client_arrays(data, mesh),
+                device_put(n_samples, client_sharding(mesh)),
+                device_put(perms.to(n_samples.device), client_sharding(mesh)),
+                replicate(frozen, mesh)):
+            outs.append(trainer.train_stacked(
+                a, trainer.init_opt_states({name: v[0] for name, v in a.items()},
+                                           int(n.shape[0])),
+                d, n, n_epochs, pm, anchor=a if trainer.regularizer is not None else None,
+                frozen=fz))
+        trained = {name: agg.gather_clients([o[0][name] for o in outs], mesh)
+                   for name in anchors}
+        return trained, agg.gather_clients([o[2] for o in outs], mesh)
 
     def run(self, params: Params, data, n_samples, generator: Optional[torch.Generator] = None,
             n_steps: int = 1, n_epochs: int = 1, perms: Optional[torch.Tensor] = None

@@ -14,7 +14,14 @@ The returned global params carry the unweighted mean of the personal
 leaves over the clients that hold samples, as a warm start for clients
 joining later; nothing trains on it directly.
 
-One device only: a sim with a mesh cannot be built (ROADMAP item 11).
+A round runs on the sim's clients mesh (``sim.mesh``;
+``require_clients_mesh``; without one, a mesh of one shard on the sim's
+device): the cohort is padded to a multiple of the shards with phantom
+clients (zero data, no samples, row 0's personal leaves), each shard
+trains its slice of the personal stack on its own device, and the shared
+FedAvg, the warm-start mean and the loss history are psums over the client axis
+(``kernel_specs("personalization.round")``); phantoms carry weight 0 and
+are left out of the warm-start mean, so they change nothing.
 """
 
 from __future__ import annotations
@@ -26,9 +33,27 @@ import torch
 
 from baton_tpu_torch.core.model import Params
 from baton_tpu_torch.core.partition import PathPredicate, make_partition
-from baton_tpu_torch.core.training import stack_copies
+from baton_tpu_torch.core import optim
+from baton_tpu_torch.core.training import random_perms, stack_copies
 from baton_tpu_torch.ops import aggregation as agg
+from baton_tpu_torch.ops.padding import round_up
 from baton_tpu_torch.parallel.engine import FedSim, client_eval_sums, federation_eval
+from baton_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    client_sharding,
+    device_put,
+    replicate,
+    require_clients_mesh,
+    shard_client_arrays,
+)
+
+
+def _pad_stack(tree, pad: int):
+    """A ``[C, ...]`` stacked tree (nested dicts) padded with ``pad``
+    copies of row 0: phantom rows only need valid shapes and dtypes."""
+    if pad <= 0:
+        return tree
+    return optim.tree_map(lambda a: torch.cat([a, a[:1].expand(pad, *a.shape[1:])]), tree)
 
 
 @dataclasses.dataclass
@@ -57,6 +82,8 @@ class FedPer:
                 "FedPer aggregates shared leaves directly; a FedOpt "
                 "server optimizer would be silently ignored — configure "
                 "the FedSim without one for personalized rounds")
+        if sim.mesh is not None:
+            require_clients_mesh(sim.mesh, sim.aggregator, "FedPer")
         self.sim = sim
         self.personal_pred = personal
         self.partition = None
@@ -84,26 +111,66 @@ class FedPer:
         if personal_state is None:
             personal_state = self.init_personal(params, c)
         _, shared = self.partition.split(params)
-        trainer = self.sim.trainer
-        # each client's round-start params are its FedProx anchor
-        full = self.partition.merge(personal_state, stack_copies(shared, c))
-        new_full, _, closs = trainer.train_stacked(
-            full, trainer.init_opt_states(params, c), data, n_samples, n_epochs, perms,
-            generator, anchor=full if trainer.regularizer is not None else None)
-        new_pers, new_shared = self.partition.split(new_full)
-        shared_agg = agg.aggregate_stacked(self.sim.aggregator, new_shared, n_samples, shared)
-        # warm start for future clients: the mean over the clients that
-        # hold samples (a client without any returns its unchanged leaves)
-        m = (n_samples > 0).float()
-        n_real = m.sum().clamp_min(1.0)
-        pers_mean = {k: (torch.tensordot(m, v.float(), dims=([0], [0])) / n_real).to(v.dtype)
-                     for k, v in new_pers.items()}
+        if perms is None:
+            perms = random_perms(c, n_epochs, next(iter(data.values())).shape[1], generator)
+        target = round_up(c, int(self.sim._clients_mesh.shape[CLIENT_AXIS]))
+        data_p, n_p, perms_p = self.sim._pad_wave(data, n_samples, perms.to(self.sim.device),
+                                                  target)
+        new_pers, shared_agg, pers_mean, loss_history, closs = self._round(
+            _pad_stack(personal_state, target - c), shared, data_p, n_p, perms_p, n_epochs,
+            generator)
         return PersonalizedRoundResult(
             params=self.partition.merge(pers_mean, shared_agg),
-            personal_state=new_pers,
-            loss_history=agg.weighted_scalar_mean(closs, n_samples.float()),
-            client_losses=closs,
-        )
+            personal_state={k: v[:c] for k, v in new_pers.items()},
+            loss_history=loss_history, client_losses=closs[:c])
+
+    def _round(self, personal_state, shared, data, n_samples, perms, n_epochs: int,
+               generator=None):
+        """The round on the sim's clients mesh (meshless: one shard) on a
+        cohort already a multiple of the shards: ``(new_personal_state,
+        shared_agg, pers_mean, loss_history, client_losses)``, the stacks
+        and losses of every (phantom included) client in client order.
+        Each client's round-start params are its FedProx anchor. The shared
+        mean is a psum; a robust aggregator (one shard only,
+        ``require_clients_mesh``) combines the gathered stack."""
+        sim, part = self.sim, self.partition
+        mesh, trainer = sim._clients_mesh, sim.trainer
+        total = int(n_samples.shape[0])
+        gens, rows, after = sim._shard_noise(generator, total)
+        outs = []
+        for pers, sh, d, n, pm, g, r in zip(
+                shard_client_arrays(personal_state, mesh), replicate(shared, mesh),
+                shard_client_arrays(data, mesh), device_put(n_samples, client_sharding(mesh)),
+                device_put(perms, client_sharding(mesh)), gens, rows):
+            c = int(n.shape[0])
+            full = part.merge(pers, stack_copies(sh, c))
+            new_full, _, closs = trainer.train_stacked(
+                full, trainer.init_opt_states({k: v[0] for k, v in full.items()}, c), d, n,
+                n_epochs, pm, g, anchor=full if trainer.regularizer is not None else None,
+                noise_rows=r)
+            new_pers, new_shared = part.split(new_full)
+            outs.append((new_pers, new_shared, closs, n.float(), (n > 0).float()))
+        after()
+        weights = [o[3] for o in outs]
+        if sim.aggregator[0] == "mean":
+            shared_agg = agg.tree_cast_like(agg.psum_weighted_mean(
+                [o[1] for o in outs], weights, mesh)[0], shared)
+        else:
+            shared_agg = agg.aggregate_stacked(
+                sim.aggregator, agg.gather_client_tree([o[1] for o in outs], mesh, total),
+                n_samples, shared)
+        # warm start for future clients: the mean over the clients that
+        # hold samples (a client without any returns its unchanged leaves)
+        tot = agg.psum([{"s": {k: torch.tensordot(o[4], v.float(), dims=([0], [0]))
+                               for k, v in o[0].items()}, "n": o[4].sum()} for o in outs],
+                       mesh)[0]
+        pers_mean = {k: (v / tot["n"].clamp_min(1.0)).to(personal_state[k].dtype)
+                     for k, v in tot["s"].items()}
+        loss_history = agg.psum_weighted_scalar_mean([o[2] for o in outs], weights, mesh)[0]
+        new_pers = {k: agg.gather_clients([o[0][k] for o in outs], mesh)
+                    for k in personal_state}
+        closs = agg.gather_clients([o[2] for o in outs], mesh)
+        return new_pers, shared_agg, pers_mean, loss_history, closs
 
     @torch.no_grad()
     def evaluate(self, params: Params, personal_state: Params, data, n_samples

@@ -15,7 +15,11 @@ exits non-zero:
    the tensor-core design (mma), every fp32 one through the SIMT one; in
    every bf16 case each element of the dkv and dq kernels' gaps from
    their plain versions must lie within what bf16 rounding flips of p and
-   ds can give (``flip_check``);
+   ds can give (``flip_check``); and one fp32 sample with every key
+   masked at L 4,096, where dk, dv and dbias sum 4,096 terms of order 1:
+   the dkv kernel and its plain version each held against float64 on the
+   same inputs within the worst-case fp32 error of those sums
+   (``masked_row_oracle_case``);
 3. the main path at full width: BERT-base (bf16 compute) FedSim rounds,
    8 clients x 32 samples, L=128, one warm-up, ten timed rounds (mean and
    median: the host shares its cores, so single rounds vary), one
@@ -65,15 +69,16 @@ exits non-zero:
    s/round, MFU and peak memory against phase 6, and one optimizer step's
    device time and launches on 32 clients;
 10. a 2-layer fp32 BERT round (phase 4's) and a 2-stage ResNet round
-   (phase 7's), two rounds each with local momentum, local Adam, FedProx,
-   a FedAdam server, a trainable part, then all of them at once, card
+   (phase 7's), each with local momentum, local Adam, FedProx, a FedAdam
+   server (two rounds, its state threaded), a trainable part, then all of
+   them at once (two rounds), card
    against the CPU: params and losses within 1e-4 (``option_variants``
    says why Adam's eps is raised there);
 11. the reference's HTTP round on the card: a ``Manager`` and 8
    ``ExperimentWorker``s in this process over loopback (BTW1 uploads,
    the mean aggregator), each worker training phase 6's ResNet-18 (bf16
    compute) on 48 samples drawn as phase 6 draws them, batch 32, 1 epoch,
-   lr 0.05: a warm-up and 5 timed rounds (from ``start_round`` until the
+   lr 0.05: a warm-up and 3 timed rounds (from ``start_round`` until the
    round count advances), samples/s, the split of a round from the
    manager's and workers' spans, each worker's compute record as it
    reached the manager and ``rounds.jsonl``, and peak memory. The global
@@ -110,7 +115,7 @@ exits non-zero:
    on the card, the same run stopped after 2 rounds and resumed from its
    checkpoints (1e-6, cuDNN's deterministic algorithms for this phase)
    and on the CPU (1e-4); then the full preset (4 x 15,000 samples, 4
-   epochs) for 2 of its 20 rounds, timed apart from making its data,
+   epochs) for 1 of its 20 rounds, timed apart from making its data,
    its accuracy above 0.5. No flash kernel launches in phases 12-14;
 15. the federation variants on phase 3's BERT-base and clients (bf16
    compute, 8 x 32 samples): stateful clients with local Adam, 3 rounds
@@ -140,7 +145,7 @@ exits non-zero:
    (``examples/04_llama_lora.py --scale full``'s shape, LoRA rank 16 on
    wq/wk/wv/wo, batch 8, lr 1e-2, the example's half-masked synthetic
    tokens) in bf16 with remat, cut to 4 clients x 16 samples in waves of
-   what fits: a warm-up, 2 timed rounds and a profiled one; every frozen
+   what fits: a warm-up, a timed round and a profiled one; every frozen
    tensor bit-equal after them (host copies, one tensor at a time), the
    adapters moved, each flash kernel on mma once per layer per step (the
    forward twice: remat runs it again in the backward); s/round,
@@ -207,6 +212,25 @@ exits non-zero:
    the ring block's shape (B 1, 8/4 heads, L 4,096, D 64) in fp32 and
    bf16 beside its bound; (d) the dense ring, Ulysses (N = 4) and the
    striped fn against the flash call at L 8,192 in fp32.
+22. the clients mesh on the one card (a mesh may repeat ``cuda:0``):
+   (a) phase 3's BERT-base round on 4 shards against the same round
+   meshless (same weights and shuffles): each flash kernel 4 x 12 launches
+   a round, each forward over a quarter of the meshless batch, all mma;
+   params and loss in the reference's band (rtol = atol = 5e-2); the psum
+   of the trained client contributions against float64 within the
+   worst-case fp32 error of the sum; s/round, peak memory, one psum's
+   time and the wave sizer's per-shard line against the meshless one;
+   (b) BASELINE config 2 at full width (example 02's ``--scale full``:
+   ResNet-18, 128 Dirichlet(0.5) clients of 50,000 CIFAR-shaped images
+   from the loader's synthetic fallback, batch 32, waves of 32, bf16) on
+   4 shards, 2 of its 100 rounds (s, images/s, MFU, peak memory; the loss
+   falls), and round 0 meshless in waves of 8 in the band; (c) stateful
+   clients, FedBuff (buffer 8 of 12), FedPer and clustered FL on 2 shards
+   of the card against 8 of the CPU at phase 15's small fp32 size (1e-4,
+   assignments, versions and staleness equal); (d) two processes on the
+   card over gloo, 2 shards each, the FedAvg psum of 4 clients'
+   ResNet-18-sized params across them against float64, each child under
+   a hard timeout.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -414,6 +438,86 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     return errs
 
 
+U32 = 2.0 ** -24  # fp32's unit roundoff
+
+
+def gamma(n: int) -> float:
+    """The worst-case relative error of an fp32 sum or dot product of ``n``
+    terms in any order, ``n·u / (1 - n·u)`` (Higham, Accuracy and Stability
+    of Numerical Algorithms, 3.1), of the sum of the terms' magnitudes."""
+    return n * U32 / (1 - n * U32)
+
+
+def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
+    """The fp32 dkv kernel on a sample whose every key is masked, held
+    against float64. There lse = -1e30 swallows the scores, so p = 1 at
+    every key in both fp32 and float64, and dk, dv and dbias each sum ``l``
+    terms of order 1: the kernel's sequential fmaf sums and the plain
+    version's blocked einsum round them in different orders. Both are held
+    against the float64 results on the same inputs (lse and delta
+    included), element by element, at the worst-case fp32 error of those
+    sums: ``gamma(l)`` of each sum of magnitudes, plus ``gamma(d + 1)`` of
+    the dp dot product and the subtraction of delta carried through every
+    ds. Returns the gaps of both from float64 and their share of the bound."""
+    check(dtype == torch.float32 and not causal and bias_kind == "masked_rows" and b == 1,
+          f"{name}: the oracle case is one fp32 sample with every key masked")
+    q, k, v, dout, bias = attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind)
+    scale = d ** -0.5
+    out_p, lse = fa._fwd_plain(q, k, v, bias, causal, scale)
+    delta = (dout.float() * out_p.float()).sum(-1)
+    args = (q, k, v, bias, dout, lse, delta, causal, scale)
+    before = dict(fa.launches_by_design)
+    kernel = fa._bwd_dkv(*args)
+    torch.cuda.synchronize()
+    ran = {key: n - before[key] for key, n in fa.launches_by_design.items() if n != before[key]}
+    check(ran == {"bwd_dkv_simt": 1}, f"{name}: launches by design {ran}")
+    plain = fa._bwd_dkv_plain(*args)
+    q64, k64, v64, do64 = (t.double() for t in (q, fa._expand_kv(k, hq), fa._expand_kv(v, hq),
+                                                 dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", q64, k64) * scale + bias.double()[:, None, None, :]
+    p = torch.exp(s - lse.double()[..., None])
+    check(bool((p == 1).all()), f"{name}: p is not 1 at every masked key")
+    del s
+    delta64 = delta.double()[..., None]
+    dp = torch.einsum("bhqd,bhkd->bhqk", do64, v64)
+    ds = p * (dp - delta64)
+    # dp's D-term dot product and the subtraction of delta, in every ds
+    err_ds = gamma(d + 1) * (torch.einsum("bhqd,bhkd->bhqk", do64.abs(), v64.abs())
+                             + delta64.abs())
+    del dp
+    oracle = (scale * torch.einsum("bhqk,bhqd->bhkd", ds, q64),
+              torch.einsum("bhqk,bhqd->bhkd", p, do64), ds.sum(2))
+    bounds = (scale * (gamma(l) * torch.einsum("bhqk,bhqd->bhkd", ds.abs(), q64.abs())
+                       + torch.einsum("bhqk,bhqd->bhkd", err_ds, q64.abs())) * (1 + U32),
+              gamma(l) * torch.einsum("bhqk,bhqd->bhkd", p, do64.abs()),
+              gamma(l) * ds.abs().sum(2) + err_ds.sum(2))
+    del p, ds, err_ds
+    out = {}
+    for what, got_k, got_p, want, bound in zip(("dk", "dv", "db"), kernel, plain, oracle,
+                                               bounds):
+        gap_k, gap_p = ((g.double() - want).abs() for g in (got_k, got_p))
+        share_k, share_p = ((g / bound.clamp_min(1e-300)).max().item() for g in (gap_k, gap_p))
+        out[what] = {"kernel_gap": gap_k.max().item(), "plain_gap": gap_p.max().item(),
+                     "kernel_share_of_bound": share_k, "plain_share_of_bound": share_p,
+                     "kernel_plain_gap": (got_k - got_p).abs().max().item(),
+                     "max_abs": want.abs().max().item()}
+        check(share_k <= 1.0 and share_p <= 1.0,
+              f"{name} {what}: kernel {share_k:.3g}, plain {share_p:.3g} of the fp32 "
+              "summation bound from float64")
+    print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} float32 every key masked, simt, "
+          "against float64: " + "; ".join(
+              f"{w} kernel {o['kernel_gap']:.2e} ({o['kernel_share_of_bound']:.2e} of bound), "
+              f"plain {o['plain_gap']:.2e} ({o['plain_share_of_bound']:.2e}), kernel-plain "
+              f"{o['kernel_plain_gap']:.2e}, |max| {o['max_abs']:.2e}" for w, o in out.items()))
+    return out
+
+
+# phase 2's long masked-row case (ROADMAP Queue 3): one fp32 sample with
+# every key masked at the ring block's shape, held against float64
+MASKED_ROW_CASE = ("fp32_masked_rows_long", 1, 8, 4, 4096, 64, torch.float32, False,
+                   "masked_rows")
+
+
 def kernel_phase(fa):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
@@ -445,6 +549,7 @@ def kernel_phase(fa):
     ]
     print("phase 2: kernels against their plain versions")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
+    masked_row_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
     wrapper_cases = [(dtype, causal, False) for dtype in (f32, bf16) for causal in (False, True)]
     wrapper_cases += [(f32, False, True), (bf16, False, True)]
     for seed, case in enumerate(wrapper_cases):
@@ -1413,8 +1518,10 @@ def option_variants(trainable_prefixes):
 
 def options_against_cpu(label, model, params, data, n_samples, perms, batch, lr,
                         trainable_prefixes, device="cuda"):
-    """Every option of ``option_variants``: two rounds (the server state
-    threaded) on ``device`` against the same rounds on the CPU."""
+    """Every option of ``option_variants`` on ``device`` against the same
+    rounds on the CPU: two rounds where a server optimizer's state threads
+    from one to the next, one round for the options that keep nothing
+    across rounds."""
     from baton_tpu_torch import FedSim
 
     errs = {}
@@ -1423,7 +1530,7 @@ def options_against_cpu(label, model, params, data, n_samples, perms, batch, lr,
         for dev in (device, "cpu"):
             sim = FedSim(model, batch_size=batch, learning_rate=lr, device=dev, **kw)
             p, state = {k: v.to(dev) for k, v in params.items()}, None
-            for _ in range(2):
+            for _ in range(2 if "server_optimizer" in kw else 1):
                 res = sim.run_round(p, data, n_samples, n_epochs=perms.shape[1], perms=perms,
                                     server_opt_state=state)
                 p, state = res.params, res.server_opt_state
@@ -1441,8 +1548,8 @@ def options_parity_phase():
     from baton_tpu_torch.models.resnet import resnet_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
-    print("phase 10: the options, fp32, two rounds of one epoch each, card against the CPU "
-          "(tol 1e-4)")
+    print("phase 10: the options, fp32, rounds of one epoch (two with a server optimizer), "
+          "card against the CPU (tol 1e-4)")
     cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2, n_heads=12,
                      d_ff=3072, n_classes=4)
     rng = np.random.default_rng(2)
@@ -1721,7 +1828,7 @@ def http_round_phase(fa):
     from baton_tpu_torch.utils import tracing
     from baton_tpu_torch.utils.slog import read_rounds_jsonl
 
-    n_workers, per_worker, batch, lr, n_timed = 8, 48, 32, 0.05, 5
+    n_workers, per_worker, batch, lr, n_timed = 8, 48, 32, 0.05, 3
     rng = np.random.default_rng(0)  # drawn as phase 6 draws its clients
     datasets = [{"x": rng.normal(size=(per_worker, 32, 32, 3)).astype(np.float32),
                  "y": rng.integers(0, 10, size=(per_worker,)).astype(np.int32)}
@@ -1901,7 +2008,7 @@ EF_TOL = 1e-5  # relative: transmitted plus residual against the sum of the true
 SECURE_QUANTUM = 2.0 ** -16  # the fixed point of DEFAULT_SCALE_BITS = 16
 SECURE_TOL = SECURE_QUANTUM + HTTP_REPLAY_TOL  # a secure round against its fp32 replay
 RESUME_TOL = 1e-6  # config 1 stopped after 2 rounds and resumed, against 4 rounds in one go
-CONFIG1_FULL_ROUNDS = 2  # of the full preset's 20: the smoke's time limit
+CONFIG1_FULL_ROUNDS = 1  # of the full preset's 20: the smoke's time limit
 
 
 def fold_of_compressed_uploads(bodies, anchor):
@@ -2348,19 +2455,26 @@ def check_cluster_means(new, old, trained, assign, n_samples, tol=1e-5) -> float
     return gap
 
 
-def variant_runs(model, params, second, data, n_samples, batch, lr, perms, device):
+def variant_runs(model, params, second, data, n_samples, batch, lr, perms, device, shards=None,
+                 buffer=(2, 3)):
     """Phase 15's four variants at a small size on ``device``, from the
     same weights (``second`` is the other cluster) and shuffles ``perms``
     [C, n_epochs, capacity] on any device: name -> (the params they end
-    with, their losses)."""
+    with, their losses). ``shards``: each on a clients mesh of that many
+    shards of ``device`` (phase 22c); ``buffer``: FedBuff's buffer size and
+    concurrency (a multiple of ``shards``), each step's completions taking
+    ``perms`` in queue order."""
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.core import optim
     from baton_tpu_torch.core.regularizers import fedprox
     from baton_tpu_torch.ops.aggregation import tree_stack
     from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = None if shards is None else make_mesh(shards, devices=[torch.device(device)] * shards)
 
     def sim(**kw):
-        return FedSim(model, batch_size=batch, learning_rate=lr, device=device, **kw)
+        return FedSim(model, batch_size=batch, learning_rate=lr, device=device, mesh=mesh, **kw)
 
     start = {k: v.to(device) for k, v in params.items()}
     n_epochs = perms.shape[1]
@@ -2374,10 +2488,17 @@ def variant_runs(model, params, second, data, n_samples, batch, lr, perms, devic
     out["stateful, local adam(1e-3, eps 1e-5), 2 rounds"] = (p, torch.cat(losses))
     # buffer 2 of 3 in flight: step 1 completes clients 0 and 1, step 2
     # clients 2 (anchored before step 1) and 0
-    fb = FedBuff(sim(regularizer=fedprox(0.1)), buffer_size=2, concurrency=3)
-    res = fb.run(start, data, n_samples, n_steps=2, n_epochs=n_epochs,
-                 perms=torch.stack([perms[[0, 1]], perms[[2, 0]]]))
-    out["fedbuff, fedprox 0.1, 2 steps"] = (res.params, torch.as_tensor(res.loss_history))
+    size, concurrency = buffer
+    c = int(len(n_samples))
+    step_perms = (torch.stack([perms[[0, 1]], perms[[2, 0]]]) if buffer == (2, 3) else
+                  torch.stack([perms[[(s * size + i) % c for i in range(size)]]
+                               for s in range(2)]))
+    fb = FedBuff(sim(regularizer=fedprox(0.1)), buffer_size=size, concurrency=concurrency)
+    res = fb.run(start, data, n_samples, n_steps=2, n_epochs=n_epochs, perms=step_perms)
+    out[f"fedbuff, fedprox 0.1, buffer {size} of {concurrency}, 2 steps"] = (
+        {**res.params, "version": torch.tensor(float(res.version)),
+         "mean_staleness": torch.tensor(res.mean_staleness)},
+        torch.as_tensor(res.loss_history))
     fp = FedPer(sim(), personal=lambda name, leaf: name.startswith(CONFIG3_HEAD))
     res = fp.run_round(start, None, data, n_samples, n_epochs=n_epochs, perms=perms)
     out["fedper, pooler+head personal"] = (
@@ -2392,12 +2513,19 @@ def variant_runs(model, params, second, data, n_samples, batch, lr, perms, devic
     return out
 
 
+BOOKKEEPING = ("assignments", "version", "mean_staleness")  # held exactly, card against CPU
+
+
 def variants_against_cpu(model, params, second, data, n_samples, batch, lr, perms,
-                         device="cuda"):
+                         device="cuda", shards=(None, None), buffer=(2, 3)):
     """Every variant of ``variant_runs`` on ``device`` against the same
-    run on the CPU: params and losses within 1e-4, the CPU run moved."""
-    card = variant_runs(model, params, second, data, n_samples, batch, lr, perms, device)
-    cpu = variant_runs(model, params, second, data, n_samples, batch, lr, perms, "cpu")
+    run on the CPU: params and losses within 1e-4, the CPU run moved, the
+    bookkeeping (clustered assignments, FedBuff's version and staleness)
+    equal. ``shards``: the clients meshes (card, CPU) of phase 22c."""
+    card = variant_runs(model, params, second, data, n_samples, batch, lr, perms, device,
+                        shards[0], buffer)
+    cpu = variant_runs(model, params, second, data, n_samples, batch, lr, perms, "cpu",
+                       shards[1], buffer)
     gaps = {}
     for name, (got, losses) in card.items():
         want, want_losses = cpu[name]
@@ -2409,10 +2537,38 @@ def variants_against_cpu(model, params, second, data, n_samples, batch, lr, perm
         print(f"  {name:48s} max |param diff| {err:.3e} (max |param change| {moved:.3e}), "
               f"max |loss diff| {loss_err:.3e}")
         check(moved > 0, f"{name}: the CPU run left the params unchanged")
+        for key in BOOKKEEPING:
+            if key in want:
+                check(torch.equal(got[key].cpu(), want[key].cpu()),
+                      f"{name}: {key} {got[key].tolist()} on the card, {want[key].tolist()} "
+                      "on the CPU")
         check(err <= 1e-4, f"{name}: card and CPU params differ by {err:.3e} (tol 1e-4)")
         check(loss_err <= 1e-4, f"{name}: card and CPU losses differ by {loss_err:.3e}")
         gaps[name] = err
     return gaps
+
+
+def small_variant_cohort():
+    """Phase 15's (and 22c's) small fp32 cohort: a 2-layer BERT at
+    BERT-base width, 4 clients of 16, 10, 16 and 0 samples, batch 8, one
+    epoch's shuffles. Returns ``(model, data, n_samples, perms)``."""
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    small = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2, n_heads=12,
+                       d_ff=3072, n_classes=4)
+    rng = np.random.default_rng(5)
+    datasets = []
+    for n in (16, 10, 16, 0):
+        lengths = rng.integers(16, small.max_len + 1, n)
+        datasets.append({
+            "x": rng.integers(0, small.vocab_size, (n, small.max_len)).astype(np.int32),
+            "attn_mask": (np.arange(small.max_len)[None] < lengths[:, None]).astype(np.float32),
+            "y": rng.integers(0, small.n_classes, n).astype(np.int32)})
+    data, n_samples = stack_client_datasets(datasets, batch_size=8)
+    perms = random_perms(4, 1, data["x"].shape[1], torch.Generator().manual_seed(6))
+    return bert_classifier_model(small), data, n_samples, perms
 
 
 def check_step_launches(name, by_pass, by_design, n_layers, steps, fwd_extra=0) -> dict:
@@ -2443,8 +2599,6 @@ def variants_phase(fa, phase3_peak_gb):
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.core import optim
     from baton_tpu_torch.core.training import random_perms
-    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
-    from baton_tpu_torch.ops.padding import stack_client_datasets
     from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients
     from baton_tpu_torch.parallel.clustered import _masked_mean_loss
 
@@ -2669,19 +2823,7 @@ def variants_phase(fa, phase3_peak_gb):
 
     # the four at 2 layers in fp32, card against the CPU (phase 10's model)
     print("  2-layer fp32 BERT-base width, card against the CPU (tol 1e-4):")
-    small = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2, n_heads=12,
-                       d_ff=3072, n_classes=4)
-    rng = np.random.default_rng(5)
-    datasets = []
-    for n in (16, 10, 16, 0):
-        lengths = rng.integers(16, small.max_len + 1, n)
-        datasets.append({
-            "x": rng.integers(0, small.vocab_size, (n, small.max_len)).astype(np.int32),
-            "attn_mask": (np.arange(small.max_len)[None] < lengths[:, None]).astype(np.float32),
-            "y": rng.integers(0, small.n_classes, n).astype(np.int32)})
-    sdata, sn = stack_client_datasets(datasets, batch_size=8)
-    smodel = bert_classifier_model(small)
-    perms = random_perms(4, 1, sdata["x"].shape[1], torch.Generator().manual_seed(6))
+    smodel, sdata, sn, perms = small_variant_cohort()
     before = launch_counts(fa)
     t0 = time.perf_counter()
     stats["cpu_gaps"] = variants_against_cpu(
@@ -2703,7 +2845,7 @@ def variants_phase(fa, phase3_peak_gb):
 # models card against CPU; and the flash-vs-dense crossover on the card.
 
 CONFIG4_CLIENTS, CONFIG4_PER_CLIENT = 4, 16  # cut from 64 x 512 (PERF.md §4)
-CONFIG4_TIMED_ROUNDS = 2  # cut from 10: a warm-up, 2 timed rounds and a profiled one
+CONFIG4_TIMED_ROUNDS = 1  # cut from 10: a warm-up, a timed round and a profiled one
 CONFIG4_RANK, CONFIG4_BATCH = 16, 8
 CONFIG4_HEADROOM = 0.85  # the share of the card a wave's estimate may fill
 REMAT_TOL = 1e-6  # loss and adapter gradients, remat against none, fp32
@@ -2972,7 +3114,9 @@ def vit_phase(fa):
 def lstm_phase():
     """Phase 16d: example 07's --scale full preset for one round (cut from
     50): 64 clients x 256 sequences of 80 chars, batch 32, the 2 x 256
-    LSTM in fp32; a warm-up round, a timed one and a profiled one."""
+    LSTM in fp32; a warm-up round and two timed ones (no profiled round:
+    the profiler's processing of its tens of thousands of small kernels
+    took about a minute)."""
     from baton_tpu_torch.examples import lstm_shakespeare as ex
     from baton_tpu_torch.models.lstm import LSTMConfig
 
@@ -2989,17 +3133,15 @@ def lstm_phase():
     gen = torch.Generator().manual_seed(1)
     (warm, warm_s) = timed(lambda: sim.run_round(params, data, n_samples, gen))
     res, dt = timed(lambda: sim.run_round(warm.params, data, n_samples, gen))
-    prof_res, breakdown = profiled(lambda: sim.run_round(res.params, data, n_samples, gen),
-                                   "an LSTM round")
+    last, dt2 = timed(lambda: sim.run_round(res.params, data, n_samples, gen))
     loss = res.loss_history.tolist()
     check(all(math.isfinite(x) for x in loss), "lstm: non-finite loss")
-    check(float(prof_res.loss_history[-1]) < float(warm.loss_history[0]),
+    check(float(last.loss_history[-1]) < float(warm.loss_history[0]),
           "lstm: the loss did not fall over three rounds")
-    print(f"  warm-up {warm_s:.3f} s, round {dt:.3f} s (loss {loss}); a step is a Python loop "
-          f"over {full['seq_len']} time steps x {cfg.n_layers} layers")
-    return {"round_s": dt, "warm_up_s": warm_s, "data_s": data_s, "breakdown": breakdown,
-            "losses": [float(warm.loss_history[0]), loss[0],
-                       float(prof_res.loss_history[0])]}
+    print(f"  warm-up {warm_s:.3f} s, rounds {dt:.3f} and {dt2:.3f} s (loss {loss}); a step is "
+          f"a Python loop over {full['seq_len']} time steps x {cfg.n_layers} layers")
+    return {"round_s": [dt, dt2], "warm_up_s": warm_s, "data_s": data_s,
+            "losses": [float(warm.loss_history[0]), loss[0], float(last.loss_history[0])]}
 
 
 def zoo_parity_phase():
@@ -3755,19 +3897,27 @@ def long_context_phase(fa):
           f"each tensor's largest value (tol {RING_TOL}); {ring_s:.1f} s ring, {flash_s:.1f} s "
           "flash")
 
-    stamps = []
+    stamps, counts = [], []
+
+    def stamp(step, loss):
+        stamps.append(time.perf_counter())
+        counts.append(fa.launches())
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     t0 = time.perf_counter()
-    losses = ex.run(**full, device="cuda", params=params,
-                    progress_fn=lambda step, loss: stamps.append(time.perf_counter()))
+    losses = ex.run(**full, device="cuda", params=params, progress_fn=stamp)
     by_pass, by_design = fa.launches(), {k: v for k, v in fa.launches_by_design.items() if v}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = np.diff([t0] + stamps).tolist()
     per_step = ring_step_launches(n, cfg.n_layers, remat=True)
-    check(by_pass == {k: c * steps for k, c in per_step.items()},
-          f"21a: launches {by_pass}, want {per_step} a step x {steps}")
+    # each step's launches as counted, against what the ring implies
+    measured = [{k: now[k] - (prev[k] if prev else 0) for k in now}
+                for prev, now in zip([None] + counts[:-1], counts)]
+    check(len(measured) == steps and all(m == per_step for m in measured)
+          and by_pass == {k: c * steps for k, c in per_step.items()},
+          f"21a: launches a step {measured} ({by_pass} in all), want {per_step} a step x {steps}")
     check(set(by_design) <= {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
           f"21a: launches by design {by_design}, want every fp32 launch on simt")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
@@ -3782,7 +3932,7 @@ def long_context_phase(fa):
           f"{ring_block_calls(n)} block calls a pass and layer), {by_design}")
     _, breakdown = profiled(lambda: ex.run(**dict(full, n_steps=1), device="cuda",
                                            params=params), "one step")
-    return by_pass, {k: c // steps for k, c in by_pass.items()}, {
+    return by_pass, measured, {
         "s_per_step": step_s, "median_s_per_step": median_s, "tokens_per_s": tokens_s,
         "peak_memory_gb": peak_gb, "losses": losses, "step0_loss_gap": loss_gap,
         "step0_grad_gap": grad_gap, "launches_by_design": by_design,
@@ -3916,8 +4066,9 @@ def ring_seams_phase():
 
 
 def sequence_parallel_phase(fa, name):
-    """Phase 21: (a)-(d) above; returns (launches of (a) by pass, the same
-    a step, ring-block rows by kernel and dtype, stats)."""
+    """Phase 21: (a)-(d) above; returns (launches of (a) by pass, each of
+    its steps' launches as counted, ring-block rows by kernel and dtype,
+    stats)."""
     torch.cuda.empty_cache()
     launches, per_step, stats = long_context_phase(fa)
     torch.cuda.empty_cache()
@@ -3932,6 +4083,403 @@ def sequence_parallel_phase(fa, name):
             block_rows.setdefault(kname, {})[str(dtype)[6:]] = row
     stats["seams"] = ring_seams_phase()
     return launches, per_step, block_rows, stats
+
+
+# phase 22: the clients mesh on the one card. A mesh may repeat its device:
+# 4 shards of cuda:0 train a quarter of each wave each, issued before any is
+# read, and meet in one psum a round (parallel/mesh.py, ops/aggregation.py).
+
+MESH_SHARDS = 4  # (a), (b)
+MESH_BAND = 5e-2  # the reference's cross-layout band (tests/test_mesh_equivalence.py)
+# (a), (b): the params' gap from meshless as a share of the round's largest
+# change; read 1.6e-4 (a) and 4.1e-6 (b) on the card, and a round that drops
+# a shard from its psum is near 8e-2 (tests/test_torch_chip_smoke.py)
+MESH_GAP_SHARE = 1e-2
+MESH_TIMED_ROUNDS = 3  # (a): after a warm-up, each side
+CONFIG2 = dict(n_clients=128, n_total=50_000, alpha=0.5, batch_size=32, wave_size=32, lr=0.05)
+CONFIG2_ROUNDS = 2  # cut from the preset's 100 (PERF.md §4)
+VARIANT_SHARDS = (2, 8)  # (c): shards of the card, of the CPU
+VARIANT_BUFFER = (8, 12)  # (c): FedBuff's buffer (a multiple of both) and concurrency
+PSUM_CHILD_TIMEOUT_S = 180  # (d): each child process
+
+
+def card_mesh(n: int):
+    """A clients mesh of ``n`` shards of ``cuda:0``."""
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+
+
+def within_band(got, want, start) -> dict:
+    """``got`` against ``want`` (two rounds from ``start``) in the
+    reference's band, every element within rtol = atol = ``MESH_BAND``;
+    also the gap as a share of the round's largest change. Returns both."""
+    gap = max_gap(got, want)
+    moved = max(float((want[k].double() - start[k].double()).abs().max()) for k in start)
+    inside = all(torch.allclose(got[k].float(), want[k].float(), rtol=MESH_BAND, atol=MESH_BAND)
+                 for k in want)
+    return {"max_gap": gap, "largest_change": moved, "gap_over_change": gap / moved,
+            "inside": inside}
+
+
+def hold_against_meshless(label, got, want, start) -> tuple:
+    """The mesh's round ``got`` against the meshless round ``want`` (round
+    results from the params ``start``): every param and the loss within
+    the reference's band, and the params' gap at most ``MESH_GAP_SHARE`` of
+    the round's largest change (the band alone passes a round that drops a
+    shard where a round moves the params less than it). Returns ``(band,
+    loss_gap)``."""
+    band = within_band(got.params, want.params, start)
+    loss_gap = (got.loss_history - want.loss_history).abs().max().item()
+    check(band["inside"] and band["gap_over_change"] <= MESH_GAP_SHARE
+          and loss_gap <= MESH_BAND * want.loss_history.abs().max().item(),
+          f"{label}: the mesh round is outside the band of the meshless one, or its gap is over "
+          f"{MESH_GAP_SHARE} of the round's change ({band}, loss {loss_gap})")
+    return band, loss_gap
+
+
+def noise_draw_costs(params, n_clients: int, n_shards: int) -> dict:
+    """One DP-SGD step's noise for a wave of ``n_clients`` clients stacked
+    like ``params`` (``training.noise_rows_of``): meshless, one draw of the
+    wave; on ``n_shards`` shards, each shard draws the whole wave and keeps
+    its rows (what keeps a client's noise the same on any mesh). The ms of
+    each and its peak GB above the memory in use; the mesh's peak must stay
+    under twice the meshless one (the rows kept own their memory, and one
+    leaf's whole draw is alive at a time)."""
+    from baton_tpu_torch.core.training import noise_rows_of
+
+    templ = {k: torch.empty((1,) + tuple(v.shape), device="meta") for k, v in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per = n_clients // n_shards
+    fns = {"meshless": lambda: noise_rows_of(templ, gen, (0, n_clients, n_clients), "cuda"),
+           "mesh": lambda: [noise_rows_of(templ, gen, (j * per, (j + 1) * per, n_clients), "cuda")
+                            for j in range(n_shards)]}
+    out = {}
+    for label, fn in fns.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[label] = {"peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                      "ms": time_ms(fn, iters=3, warmup=1, readings=3)}
+    check(out["mesh"]["peak_gb"] < 2 * out["meshless"]["peak_gb"],
+          f"22a: the mesh's noise for one step peaks at {out['mesh']['peak_gb']:.2f} GB, the "
+          f"meshless {out['meshless']['peak_gb']:.2f} GB")
+    return out
+
+
+def fold_against_oracle(client_params, n_samples, mesh) -> dict:
+    """The mesh's psum FedAvg of trained client contributions (``[C, ...]``
+    split over the shards as a round splits them) against float64, element
+    by element within the worst-case fp32 error of that sum,
+    ``gamma(C + 2)`` of the weighted sum of magnitudes over the weights.
+    Returns the largest gap and its share of the bound."""
+    from baton_tpu_torch.ops import aggregation as agg
+    from baton_tpu_torch.parallel.mesh import client_sharding, device_put, shard_client_arrays
+
+    w = torch.as_tensor(n_samples, device=next(iter(client_params.values())).device).float()
+    means = agg.psum_weighted_mean(shard_client_arrays(client_params, mesh),
+                                   device_put(w, client_sharding(mesh)), mesh)
+    w64 = w.double()
+    gap = share = 0.0
+    for k, v in client_params.items():
+        v64 = v.double()
+        oracle = torch.tensordot(w64, v64, dims=([0], [0])) / w64.sum()
+        bound = gamma(len(w) + 2) * torch.tensordot(w64, v64.abs(), dims=([0], [0])) / w64.sum()
+        for mean in means:
+            diff = (mean[k].double() - oracle).abs()
+            gap = max(gap, diff.max().item())
+            share = max(share, (diff / bound.clamp_min(1e-300)).max().item())
+    check(share <= 1.0, f"the psum fold is {share:.3g} of its fp32 bound from float64")
+    return {"max_gap": gap, "share_of_bound": share}
+
+
+def mesh_bert_phase(fa):
+    """Phase 22a: phase 3's BERT-base round on 4 shards of the card against
+    the same round meshless (same weights and shuffles): launches, the
+    batch each forward launch sees, times, peak memory, the band, the
+    fold against float64, the psum's time and the wave sizer's line."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.ops import aggregation as agg
+
+    cfg, model, data, n_samples = bert_base_cohort()
+    n_clients, batch = len(n_samples), 32
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    n_samples = torch.as_tensor(n_samples, device="cuda")
+    mesh = card_mesh(MESH_SHARDS)
+    sims = {"meshless": FedSim(model, batch_size=batch, learning_rate=0.01),
+            "mesh": FedSim(model, batch_size=batch, learning_rate=0.01, mesh=mesh)}
+    params = sims["meshless"].init(torch.Generator().manual_seed(0))
+    perms = random_perms(n_clients, 1, data["x"].shape[1], torch.Generator().manual_seed(1))
+    print(f"phase 22a: BERT-base rounds on a clients mesh of {MESH_SHARDS} shards of the card "
+          f"against meshless ({n_clients} clients x {batch} samples, bf16 compute, one wave)")
+    real_fwd, batches = fa._fwd, []
+
+    def noting_fwd(q, *args):
+        batches.append(int(q.shape[0]))
+        return real_fwd(q, *args)
+
+    out = {}
+    for label, sim in sims.items():
+        sim.run_round(params, data, n_samples, perms=perms)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches.clear()
+        fa._fwd = noting_fwd
+        try:
+            before = launch_counts(fa)
+            res, first_s = timed(lambda: sim.run_round(params, data, n_samples, perms=perms))
+            by_pass, by_design = launches_since(fa, before)
+        finally:
+            fa._fwd = real_fwd
+        times = [timed(lambda: sim.run_round(params, data, n_samples, perms=perms))[1]
+                 for _ in range(MESH_TIMED_ROUNDS)]
+        out[label] = {"res": res, "launches": by_pass, "by_design": by_design,
+                      "batches": sorted(set(batches)), "s_per_round": [first_s] + times,
+                      "median_s": float(np.median([first_s] + times)),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"  {label}: s/round {[round(t, 4) for t in [first_s] + times]}, peak "
+              f"{out[label]['peak_memory_gb']:.2f} GB, launches a round {by_pass} {by_design}, "
+              f"forward batch {out[label]['batches']}, loss {res.loss_history.tolist()}")
+    plain, meshed = out["meshless"], out["mesh"]
+    layers = cfg.n_layers
+    check(plain["launches"] == {k: layers for k in plain["launches"]}
+          and meshed["launches"] == {k: MESH_SHARDS * layers for k in meshed["launches"]}
+          and meshed["by_design"] == {f"{p}_mma": MESH_SHARDS * layers
+                                      for p in ("fwd", "bwd_dkv", "bwd_dq")},
+          f"22a: launches {meshed['launches']} {meshed['by_design']} on the mesh, "
+          f"{plain['launches']} meshless; want {MESH_SHARDS} x {layers} of each, all mma")
+    check(len(plain["batches"]) == 1 and meshed["batches"] == [plain["batches"][0] // MESH_SHARDS],
+          f"22a: forward batches {meshed['batches']} on the mesh, {plain['batches']} meshless")
+    band, loss_gap = hold_against_meshless("22a", meshed["res"], plain["res"], params)
+    client_params, _ = sims["meshless"].trainer.train_clients(params, data, n_samples, 1,
+                                                              perms.cuda())
+    fold = fold_against_oracle(client_params, n_samples, mesh)
+    parts = [{k: v.float() for k, v in params.items()} for _ in range(MESH_SHARDS)]
+    psum_ms = time_ms(lambda: agg.psum(parts, mesh), iters=5)
+    del client_params, parts
+    torch.cuda.empty_cache()
+    noise = noise_draw_costs(params, n_clients, MESH_SHARDS)
+    n_params = sum(v.numel() for v in params.values())
+    footprints = {}
+    for label, sim in sims.items():
+        line = sim._fit_wave_footprint(params, data, n_samples)
+        footprints[label] = dict(sim.wave_footprint, at_8_gb=line(n_clients))
+    torch.cuda.empty_cache()
+    print(f"  the mesh against meshless: params {band['max_gap']:.3e} ({band['gap_over_change']:.3e}"
+          f" of the largest change {band['largest_change']:.3e}; band rtol = atol = {MESH_BAND}), "
+          f"loss {loss_gap:.3e}; the psum fold against float64 {fold['max_gap']:.3e} "
+          f"({fold['share_of_bound']:.3e} of its fp32 bound); one psum of the {n_params / 1e6:.1f} M "
+          f"fp32 params over {MESH_SHARDS} shards {psum_ms:.4f} ms; the wave sizer's line "
+          f"meshless {footprints['meshless']}, on the mesh (a client a shard a step) "
+          f"{footprints['mesh']}; one DP step's noise for the wave meshless {noise['meshless']}, "
+          f"on the mesh (each shard draws the wave) {noise['mesh']}")
+    stats = {label: {k: v for k, v in o.items() if k != "res"} for label, o in out.items()}
+    stats.update(band=band, loss_gap=loss_gap, fold=fold, psum_ms=psum_ms,
+                 wave_footprint=footprints, dp_noise_step=noise)
+    return meshed["launches"], stats
+
+
+def config2_phase(fa):
+    """Phase 22b: BASELINE config 2 at full width (example 02's ``--scale
+    full``: ResNet-18, 128 Dirichlet(0.5) clients of 50,000 CIFAR-shaped
+    images from the loader's synthetic fallback, batch 32, waves of 32,
+    bf16) on 4 shards of the card, 2 of its 100 rounds; then round 0
+    meshless on the same inputs, in waves of 8 (each the clients one shard
+    holds in a wave), against the mesh's round 0."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.examples import resnet_cifar_dirichlet as ex02
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.parallel.engine import round_generator
+
+    cfg = CONFIG2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as empty:  # no CIFAR-10 files: the synthetic fallback
+        shards = ex02.make_data(np.random.default_rng(0), cfg["n_total"], cfg["n_clients"],
+                                cfg["alpha"], data_dir=empty)
+    data, n_samples = stack_client_datasets(shards, batch_size=cfg["batch_size"])
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    n_samples = torch.as_tensor(n_samples, device="cuda")
+    data_s = time.perf_counter() - t0
+    model = ex02.resnet18_cifar_model(compute_dtype=torch.bfloat16)
+    capacity = data["x"].shape[1]
+    sim = FedSim(model, batch_size=cfg["batch_size"], learning_rate=cfg["lr"],
+                 mesh=card_mesh(MESH_SHARDS))
+    params = sim.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    n_real = int(n_samples.sum())
+    print(f"phase 22b: BASELINE config 2 (example 02 --scale full: ResNet-18, "
+          f"{cfg['n_clients']} Dirichlet({cfg['alpha']}) clients, {n_real} images, capacity "
+          f"{capacity}, batch {cfg['batch_size']}, waves of {cfg['wave_size']}, bf16) on "
+          f"{MESH_SHARDS} shards of the card, {CONFIG2_ROUNDS} of its 100 rounds; data made in "
+          f"{data_s:.1f} s")
+    before = launch_counts(fa)
+    rounds, p, first = [], params, None
+    for i in range(CONFIG2_ROUNDS):
+        torch.cuda.reset_peak_memory_stats()
+        res, dt = timed(lambda: sim.run_round(p, data, n_samples, round_generator(gen, i),
+                                              wave_size=cfg["wave_size"]))
+        rec = sim.last_compute or {}
+        rounds.append({"s": dt, "images_per_s": n_real / dt, "mfu": rec.get("mfu"),
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "loss": res.loss_history.tolist()})
+        print(f"  round {i}: {dt:.3f} s, {n_real / dt:.1f} images/s, MFU {rec.get('mfu')}, "
+              f"peak {rounds[-1]['peak_memory_gb']:.2f} GB, loss {rounds[-1]['loss']}")
+        first = first or res
+        p = res.params
+    by_pass, _ = launches_since(fa, before)
+    check(not any(by_pass.values()), f"22b: ResNet-18 launched flash kernels {by_pass}")
+    check(all(math.isfinite(x) for r in rounds for x in r["loss"])
+          and rounds[-1]["loss"][-1] < rounds[0]["loss"][0],
+          f"22b: the loss did not fall: {[r['loss'] for r in rounds]}")
+    check(all(torch.isfinite(v).all() for v in p.values()), "22b: non-finite params")
+    plain = FedSim(model, batch_size=cfg["batch_size"], learning_rate=cfg["lr"])
+    ref, ref_s = timed(lambda: plain.run_round(params, data, n_samples, round_generator(gen, 0),
+                                               wave_size=cfg["wave_size"] // MESH_SHARDS))
+    band, loss_gap = hold_against_meshless("22b", first, ref, params)
+    print(f"  round 0 meshless in waves of {cfg['wave_size'] // MESH_SHARDS}: {ref_s:.3f} s; "
+          f"the mesh's round 0 against it: params {band['max_gap']:.3e} "
+          f"({band['gap_over_change']:.3e} of the largest change), loss {loss_gap:.3e}")
+    del data, sim, plain
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "n_images": n_real, "capacity": capacity, "data_s": data_s,
+            "meshless_round0_s": ref_s, "band": band, "loss_gap": loss_gap}
+
+
+def mesh_variants_phase():
+    """Phase 22c: the four variants at phase 15's small fp32 size on 2
+    shards of the card against 8 shards of the CPU."""
+    model, data, n_samples, perms = small_variant_cohort()
+    print(f"phase 22c: the four variants on a clients mesh, {VARIANT_SHARDS[0]} shards of the "
+          f"card against {VARIANT_SHARDS[1]} of the CPU (2-layer fp32 BERT-base width; FedBuff "
+          f"buffer {VARIANT_BUFFER[0]} of {VARIANT_BUFFER[1]}; tol 1e-4, bookkeeping exact)")
+    t0 = time.perf_counter()
+    gaps = variants_against_cpu(model, model.init(torch.Generator().manual_seed(3)),
+                                model.init(torch.Generator().manual_seed(4)), data, n_samples,
+                                8, 0.01, perms, shards=VARIANT_SHARDS, buffer=VARIANT_BUFFER)
+    print(f"  the mesh runs on the card and the CPU took {time.perf_counter() - t0:.1f} s")
+    return gaps
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def psum_child(coordinator: str, rank: int, device: str = "cuda") -> int:
+    """Phase 22d's child: ``python3 chip_smoke.py --psum-child host:port
+    rank [device]``. Joins a gloo group of 2 processes, each with 2 shards
+    of ``device`` (``cuda:0`` on the card), and runs the FedAvg psum of 4
+    clients' ResNet-18-sized params (made from a seed) across the process
+    boundary against float64 (within ``gamma(C + 2)`` of the weighted sum
+    of magnitudes), timing it. Prints one JSON line; destroys its process
+    group on every exit."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.ops import aggregation as agg
+    from baton_tpu_torch.parallel.mesh import client_sharding, device_put, shard_client_arrays
+    from baton_tpu_torch.parallel.multihost import initialize_multihost, make_hybrid_mesh
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    try:
+        initialize_multihost(coordinator, 2, rank, backend="gloo", devices=[dev] * 2,
+                             timeout_s=60)
+        mesh = make_hybrid_mesh([], dcn_axis="clients", devices=[dev] * 2)
+        c = mesh.shape["clients"]
+        shapes = {k: v.shape for k, v in resnet18_cifar_model().init(
+            torch.Generator().manual_seed(0)).items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        theta = {k: torch.randn((c,) + tuple(shape), generator=gen, device=dev)
+                 for k, shape in shapes.items()}
+        w = torch.arange(1, c + 1, dtype=torch.float32, device=dev)
+        stacks, ws = shard_client_arrays(theta, mesh), device_put(w, client_sharding(mesh))
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        means = agg.psum_weighted_mean(stacks, ws, mesh)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            agg.psum_weighted_mean(stacks, ws, mesh)
+        sync()
+        psum_ms = (time.perf_counter() - t0) / 5 * 1e3
+        w64, share, gap = w.double(), 0.0, 0.0
+        for k, v in theta.items():
+            oracle = torch.tensordot(w64, v.double(), dims=([0], [0])) / w64.sum()
+            bound = gamma(c + 2) * torch.tensordot(w64, v.double().abs(), dims=([0], [0])) / w64.sum()
+            for mean in means:
+                diff = (mean[k].double() - oracle).abs()
+                gap, share = max(gap, diff.max().item()), max(
+                    share, (diff / bound.clamp_min(1e-300)).max().item())
+        n_params = sum(v[0].numel() for v in theta.values())
+        print(json.dumps({"rank": rank, "world": dist.get_world_size(),
+                          "backend": dist.get_backend(), "mesh": mesh.shape,
+                          "local_shards": [j for j, _ in mesh.local_shards()],
+                          "n_params": n_params, "max_gap": gap, "share_of_bound": share,
+                          "psum_ms": psum_ms}), flush=True)
+        return 0 if share <= 1.0 else 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def two_process_phase(device: str = "cuda") -> list:
+    """Phase 22d: two processes on the one card joined over gloo (NCCL
+    refuses two ranks on one GPU), one FedAvg psum across them against
+    float64; each child under a hard timeout, killed in ``finally``."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    print(f"phase 22d: two processes on the one card over gloo ({coordinator}), 2 shards of "
+          f"{device} each: the FedAvg psum of 4 clients' ResNet-18-sized params across them")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--psum-child",
+                               coordinator, str(rank), device], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=PSUM_CHILD_TIMEOUT_S)
+            check(p.returncode == 0, f"22d: a child exited {p.returncode}:\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check([o["rank"] for o in outs] == [0, 1] and all(o["world"] == 2 for o in outs)
+          and [o["local_shards"] for o in outs] == [[0, 1], [2, 3]]
+          and all(o["share_of_bound"] <= 1.0 for o in outs), f"22d: {outs}")
+    for o in outs:
+        print(f"  rank {o['rank']} ({o['backend']}, mesh {o['mesh']}, shards {o['local_shards']}):"
+              f" {o['n_params'] / 1e6:.2f} M params a client, psum {o['psum_ms']:.2f} ms, "
+              f"against float64 {o['max_gap']:.3e} ({o['share_of_bound']:.3e} of its fp32 bound)")
+    print(f"  the two processes took {time.perf_counter() - t0:.1f} s, start to exit")
+    return outs
+
+
+def mesh_phase(fa):
+    """Phase 22: (a)-(d) above; returns (the launches of (a)'s mesh round
+    by pass, stats)."""
+    torch.cuda.empty_cache()
+    launches, bert = timed_phase("22a", mesh_bert_phase, fa)
+    torch.cuda.empty_cache()
+    stats = {"bert": bert, "config2": timed_phase("22b", config2_phase, fa)}
+    stats["variants"] = timed_phase("22c", mesh_variants_phase)
+    torch.cuda.empty_cache()
+    stats["two_processes"] = timed_phase("22d", two_process_phase)
+    return launches, stats
+
+
+def timed_phase(label, fn, *args):
+    """``fn(*args)``, printing the seconds it took under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3985,42 +4533,48 @@ def main() -> int:
     vision_parity_phase()
     print(f"phases 6-7 took {time.perf_counter() - vision:.1f} s")
     options = time.perf_counter()
-    config3_launches, config3_per_round, config3_stats = fedprox_bert_phase(fa)
-    optimizer_stats = resnet_optimizer_phase(resnet_stats)
-    parity_errs = options_parity_phase()
+    config3_launches, config3_per_round, config3_stats = timed_phase("8", fedprox_bert_phase, fa)
+    optimizer_stats = timed_phase("9", resnet_optimizer_phase, resnet_stats)
+    parity_errs = timed_phase("10", options_parity_phase)
     print(f"phases 8-10 took {time.perf_counter() - options:.1f} s")
     http = time.perf_counter()
     http_stats = http_round_phase(fa)
     print(f"phase 11 took {time.perf_counter() - http:.1f} s")
     second = time.perf_counter()
     fa.reset_launches()
-    bandwidth_stats = bandwidth_phase(fa)
-    secure_stats = secure_phase(fa)
-    config1_stats = config1_phase(fa)
+    bandwidth_stats = timed_phase("12", bandwidth_phase, fa)
+    secure_stats = timed_phase("13", secure_phase, fa)
+    config1_stats = timed_phase("14", config1_phase, fa)
     print(f"phases 12-14 took {time.perf_counter() - second:.1f} s")
     variants = time.perf_counter()
     variants_stats = variants_phase(fa, round_stats["peak_memory_gb"])
     print(f"phase 15 took {time.perf_counter() - variants:.1f} s")
     zoo = time.perf_counter()
     torch.cuda.empty_cache()
-    config4_launches, config4_per_round, config4_stats = config4_phase(fa, name)
-    zoo_stats = {"config4": config4_stats, "remat": remat_phase(), "vit": vit_phase(fa),
-                 "lstm": lstm_phase(), "parity": zoo_parity_phase()}
+    config4_launches, config4_per_round, config4_stats = timed_phase("16a", config4_phase, fa,
+                                                                     name)
+    zoo_stats = {"config4": config4_stats, "remat": timed_phase("16b", remat_phase),
+                 "vit": timed_phase("16c", vit_phase, fa), "lstm": timed_phase("16d", lstm_phase),
+                 "parity": timed_phase("16e", zoo_parity_phase)}
     with tempfile.TemporaryDirectory() as tmp:
-        zoo_stats["crossover"] = crossover_phase(name, tmp)
+        zoo_stats["crossover"] = timed_phase("16f", crossover_phase, name, tmp)
     print(f"phase 16 took {time.perf_counter() - zoo:.1f} s")
     slice10 = time.perf_counter()
     torch.cuda.empty_cache()
-    config5_launches, config5_per_round, config5_stats, config5_ctx = config5_phase(fa, name)
+    config5_launches, config5_per_round, config5_stats, config5_ctx = timed_phase(
+        "17", config5_phase, fa, name)
     config5_times = config5_timing_phase(fa, name, config5_stats["wave"])
-    auto_stats = auto_wave_phase(config5_ctx)
+    auto_stats = timed_phase("18", auto_wave_phase, config5_ctx)
     del config5_ctx
-    fused_stats = fused_phase(fa)
-    examples_stats = examples_phase()
+    fused_stats = timed_phase("19", fused_phase, fa)
+    examples_stats = timed_phase("20", examples_phase)
     print(f"phases 17-20 took {time.perf_counter() - slice10:.1f} s")
     slice11 = time.perf_counter()
     ring_launches, ring_per_step, ring_rows, ring_stats = sequence_parallel_phase(fa, name)
     print(f"phase 21 took {time.perf_counter() - slice11:.1f} s")
+    slice12 = time.perf_counter()
+    mesh_launches, mesh_stats = mesh_phase(fa)
+    print(f"phase 22 took {time.perf_counter() - slice12:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -4037,8 +4591,11 @@ def main() -> int:
         row["launches_fused_bert"] = fused_stats["launches_fused_bert"][counter]
         row["launches_per_round_fused_bert"] = fused_stats["launches_per_round_fused_bert"][counter]
         row["launches_ring_flash"] = ring_launches[counter]
-        row["launches_per_step_ring_flash"] = ring_per_step[counter]
+        row["launches_per_step_ring_flash"] = [step[counter] for step in ring_per_step]
         row["ring_block_shape"] = ring_rows[row["name"]]
+        row["launches_per_round_mesh_bert"] = mesh_launches[counter]
+        row["launches_per_round_meshless_bert"] = mesh_stats["bert"]["meshless"]["launches"][
+            counter]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
@@ -4046,7 +4603,8 @@ def main() -> int:
                       "bandwidth": bandwidth_stats, "secure": secure_stats,
                       "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats,
                       "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
-                      "examples": examples_stats, "sequence_parallel": ring_stats}))
+                      "examples": examples_stats, "sequence_parallel": ring_stats,
+                      "clients_mesh": mesh_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -4056,4 +4614,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--psum-child"]:
+        sys.exit(psum_child(*sys.argv[2:3], int(sys.argv[3]), *sys.argv[4:5]))
     sys.exit(main())

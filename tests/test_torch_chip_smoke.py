@@ -24,11 +24,18 @@ it picks, the frozen-base check, the sweep artifact's writer and what
 ring's launch count against a counted CPU step of example 06, the shard
 by shard comparator and the model-gradient check, each failing a broken
 input) and phase 2's check of the flash block wrappers, passing them and
-failing a broken dk, dtype or launch; and ``main`` with every phase, the card and nvidia-smi stubbed:
-it runs phases 2-21 in order and ends with the card's name and power
-limit, the kernels line (with its config-4 and ring launches) and the
-ok/device line; a failing phase from 6 on fails it before any result
-line."""
+failing a broken dk, dtype or launch; phase 2's masked-row case against
+float64, passing the plain version and failing a dbias off by more than
+fp32 summation explains; phase 22's checks at a tiny size on the CPU (the
+band, the mesh round held against meshless, which fails a round that drops
+a shard from its psum though the band alone passes it, the psum fold
+against float64, each failing a broken input; the four
+variants on 2 shards against 8; the two processes over gloo); and ``main``
+with every phase, the card and nvidia-smi stubbed: it runs phases 2-22 in
+order and ends with the card's name and power limit, the kernels line
+(with its config-4, ring and mesh launches, the ring's counted a step)
+and the ok/device line; a failing phase from 6 on fails it before any
+result line."""
 
 import dataclasses
 import importlib.util
@@ -204,7 +211,8 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
           "variants_phase", "config4_phase", "remat_phase", "vit_phase", "lstm_phase",
           "zoo_parity_phase", "crossover_phase", "config5_phase", "config5_timing_phase",
-          "auto_wave_phase", "fused_phase", "examples_phase", "sequence_parallel_phase")
+          "auto_wave_phase", "fused_phase", "examples_phase", "sequence_parallel_phase",
+          "mesh_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -221,6 +229,9 @@ FUSED_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 RING_PER_STEP = {"fwd": 576, "bwd_dkv": 288, "bwd_dq": 288}
 RING_COUNTS = {k: 5 * n for k, n in RING_PER_STEP.items()}
 RING_ROW = {"float32": {"ms": 2.0, "bound_ms": 0.5}, "bfloat16": {"ms": 0.5, "bound_ms": 0.1}}
+# phase 22a: BERT-base's 12 layers, one round on 4 shards and meshless
+MESH_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
+MESHLESS_COUNTS = {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -255,8 +266,10 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "fused_phase": {"launches_fused_bert": FUSED_COUNTS,
                                     "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
                     "examples_phase": {},
-                    "sequence_parallel_phase": (RING_COUNTS, RING_PER_STEP,
+                    "sequence_parallel_phase": (RING_COUNTS, [RING_PER_STEP] * 5,
                                                 {"flash_fwd": RING_ROW}, {}),
+                    "mesh_phase": (MESH_COUNTS,
+                                   {"bert": {"meshless": {"launches": MESHLESS_COUNTS}}}),
                     }.get(phase)
         return run
 
@@ -294,8 +307,9 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_config5": 288, "launches_per_round_config5": 96,
         "launches_per_step_config5": 24, "config5_shape": CONFIG5_ROW,
         "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
-        "launches_ring_flash": 2880, "launches_per_step_ring_flash": 576,
-        "ring_block_shape": RING_ROW}]}
+        "launches_ring_flash": 2880, "launches_per_step_ring_flash": [576] * 5,
+        "ring_block_shape": RING_ROW, "launches_per_round_mesh_bert": 48,
+        "launches_per_round_meshless_bert": 12}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -307,7 +321,7 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                      "vit_phase", "lstm_phase", "zoo_parity_phase",
                                      "crossover_phase", "config5_phase", "auto_wave_phase",
                                      "fused_phase", "examples_phase",
-                                     "sequence_parallel_phase"])
+                                     "sequence_parallel_phase", "mesh_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -897,3 +911,142 @@ def test_model_gradient_check():
     assert chip_smoke.check_model_grads("ok", got, want) < 1e-4
     with pytest.raises(RuntimeError, match="gradient of b"):
         chip_smoke.check_model_grads("bad", dict(got, b=want["b"] * 1.01), want)
+
+
+# ---------------------------------------------------------------------------
+# phase 2's masked-row case and phase 22's checks
+
+
+@pytest.mark.parametrize("fault", [None, "db"])
+def test_masked_row_case_against_float64(monkeypatch, fault):
+    """Phase 2's fp32 sample with every key masked, at L 512 on the CPU
+    (the kernel wrapper takes its plain version here, its launch counted
+    by a stub): both within the fp32 summation bound of float64; a dbias
+    off by 1.0 at one key (|dbias| up to ~600, the bound there ~0.13) is
+    not."""
+    import functools
+
+    monkeypatch.setattr(chip_smoke, "attention_inputs",
+                        functools.partial(chip_smoke.attention_inputs, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def counted(*args):
+        fa.launches_by_design["bwd_dkv_simt"] += 1
+        dk, dv, db = fa._bwd_dkv_plain(*args)
+        if fault == "db":
+            db = db.clone()
+            db[0, 1, 7] += 1.0
+        return dk, dv, db
+
+    monkeypatch.setattr(fa, "_bwd_dkv", counted)
+    case = ("masked_long", 1, 4, 2, 512, 64, torch.float32, False, "masked_rows")
+    if fault is None:
+        out = chip_smoke.masked_row_oracle_case(fa, 0, *case)
+        assert set(out) == {"dk", "dv", "db"}
+        assert all(o["kernel_share_of_bound"] <= 1.0 for o in out.values())
+    else:
+        with pytest.raises(RuntimeError, match="db: kernel"):
+            chip_smoke.masked_row_oracle_case(fa, 0, *case)
+
+
+def test_gamma_is_the_worst_case_fp32_sum_error():
+    assert chip_smoke.gamma(1) == pytest.approx(2.0 ** -24, rel=1e-6)
+    assert chip_smoke.gamma(4096) == pytest.approx(4096 * 2.0 ** -24, rel=1e-3)
+
+
+@pytest.mark.parametrize("off", [0.0, 0.2])
+def test_band_check(off):
+    start = {"w": torch.zeros(4)}
+    want = {"w": torch.tensor([0.1, -0.2, 0.3, 0.0])}
+    got = {"w": want["w"] + torch.tensor([1e-3, 0.0, off, 0.0])}
+    band = chip_smoke.within_band(got, want, start)
+    assert band["inside"] == (off == 0.0)
+    assert band["largest_change"] == pytest.approx(0.3)
+    assert band["max_gap"] == pytest.approx(max(1e-3, off), rel=1e-5)
+
+
+@pytest.mark.parametrize("fault", [None, "one_shard_dropped"])
+def test_mesh_round_held_against_meshless(monkeypatch, fault):
+    """Phase 22's hold on 4 CPU shards of a linear round whose largest
+    change (about 2.5e-2) is half the band: the mesh round passes;
+    one that drops its last shard from the psum stays inside the band yet
+    moves 8e-2 of the change, and fails."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.data.synthetic import linear_client_data
+    from baton_tpu_torch.models.linear import linear_regression_model
+    from baton_tpu_torch.ops import aggregation as agg
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(0)
+    data, n = stack_client_datasets(
+        [linear_client_data(rng, min_batches=1, max_batches=2) for _ in range(8)], batch_size=32)
+    data, n = {k: torch.from_numpy(v) for k, v in data.items()}, torch.from_numpy(n)
+    model, kw = linear_regression_model(10), dict(batch_size=32, learning_rate=5e-4)
+    perms = torch.stack([torch.randperm(data["x"].shape[1],
+                                        generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(8)])
+    plain = FedSim(model, device="cpu", **kw)
+    start = plain.init(torch.Generator().manual_seed(0))
+    want = plain.run_round(start, data, n, perms=perms)
+    if fault:
+        real = agg.psum
+        monkeypatch.setattr(agg, "psum", lambda parts, m, axis="clients": real(
+            parts[:-1] + [{"p": {k: torch.zeros_like(v) for k, v in parts[-1]["p"].items()},
+                           "l": torch.zeros_like(parts[-1]["l"]),
+                           "w": torch.zeros_like(parts[-1]["w"])}], m, axis))
+    got = FedSim(model, mesh=make_mesh(4, devices=["cpu"] * 4), **kw).run_round(
+        start, data, n, perms=perms)
+    band = chip_smoke.within_band(got.params, want.params, start)
+    assert band["inside"] and band["largest_change"] <= chip_smoke.MESH_BAND
+    if fault:
+        with pytest.raises(RuntimeError, match="22a: the mesh round"):
+            chip_smoke.hold_against_meshless("22a", got, want, start)
+    else:
+        held, loss_gap = chip_smoke.hold_against_meshless("22a", got, want, start)
+        assert held["gap_over_change"] < 1e-4 and loss_gap < 1e-3
+
+
+@pytest.mark.parametrize("fault", [None, "one_shard_dropped"])
+def test_fold_against_float64(monkeypatch, fault):
+    """Phase 22a's fold on 4 CPU shards: the psum FedAvg of trained
+    client contributions within its fp32 bound of float64; a psum that
+    drops a shard's sums is far outside it."""
+    from baton_tpu_torch.ops import aggregation as agg
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator().manual_seed(0)
+    client_params = {"w": torch.randn(8, 16, 4, generator=gen), "b": torch.randn(8, 4, generator=gen)}
+    n_samples = np.array([3, 0, 7, 1, 5, 2, 8, 4])
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    if fault:
+        real = agg.psum
+        monkeypatch.setattr(agg, "psum", lambda parts, m, axis="clients": real(
+            parts[:-1] + [{"sums": {k: torch.zeros_like(v) for k, v in parts[-1]["sums"].items()},
+                           "w": parts[-1]["w"]}], m, axis))
+        with pytest.raises(RuntimeError, match="psum fold"):
+            chip_smoke.fold_against_oracle(client_params, n_samples, mesh)
+    else:
+        fold = chip_smoke.fold_against_oracle(client_params, n_samples, mesh)
+        assert fold["share_of_bound"] <= 1.0 and fold["max_gap"] < 1e-5
+
+
+def test_mesh_variants_against_cpu_at_a_tiny_size():
+    """Phase 22c at a tiny size: the four variants on 2 shards against 8,
+    both on the CPU, FedBuff's buffer of 8: every gap within 1e-4 and the
+    bookkeeping equal."""
+    model, params, data, n_samples = _tiny_bert_cohort()
+    perms = torch.stack([torch.randperm(8, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(4)])
+    gaps = chip_smoke.variants_against_cpu(
+        model, params, model.init(torch.Generator().manual_seed(1)), data, n_samples, 4, 0.05,
+        perms, device="cpu", shards=chip_smoke.VARIANT_SHARDS, buffer=chip_smoke.VARIANT_BUFFER)
+    assert len(gaps) == 4 and all(g <= 1e-5 for g in gaps.values())
+
+
+def test_two_processes_over_gloo_on_the_cpu():
+    """Phase 22d with its children's shards on the CPU: two processes, 2
+    shards each, the psum across them within its fp32 bound of float64."""
+    outs = chip_smoke.two_process_phase("cpu")
+    assert [o["local_shards"] for o in outs] == [[0, 1], [2, 3]]
+    assert all(o["backend"] == "gloo" and o["share_of_bound"] <= 1.0 for o in outs)

@@ -6,8 +6,10 @@ ResNet on 16 px of the CIFAR loader's synthetic fallback, nothing
 downloaded) resumes from its checkpoints to the same history; example
 09's federation learns past 0.8 with uploads under half the dense size;
 example 10 reaches 0.85 held-out accuracy on scikit-learn's real digits
-(synchronous, and FedBuff). ``use_mesh=True`` is refused naming ROADMAP
-item 11, and each example needs a GPU unless asked for the CPU."""
+(synchronous, and FedBuff). ``use_mesh=True`` asks for a clients mesh
+over the CUDA devices and, with at most one, runs meshless
+(``tests/test_torch_examples_mesh.py`` runs them on a mesh), and each
+example needs a GPU unless asked for the CPU."""
 
 from functools import partial
 
@@ -58,9 +60,20 @@ def test_real_digits(fedbuff):
 
 @pytest.mark.parametrize("example", [resnet_cifar_dirichlet, real_digits],
                          ids=["02", "10"])
-def test_a_mesh_is_refused_naming_its_roadmap_item(example):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        example.run(use_mesh=True, device="cpu")
+def test_a_mesh_is_refused_naming_its_roadmap_item(example, tmp_path):
+    """No longer refused: ``use_mesh=True`` builds a clients mesh over the
+    CUDA devices when there is more than one; here there is none, so the
+    run is meshless, as the reference's on one device."""
+    assert example.cuda_clients_mesh() is None
+    if example is resnet_cifar_dirichlet:
+        tiny = partial(resnet_model, blocks_per_stage=(1,), n_classes=10, n_groups=8)
+        history, _ = example.run(n_clients=2, n_total=16, n_rounds=1, model_fn=tiny,
+                                 compute_dtype=torch.float32, image_size=8,
+                                 data_dir=str(tmp_path), use_mesh=True, device="cpu")
+        assert np.isfinite(history).all()
+    else:
+        assert example.run(n_clients=2, n_rounds=1, n_epochs=1, use_mesh=True,
+                           device="cpu") > 0.0
 
 
 def test_the_examples_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):

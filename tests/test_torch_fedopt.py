@@ -41,6 +41,7 @@ from baton_tpu_torch.core.training import random_perms
 from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
 from baton_tpu_torch.ops.privacy import DPConfig
 from baton_tpu_torch.ops.padding import stack_client_datasets
+from baton_tpu_torch.parallel.mesh import make_mesh
 from _torch_variants import jax_round_perms
 
 torch.set_num_threads(1)
@@ -275,12 +276,12 @@ def test_init_server_opt_state_covers_the_trainable_params(setup):
 
 
 def test_refused_options(setup):
-    """Only the mesh is still refused: ``dp=`` builds a DP trainer, and
-    ``wave_size="auto"`` answers the whole cohort off the card, so its
-    round equals the one-wave round."""
+    """Only a mesh with a ``model`` axis is still refused: ``dp=`` builds a
+    DP trainer, and ``wave_size="auto"`` answers the whole cohort off the
+    card, so its round equals the one-wave round."""
     data, n_samples, _, _, tmodel, tparams = setup
     with pytest.raises(NotImplementedError):
-        FedSim(tmodel, device="cpu", mesh=object())
+        FedSim(tmodel, mesh=make_mesh(2, ("clients", "model"), devices=["cpu"] * 2))
     dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
     assert FedSim(tmodel, device="cpu", dp=dp).trainer.dp == dp
     sim = FedSim(tmodel, batch_size=BATCH, learning_rate=LR, device="cpu")

@@ -3,8 +3,9 @@ points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
 demo, the examples, and FedSim over each model of the zoo) refuse to run
 without a GPU unless asked for the CPU, every option not ported yet
 raises ``NotImplementedError`` while the ported ones build, the only
-such refusal left names the mesh (no ``NotImplementedError`` in the
-port's source names DP-SGD, the wave sizer or the fused rounds), the
+such refusal left is a mesh with a ``model`` axis, the next slice (no
+``NotImplementedError`` in the port's source names DP-SGD, the wave
+sizer, the fused rounds or a clients mesh as not ported), the
 federation variants refuse the reference's incompatible sims with its
 ``ValueError``s, and the chip smoke test has no CPU fallback."""
 
@@ -74,6 +75,9 @@ def test_the_import_scan_covers_the_federation_variants():
              "bandwidth_efficient_http")} <= names
     # sequence parallelism, examples 03 and 06
     assert {f"baton_tpu_torch/parallel/{m}.py" for m in ("mesh", "ring_attention")} <= names
+    # the clients mesh: the partition tables, placement and the processes
+    assert {f"baton_tpu_torch/parallel/{m}.py" for m in
+            ("partition", "mesh", "multihost")} <= names
     assert {f"baton_tpu_torch/examples/{m}.py" for m in
             ("bert_fedprox", "long_context_ring")} <= names
 
@@ -231,11 +235,13 @@ def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
 
 
 def test_unported_options_are_refused():
-    """Only the mesh is refused now; ``dp=``, ``auto_wave_size``,
-    ``wave_size="auto"`` and ``run_rounds_fused`` run on the CPU."""
+    """Only a mesh with a ``model`` axis is refused now; a clients mesh,
+    ``dp=``, ``auto_wave_size``, ``wave_size="auto"`` and
+    ``run_rounds_fused`` run on the CPU."""
     model = bert_classifier_model(BertConfig.tiny())
     with pytest.raises(NotImplementedError):
-        FedSim(model, device="cpu", mesh=object())
+        FedSim(model, mesh=make_mesh(8, ("clients", "model"), devices=["cpu"] * 8))
+    assert FedSim(model, mesh=make_mesh(8, devices=["cpu"] * 8)).device.type == "cpu"
     dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
     assert FedSim(model, device="cpu", dp=dp).trainer.dp == dp
     with pytest.raises(ValueError, match="unknown aggregator"):
@@ -316,18 +322,24 @@ def _not_implemented_messages(path):
                            if isinstance(c, ast.Constant) and isinstance(c.value, str))
 
 
-def test_the_only_refusal_left_on_one_device_is_the_mesh():
+def test_the_only_refusal_left_is_a_mesh_with_a_model_axis():
     messages = [m for path in PORT_FILES for m in _not_implemented_messages(path)]
-    assert any("ROADMAP item 11" in m for m in messages)
+    assert any("'model' axis" in m and "next slice" in m for m in messages)
     for m in messages:
-        assert "not ported" not in m or "mesh" in m, m
-        for name in ("DP-SGD", "dp=", "auto_wave_size", "run_rounds_fused"):
+        assert "ROADMAP item 11" not in m and "not ported" not in m, m
+        assert "next slice" not in m or "model" in m, m
+        for name in ("DP-SGD", "dp=", "auto_wave_size"):
             assert name not in m, m
 
 
 def test_a_mesh_is_refused_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        FedSim(linear_regression_model(), device="cpu", mesh=object())
+    """A clients mesh runs; the hybrid mesh's ``model`` axis is refused,
+    naming the next slice and ROADMAP's queue."""
+    queue = "next slice of the port \\(ROADMAP Queue 1\\)"
+    with pytest.raises(NotImplementedError, match=queue):
+        FedSim(linear_regression_model(),
+               mesh=make_mesh(4, ("clients", "model"), devices=["cpu"] * 4))
+    assert FedSim(linear_regression_model(), mesh=make_mesh(4, devices=["cpu"] * 4)).mesh
 
 
 def test_chip_smoke_fails_without_a_gpu():
