@@ -19,7 +19,9 @@ from baton_tpu_torch.models.transformer import (
     AttentionFn,
     default_attention,
     dense_init,
+    embed,
     layer_norm,
+    linear,
     ln_init,
     normal_init,
     padding_bias,
@@ -87,7 +89,7 @@ def bert_classifier_model(
         # JAX's gathers clamp out-of-range ids where torch's would raise
         ids = batch["x"].long().clamp(0, cfg.vocab_size - 1)
         l = ids.shape[-1]
-        x = params["tok_emb"][ids] + params["pos_emb"][:l]
+        x = embed(params["tok_emb"], ids) + params["pos_emb"][:l]
         x = x.to(compute_dtype)
         attn_mask = batch.get("attn_mask")
         bias = None if attn_mask is None else padding_bias(attn_mask)
@@ -102,8 +104,8 @@ def bert_classifier_model(
             x = block_fn(scope(params, f"blocks/{i}/"), x, *extra)
         x = layer_norm(x, scope(params, "ln_f/"))
         cls = x[:, 0, :].float()
-        pooled = torch.tanh(cls @ params["pooler/w"] + params["pooler/b"])
-        return pooled @ params["head/w"] + params["head/b"]
+        pooled = torch.tanh(linear(cls, params["pooler/w"], params["pooler/b"]))
+        return linear(pooled, params["head/w"], params["head/b"])
 
     def per_example_loss(params, batch):
         return softmax_cross_entropy(apply(params, batch), batch)

@@ -29,6 +29,8 @@ from baton_tpu_torch.models.transformer import (
     AttentionFn,
     default_attention,
     dense_init,
+    embed,
+    linear,
     mha_apply,
     mha_init,
     normal_init,
@@ -112,12 +114,14 @@ def _block_apply(p, x, cos, sin, cfg: LlamaConfig, attention_fn: AttentionFn):
     return x + swiglu_apply(scope(p, "mlp/"), h), torch.zeros((), device=x.device)
 
 
-def vocab_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def vocab_logits(x: torch.Tensor, w) -> torch.Tensor:
     """fp32 logits of ``x @ w`` with the operands in x's dtype. With bf16
     operands the matmul accumulates in fp32 but writes bf16, cast to fp32
     after: ``torch.mm(out_dtype=float32)`` has no derivative (torch 2.11),
-    where JAX keeps the fp32 accumulator (``preferred_element_type``)."""
-    return (x @ w.to(x.dtype)).float()
+    where JAX keeps the fp32 accumulator (``preferred_element_type``). A
+    column-parallel ``lm_head`` gives each shard's slice of the vocab,
+    gathered before the loss (the remat head holds one sequence's)."""
+    return linear(x, w).float()
 
 
 def _head_losses(p, x, y):
@@ -164,7 +168,7 @@ def llama_lm_model(
         # JAX's gathers clamp out-of-range ids where torch's would raise
         ids = batch["x"].long().clamp(0, cfg.vocab_size - 1)
         cos, sin = rope_angles(ids.shape[-1], cfg.head_dim, cfg.rope_theta, ids.device)
-        x = params["tok_emb"][ids].to(compute_dtype)
+        x = embed(params["tok_emb"], ids).to(compute_dtype)
         aux_total = torch.zeros((), device=x.device)
         for i in range(cfg.n_layers):
             x, aux = block_fn(scope(params, f"blocks/{i}/"), x, cos, sin)

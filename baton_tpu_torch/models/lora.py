@@ -10,6 +10,11 @@ model's flat params are ``base/<name>`` for the base model's own and
 ``apply`` merges in the forward. With ``FedSim(...,
 trainable=lora_trainable)`` only the adapters are per-client, trained and
 aggregated; the frozen base is held once.
+
+A base weight placed over a mesh's ``model`` axis (a ``ShardedLeaf``) is
+merged shard by shard: a column-parallel ``W_j`` gets ``s·A @ B[:, cols_j]``
+and a row-parallel one ``s·A[rows_j] @ B``, so the merged weight keeps the
+base's layout while the adapters stay whole, per client, and replicated.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from baton_tpu_torch.core.model import FedModel, Params
+from baton_tpu_torch.core.sharded import is_sharded, on
 
 TargetPredicate = Callable[[str, Any], bool]
 
@@ -68,9 +74,22 @@ def merge_lora(params: Params, alpha: float, rank: int) -> Params:
         name = key[len("base/"):]
         a = params.get(f"lora/{name}/a")
         if a is not None:
-            leaf = leaf + (scale * (a @ params[f"lora/{name}/b"])).to(leaf.dtype)
+            leaf = _merged(leaf, a, params[f"lora/{name}/b"], scale)
         merged[name] = leaf
     return merged
+
+
+def _merged(w, a, b, scale: float):
+    """``w + scale·a@b``; for a placed ``w`` each shard gets its columns
+    (column-parallel) or rows (row-parallel) of the product."""
+    if not is_sharded(w):
+        return w + (scale * (a @ b)).to(w.dtype)
+    size = w.size
+    if w.split_dim == 1:
+        return w.map(lambda j, wj: wj + (scale * (on(a, wj.device) @ on(
+            b.narrow(1, j * size, size), wj.device))).to(wj.dtype))
+    return w.map(lambda j, wj: wj + (scale * (on(a.narrow(0, j * size, size), wj.device)
+                                              @ on(b, wj.device))).to(wj.dtype))
 
 
 def lora_wrap(

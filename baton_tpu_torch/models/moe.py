@@ -13,7 +13,12 @@ whose first choice is e; P_e: the mean router probability).
 Both one-hots are comparisons against an ``arange``: an over-capacity
 slot (position >= C) then matches no column and its row is all zeros, as
 ``jax.nn.one_hot`` gives it; ``torch.nn.functional.one_hot`` would raise.
-Expert parallelism (sharding E over a mesh) waits for the mesh port.
+
+Expert parallelism: with the stacked experts placed over a mesh's
+``model`` axis (``tensor_parallel.shard_params_tp``: E split, the router
+replicated), routing and dispatch run replicated, each shard runs its own
+experts' einsums on its slice of the dispatched tokens, and the combine
+sums the shards' partial outputs (``tensor_parallel.model_sum``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from baton_tpu_torch.models.transformer import dense_init
+from baton_tpu_torch.core.sharded import is_sharded, model_sum, on
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,19 +90,46 @@ def moe_apply(p, x, cfg: MoEConfig):
 
     disp_x = disp.to(x.dtype)
     expert_in = torch.einsum("bklec,bld->becd", disp_x.reshape(b, k, l, e, c), x)
-    h_gate = torch.einsum("becd,edf->becf", expert_in, p["w_gate"].to(x.dtype))
-    h_up = torch.einsum("becd,edf->becf", expert_in, p["w_up"].to(x.dtype))
-    h = (F.silu(h_gate.float()) * h_up.float()).to(x.dtype)
-    expert_out = torch.einsum("becf,efd->becd", h, p["w_down"].to(x.dtype)).float()
-
     comb = disp * gate_f[..., None, None]                     # [B, S, E, C]
-    y = torch.einsum("bsec,becd->bsd", comb, expert_out)      # fp32 [B, S, D]
+    if is_sharded(p["w_gate"]):
+        # expert parallelism: each shard's experts, the partial outputs summed
+        parts = []
+        for j, (start, size) in enumerate(p["w_gate"].offsets()):
+            dev = p["w_gate"].shards[j].device
+            ws = [on(_expert_shard(p[name], j, start, size), dev)
+                  for name in ("w_gate", "w_up", "w_down")]
+            out = _experts(on(expert_in.narrow(1, start, size), dev), *ws)
+            parts.append(torch.einsum("bsec,becd->bsd", on(comb.narrow(2, start, size), dev), out))
+        y = model_sum(parts)                                  # fp32 [B, S, D]
+    else:
+        expert_out = _experts(expert_in, p["w_gate"], p["w_up"], p["w_down"])
+        y = torch.einsum("bsec,becd->bsd", comb, expert_out)  # fp32 [B, S, D]
     y = y.reshape(b, k, l, d).sum(dim=1)                      # fold the choices
 
     frac_tokens = _one_hot(idx[..., 0], e).mean(dim=(0, 1))  # [E]
     mean_prob = probs.mean(dim=(0, 1))                        # [E]
     aux = e * (frac_tokens * mean_prob).sum()
     return y.to(x.dtype), aux
+
+
+def _experts(expert_in, w_gate, w_up, w_down):
+    """The stacked experts' SwiGLU on their dispatched tokens [B, E, C, D]
+    (x's dtype) -> fp32 [B, E, C, D]."""
+    dtype = expert_in.dtype
+    h_gate = torch.einsum("becd,edf->becf", expert_in, w_gate.to(dtype))
+    h_up = torch.einsum("becd,edf->becf", expert_in, w_up.to(dtype))
+    h = (F.silu(h_gate.float()) * h_up.float()).to(dtype)
+    return torch.einsum("becf,efd->becd", h, w_down.to(dtype)).float()
+
+
+def _expert_shard(w, j: int, start: int, size: int):
+    """Experts ``start:start + size`` of a stacked weight: shard ``j`` of a
+    placed one split so, else a slice on the shard's device."""
+    if is_sharded(w):
+        if w.split_dim == 0 and w.size == size:
+            return w.shards[j]
+        w = w.gather()
+    return w.narrow(0, start, size)
 
 
 def moe_dense_oracle(p, x, cfg: MoEConfig):

@@ -11,6 +11,21 @@ run in fp32. Attention tensors are [B, H, L, Dh]; every model takes an
 Initializers draw on the generator's device, so a model built from a
 CUDA generator is made on the card (an 8B base is never staged on the
 host). :func:`remat` is the counterpart of ``jax.checkpoint`` for a block.
+
+Every product of a matrix the ``transformer-tp`` rule table can shard goes
+through :func:`linear`, :func:`column_parallel` / :func:`row_parallel` or
+:func:`embed`. On a plain tensor each is the dense ``x @ w`` (a lookup for
+``embed``) of a meshless call. On a :class:`~baton_tpu_torch.parallel.
+tensor_parallel.ShardedLeaf` placed over a mesh's ``model`` axis they
+compute Megatron's layout by hand, as GSPMD derives it for the JAX
+package: a column-parallel weight gives one output part a shard (each on
+its shard's device), the elementwise ops run on the parts, and a
+row-parallel weight contracts each part with its shard and adds the
+partials (``tensor_parallel.model_sum``); a bias after a row-parallel
+product is added once, after the sum. Attention runs each shard's own
+heads where the shard edges of ``wq``/``wk``/``wv`` fall on heads and
+keep GQA's map (``n_heads`` and ``n_kv_heads`` both divide by the shard
+count), and otherwise on the gathered projections.
 """
 
 from __future__ import annotations
@@ -20,8 +35,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.utils import _pytree
+
 from baton_tpu_torch.core.model import Params
 from baton_tpu_torch.ops.flash_attention import flash_attention
+from baton_tpu_torch.core.sharded import is_sharded, model_sum, on
 
 # attention_fn(q, k, v, bias, causal) -> out
 #   q [B, Hq, L, Dh], k/v [B, Hkv, L, Dh], bias None or [B, 1, 1, L] additive
@@ -36,6 +54,77 @@ def scope(params: Params, prefix: str) -> Params:
 
 def prefixed(prefix: str, params: Params) -> Params:
     return {prefix + k: v for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# products with weights that may be placed over the model axis
+
+
+def _whole(t):
+    return t.gather() if is_sharded(t) else t
+
+
+def _joined(parts):
+    """The parts concatenated on their last dim on the first one's device."""
+    if len(parts) == 1:
+        return parts[0]
+    home = parts[0].device
+    return torch.cat([on(p, home) for p in parts], dim=-1)
+
+
+def linear(x, w, b=None):
+    """``x @ w (+ b)`` whole, in x's dtype, whatever ``w``'s placement."""
+    if not is_sharded(w):
+        y = x @ w.to(x.dtype)
+        return y if b is None else y + _whole(b).to(x.dtype)
+    if w.split_dim == 0:
+        return row_parallel([x], w, b)
+    return _joined(column_parallel(x, w, b))
+
+
+def column_parallel(x, w, b=None) -> list:
+    """``x @ w (+ b)`` split over ``w``'s output columns: one part for each
+    shard of a column-parallel ``w`` (on its shard's device, in shard
+    order), else the one whole product."""
+    if not is_sharded(w) or w.split_dim != w.ndim - 1:
+        return [linear(x, w, b)]
+    parts = []
+    for j, (wj, (start, size)) in enumerate(zip(w.shards, w.offsets())):
+        xj = on(x, wj.device)
+        y = xj @ wj.to(xj.dtype)
+        if b is not None:
+            bj = (b.shards[j] if is_sharded(b) and b.size == size
+                  else _whole(b).narrow(-1, start, size))
+            y = y + on(bj, wj.device).to(xj.dtype)
+        parts.append(y)
+    return parts
+
+
+def row_parallel(parts, w, b=None):
+    """``concat(parts) @ w (+ b)``: for a row-parallel ``w`` each part
+    (re-split on its rows where the parts do not match them) times its
+    shard, the partials added by ``model_sum`` and ``b`` added once after."""
+    if not is_sharded(w) or w.split_dim != 0:
+        return linear(_joined(parts), w, b)
+    if len(parts) != len(w.shards) or any(p.shape[-1] != w.size for p in parts):
+        x = _joined(parts)
+        parts = [x.narrow(-1, start, size) for start, size in w.offsets()]
+    y = model_sum([on(p, wj.device) @ wj.to(p.dtype) for p, wj in zip(parts, w.shards)])
+    return y if b is None else y + on(_whole(b), y.device).to(y.dtype)
+
+
+def embed(w, ids):
+    """The rows ``w[ids]``; for a vocab-parallel ``w`` (rows split) each
+    shard looks up the ids in its own range, gives zeros for the others,
+    and ``model_sum`` adds the shards (one of them holds each row)."""
+    if not is_sharded(w) or w.split_dim != 0:
+        return _whole(w)[ids]
+    parts = []
+    for wj, (start, size) in zip(w.shards, w.offsets()):
+        local = on(ids, wj.device) - start
+        hit = (local >= 0) & (local < size)
+        parts.append(wj[local.clamp(0, size - 1)] * hit.unsqueeze(-1).to(wj.dtype))
+    return model_sum(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -243,22 +332,35 @@ def mha_apply(
     attention_fn: AttentionFn = default_attention,
 ):
     """Multi-head attention over x [B, L, D] -> [B, L, D]; ``rope`` is
-    ``(cos, sin)`` from :func:`rope_angles`, applied to q and k."""
+    ``(cos, sin)`` from :func:`rope_angles`, applied to q and k. With
+    ``wq``/``wk``/``wv`` column-parallel, shard ``j`` attends over its own
+    query heads ``j·Hq/m ..`` and kv heads ``j·Hkv/m ..`` (GQA's map
+    ``h // (Hq/Hkv)`` holds inside each shard) and ``wo`` is row-parallel;
+    where the shard edges do not fall so, the projections are gathered
+    and attention runs over every head at once."""
     b, l, _ = x.shape
     n_kv = n_kv_heads or n_heads
     dh = p["wq"].shape[1] // n_heads
-
-    def proj(w, h):
-        y = x @ w.to(x.dtype)
-        return y.reshape(b, l, h, dh).transpose(1, 2)  # [B, H, L, Dh]
-
-    q, k, v = proj(p["wq"], n_heads), proj(p["wk"], n_kv), proj(p["wv"], n_kv)
-    if rope is not None:
-        cos, sin = rope
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    out = attention_fn(q, k, v, bias=bias, causal=causal)
-    out = out.transpose(1, 2).reshape(b, l, n_heads * dh)
-    return out @ p["wo"].to(x.dtype)
+    qs, ks, vs = (column_parallel(x, p[name]) for name in ("wq", "wk", "wv"))
+    m = len(qs)
+    by_heads = (len(ks) == len(vs) == m and n_heads % m == 0 and n_kv % m == 0
+                and all(q.shape[-1] == n_heads // m * dh for q in qs)
+                and all(t.shape[-1] == n_kv // m * dh for t in ks + vs))
+    if not by_heads:
+        qs, ks, vs = [_joined(qs)], [_joined(ks)], [_joined(vs)]
+    outs = []
+    for q, k, v in zip(qs, ks, vs):
+        dev = q.device
+        hq, hkv = q.shape[-1] // dh, k.shape[-1] // dh
+        q = q.reshape(b, l, hq, dh).transpose(1, 2)  # [B, H, L, Dh]
+        k = on(k, dev).reshape(b, l, hkv, dh).transpose(1, 2)
+        v = on(v, dev).reshape(b, l, hkv, dh).transpose(1, 2)
+        if rope is not None:
+            cos, sin = (on(t, dev) for t in rope)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = attention_fn(q, k, v, bias=None if bias is None else on(bias, dev), causal=causal)
+        outs.append(out.transpose(1, 2).reshape(b, l, hq * dh))
+    return row_parallel(outs, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +377,11 @@ def gelu_mlp_init(gen, d_model, d_ff) -> Params:
 
 
 def gelu_mlp_apply(p, x):
-    h = x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype)
-    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
+    """``w1``/``b1`` column-parallel, ``w2`` row-parallel, ``b2`` added once
+    after the partials' sum."""
+    hs = [F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+          for h in column_parallel(x, p["w1"], p["b1"])]
+    return row_parallel(hs, p["w2"], p["b2"])
 
 
 def swiglu_init(gen, d_model, d_ff) -> Params:
@@ -289,9 +393,11 @@ def swiglu_init(gen, d_model, d_ff) -> Params:
 
 
 def swiglu_apply(p, x):
-    g = F.silu(x @ p["w_gate"].to(x.dtype))
-    u = x @ p["w_up"].to(x.dtype)
-    return (g * u) @ p["w_down"].to(x.dtype)
+    """``w_gate``/``w_up`` column-parallel, ``w_down`` row-parallel."""
+    gs, us = column_parallel(x, p["w_gate"]), column_parallel(x, p["w_up"])
+    if len(gs) != len(us) or any(g.shape != u.shape for g, u in zip(gs, us)):
+        gs, us = [_joined(gs)], [_joined(us)]
+    return row_parallel([F.silu(g) * on(u, g.device) for g, u in zip(gs, us)], p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -367,23 +473,24 @@ class _Remat(torch.autograd.Function):
 def remat(block_fn: Callable) -> Callable:
     """``block_fn(params, *tensors) -> tensor or tuple of tensors`` as one
     rematerialised call: the backward pass recomputes the block's
-    activations from its inputs (its flat params and ``tensors``) instead
-    of storing them. Every argument must be a tensor; close over anything
-    else (a None bias) in ``block_fn``."""
+    activations from its inputs (its flat params, a placed param's shards
+    among them, and ``tensors``) instead of storing them. Every argument
+    must be a tensor; close over anything else (a None bias) in
+    ``block_fn``."""
 
     def call(params: Params, *tensors):
-        names = tuple(params)
-        n = len(names)
+        leaves, spec = _pytree.tree_flatten(params)
+        n = len(leaves)
         single = []
 
         def flat(*ts):
-            out = block_fn(dict(zip(names, ts[:n])), *ts[n:])
+            out = block_fn(_pytree.tree_unflatten(list(ts[:n]), spec), *ts[n:])
             if isinstance(out, tuple):
                 return out
             single.append(True)
             return (out,)
 
-        out = _Remat.apply(flat, *params.values(), *tensors)
+        out = _Remat.apply(flat, *leaves, *tensors)
         return out[0] if single else out
 
     return call

@@ -27,6 +27,7 @@ from baton_tpu_torch.models.transformer import (
     default_attention,
     dense_init,
     layer_norm,
+    linear,
     ln_init,
     normal_init,
     prefixed,
@@ -110,7 +111,7 @@ def vit_model(
 
     def apply(params, batch):
         x = _patchify(batch["x"], cfg.patch).to(compute_dtype)
-        x = x @ params["patch_proj/w"].to(x.dtype) + params["patch_proj/b"].to(x.dtype)
+        x = linear(x, params["patch_proj/w"], params["patch_proj/b"])
         b = x.shape[0]
         cls = params["cls_token"].to(x.dtype).expand(b, 1, cfg.d_model)
         x = torch.cat([cls, x], dim=1) + params["pos_emb"].to(x.dtype)
@@ -118,7 +119,7 @@ def vit_model(
             x = block_fn(scope(params, f"blocks/{i}/"), x)
         x = layer_norm(x, scope(params, "ln_f/"))
         cls_out = x[:, 0, :].float()
-        return cls_out @ params["head/w"] + params["head/b"]
+        return linear(cls_out, params["head/w"], params["head/b"])
 
     def per_example_loss(params, batch):
         return softmax_cross_entropy(apply(params, batch), batch)

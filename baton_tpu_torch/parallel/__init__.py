@@ -12,6 +12,11 @@ from baton_tpu_torch.parallel.ring_attention import (
     make_ulysses_attention_fn,
 )
 from baton_tpu_torch.parallel.multihost import initialize_multihost, make_hybrid_mesh
+from baton_tpu_torch.parallel.tensor_parallel import (
+    shard_params_tp,
+    tp_sharding_tree,
+    transformer_tp_spec,
+)
 
 __all__ = [
     "make_mesh",
@@ -34,4 +39,7 @@ __all__ = [
     "make_ulysses_attention_fn",
     "initialize_multihost",
     "make_hybrid_mesh",
+    "shard_params_tp",
+    "tp_sharding_tree",
+    "transformer_tp_spec",
 ]

@@ -49,9 +49,23 @@ and the per-shard fp32 sums meet in one psum a round
 noise rows it gets in a meshless round of the same wave. Evaluation, the
 robust aggregators, ``run_rounds_fused`` (as a CUDA graph where every
 shard is on one card in this process) and the wave sizer (trial waves of
-one and two clients a shard) run on the mesh too. A mesh with a
-``model`` axis (the hybrid clients x model mesh) is the next slice of the
-port and raises NotImplementedError.
+one and two clients a shard) run on the mesh too.
+
+A hybrid ``("clients", "model")`` mesh (:attr:`FedSim.is_hybrid`, the
+``transformer-tp`` rule table) runs the same rounds with the frozen base
+tensor-parallel over ``model``, as the JAX engine's ``_place_hybrid`` lays
+it out: waves are multiples of the ``clients`` extent, clients shard ``j``
+trains its clients on the model shards of its own line of the mesh
+(``mesh.line("model", clients=j)``), the trainable globals and the
+aggregate stay replicated, and with a ``trainable`` partition the frozen
+leaves are placed once a round by each leaf's path
+(``tensor_parallel.leaf_tp_sharding``; a leaf already placed so is kept)
+and come back placed in the result, so a base is never gathered per
+round. Without ``trainable`` nothing is split over ``model``. The model
+functions compute the Megatron products and reductions
+(``models/transformer.py``). A ``model`` axis must not cross processes
+(ValueError); the ``clients`` axis may, with its one all-reduce a round.
+Robust aggregators are refused on a hybrid mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -88,6 +102,12 @@ from baton_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
     shard_client_arrays,
+)
+from baton_tpu_torch.parallel.tensor_parallel import (
+    gather_params,
+    is_sharded,
+    leaf_tp_sharding,
+    place_params,
 )
 from baton_tpu_torch.utils import profiling
 
@@ -166,18 +186,19 @@ class FedSim:
         self.aggregator = agg.parse_aggregator(aggregator)
         self.mesh = mesh
         if mesh is not None:
-            if MODEL_AXIS in mesh.axis_names:
-                raise NotImplementedError(
-                    "FedSim on a mesh with a 'model' axis (the hybrid clients x model mesh: "
-                    "the frozen base tensor-parallel over 'model') is the next slice of the "
-                    "port (ROADMAP Queue 1)")
             if CLIENT_AXIS not in mesh.axis_names or any(
-                    n != 1 for a, n in mesh.shape.items() if a != CLIENT_AXIS):
-                raise ValueError(f"FedSim shards over a {CLIENT_AXIS!r} axis; got a mesh of "
-                                 f"shape {mesh.shape}")
-            # the mesh names the devices: the first shard this process holds
-            # keeps the globals, the folds and the round's results
-            self.device = mesh.local_shards(CLIENT_AXIS)[0][1]
+                    n != 1 for a, n in mesh.shape.items() if a not in (CLIENT_AXIS, MODEL_AXIS)):
+                raise ValueError(f"FedSim shards over a {CLIENT_AXIS!r} axis (and a "
+                                 f"{MODEL_AXIS!r} axis on a hybrid mesh); got a mesh of shape "
+                                 f"{mesh.shape}")
+            if MODEL_AXIS in mesh.axis_names:
+                owners = np.moveaxis(mesh.process_ids, mesh.axis_names.index(MODEL_AXIS), -1)
+                if (owners != owners[..., :1]).any():
+                    raise ValueError(f"the {MODEL_AXIS!r} axis of the mesh crosses processes; "
+                                     "keep it inside one (multihost.make_hybrid_mesh does)")
+            # the mesh names the devices: the first clients shard this process
+            # holds keeps the globals, the folds and the round's results
+            self.device = mesh.line(CLIENT_AXIS).local_shards(CLIENT_AXIS)[0][1]
         else:
             self.device = resolve_device(device)
         self.model = model
@@ -200,10 +221,60 @@ class FedSim:
         self.last_fused: Optional[dict] = None
 
     @property
+    def is_hybrid(self) -> bool:
+        """True on a ``("clients", "model")`` mesh: the frozen base rides
+        tensor-parallel over ``model`` while the clients spread over
+        ``clients`` (BASELINE config 4: an 8B base is not replicated a
+        shard)."""
+        return self.mesh is not None and MODEL_AXIS in self.mesh.axis_names
+
+    @property
+    def partition_rule_set(self) -> str:
+        """The name of the ``partition.DEFAULT_RULE_SETS`` table that
+        places this sim's params."""
+        if self.is_hybrid:
+            return "transformer-tp"
+        if self.mesh is not None:
+            return "client-stacked"
+        return "replicated"
+
+    @property
     def _clients_mesh(self) -> Mesh:
-        """The mesh every wave runs on: ``mesh``, or without one a clients
-        mesh of one shard on ``device``."""
-        return self.mesh if self.mesh is not None else make_mesh(1, devices=[self.device])
+        """The 1-D clients mesh every wave runs on: ``mesh``'s ``clients``
+        axis (on a hybrid mesh, at model index 0), or without a mesh one
+        shard on ``device``."""
+        if self.mesh is None:
+            return make_mesh(1, devices=[self.device])
+        return self.mesh.line(CLIENT_AXIS)
+
+    def _placed_frozen(self, frozen) -> list:
+        """The frozen params for each clients shard this process holds. On a
+        hybrid mesh each leaf is placed tensor-parallel over that shard's
+        model line by its own path (JAX's ``_place_hybrid``; a leaf placed
+        so already is kept, so a round's result goes into the next round
+        as it is); elsewhere they are copied to each shard's device, a
+        placed leaf kept as it is."""
+        mesh = self._clients_mesh
+        shards = mesh.local_shards(CLIENT_AXIS)
+        if frozen is None:
+            return [None] * len(shards)
+        if not self.is_hybrid:
+            return [{k: v if is_sharded(v) else v.to(d, non_blocking=True)
+                     for k, v in frozen.items()} for _, d in shards]
+        shardings = {k: leaf_tp_sharding(k, v, self.mesh) for k, v in frozen.items()}
+        return [place_params(frozen, shardings, self.mesh.line(MODEL_AXIS, **{CLIENT_AXIS: j}))
+                for j, _ in shards]
+
+    def _globals_per_shard(self, params) -> list:
+        """``params`` for each clients shard this process holds: the
+        trainable part replicated (a placed leaf gathered first, as JAX's
+        replicated placement gathers it), the frozen part
+        :meth:`_placed_frozen`."""
+        trainable, frozen = self._split(params)
+        copies = replicate(gather_params(trainable), self._clients_mesh)
+        if frozen is None:
+            return copies
+        return [self.partition.merge(t, f) for t, f in zip(copies, self._placed_frozen(frozen))]
 
     def _clients_per_wave_unit(self) -> int:
         """Waves are a multiple of the client axis's extent."""
@@ -322,6 +393,7 @@ class FedSim:
         ``profiling.fedsim_wave_footprint_gb`` measures (an epoch's peak is
         every epoch's: nothing of one is kept into the next)."""
         trainable, frozen = self._split(params)
+        trainable = gather_params(trainable)
         anchor = trainable if self.trainer.regularizer is not None else None
         data, n_samples = self._to_device(data, n_samples)
         stop = min(wave_size, int(n_samples.shape[0]))
@@ -329,8 +401,8 @@ class FedSim:
                                  None, wave_size)
         gen = torch.Generator().manual_seed(0)
         perms = random_perms(wave_size, 1, next(iter(d.values())).shape[1], gen)
-        return self._fold_waves(trainable, frozen, anchor, d, n, perms.to(self.device),
-                                wave_size, 1, [gen])
+        return self._fold_waves(trainable, self._placed_frozen(frozen), anchor, d, n,
+                                perms.to(self.device), wave_size, 1, [gen])
 
     def init(self, generator: torch.Generator) -> Params:
         return {k: v.to(self.device) for k, v in self.model.init(generator).items()}
@@ -377,7 +449,15 @@ class FedSim:
         ``progress_fn(waves_done, n_waves)`` runs on the host after each
         wave and waits for the device to finish it.
         """
+        robust = self.aggregator[0] != "mean"
+        if robust and self.is_hybrid:
+            raise NotImplementedError(
+                "robust aggregators need per-client params stacked along the client axis; the "
+                "hybrid clients x model mesh shards params over 'model' — run robust rounds on "
+                "a pure clients mesh")
         trainable, frozen = self._split(params)
+        trainable = gather_params(trainable)
+        frozen_shards = self._placed_frozen(frozen)
         anchor = trainable if self.trainer.regularizer is not None else None
         data, n_samples = self._to_device(data, n_samples)
         if client_indices is not None:
@@ -394,11 +474,10 @@ class FedSim:
         wave_size = round_up(c if wave_size is None else wave_size,
                              self._clients_per_wave_unit())
 
-        robust = self.aggregator[0] != "mean"
         per_client = [] if collect_client_losses else None
         t0 = time.perf_counter()
         folded, lsum, wsum = self._fold_waves(
-            trainable, frozen, anchor, data, n_samples, perms, wave_size, n_epochs,
+            trainable, frozen_shards, anchor, data, n_samples, perms, wave_size, n_epochs,
             [generator] * -(-c // wave_size), robust, per_client, progress_fn)
         # the round's one device sync closes the timed window over the waves
         if self.device.type == "cuda":
@@ -409,7 +488,9 @@ class FedSim:
         new_params, server_opt_state = self._aggregate(trainable, folded, n_samples, wsum,
                                                        server_opt_state, robust)
         if self.partition is not None:
-            new_params = self.partition.merge(new_params, frozen)
+            # on a hybrid mesh the frozen leaves come back placed
+            new_params = self.partition.merge(
+                new_params, frozen_shards[0] if self.is_hybrid else frozen)
         return RoundResult(
             params=new_params,
             loss_history=lsum / wsum.clamp_min(1e-9),
@@ -418,12 +499,14 @@ class FedSim:
             server_opt_state=server_opt_state,
         )
 
-    def _fold_waves(self, trainable, frozen, anchor, data, n_samples, perms, wave_size: int,
-                    n_epochs: int, generators, robust: bool = False, per_client=None,
-                    progress_fn=None):
+    def _fold_waves(self, trainable, frozen_shards, anchor, data, n_samples, perms,
+                    wave_size: int, n_epochs: int, generators, robust: bool = False,
+                    per_client=None, progress_fn=None):
         """Train the cohort ``wave_size`` clients at a time and fold each
         wave on the clients mesh (``kernel_specs("engine.wave_sums" |
-        "engine.wave_params")``; meshless, the one shard of ``device``):
+        "engine.wave_params")``; meshless, the one shard of ``device``),
+        each clients shard on its own ``frozen_shards`` entry
+        (:meth:`_placed_frozen`):
         returns ``(folded, lsum [n_epochs], wsum)``, ``folded`` the fp32
         sample-weighted param sums, or under a robust aggregator the list
         of each wave's per-client params. The globals are copied to every
@@ -439,8 +522,8 @@ class FedSim:
         mesh = self._clients_mesh
         n_shards = len(mesh.local_shards(CLIENT_AXIS))
         placed = {name: replicate(tree, mesh) if tree is not None else [None] * n_shards
-                  for name, tree in (("params", trainable), ("frozen", frozen),
-                                     ("anchor", anchor))}
+                  for name, tree in (("params", trainable), ("anchor", anchor))}
+        placed["frozen"] = [None] * n_shards if frozen_shards is None else frozen_shards
         c = int(n_samples.shape[0])
         n_waves = -(-c // wave_size)
         sums, lsums, wsums = [None] * n_shards, [None] * n_shards, [None] * n_shards
@@ -624,6 +707,10 @@ class FedSim:
         if wave_size == "auto":
             wave_size = self._auto_wave(params, data, n_samples, n_epochs)
         trainable, frozen = self._split(params)
+        trainable = gather_params(trainable)
+        # the frozen base placed once for every round (on a hybrid mesh,
+        # tensor-parallel; views of the base, made before any capture)
+        frozen_shards = self._placed_frozen(frozen)
         c = int(n_samples.shape[0])
         capacity = next(iter(data.values())).shape[1]
         wave = round_up(c if wave_size is None else wave_size, self._clients_per_wave_unit())
@@ -645,8 +732,8 @@ class FedSim:
         def body(p, sos, pm, wave_gens):
             """One round on ``p``: (new params, new server state, losses)."""
             anchor = p if self.trainer.regularizer is not None else None
-            psum, lsum, wsum = self._fold_waves(p, frozen, anchor, data, n_samples, pm, wave,
-                                                n_epochs, wave_gens)
+            psum, lsum, wsum = self._fold_waves(p, frozen_shards, anchor, data, n_samples, pm,
+                                                wave, n_epochs, wave_gens)
             new, sos = self._aggregate(p, psum, n_samples, wsum, sos, robust=False)
             return new, sos, lsum / wsum.clamp_min(1e-9)
 
@@ -658,17 +745,16 @@ class FedSim:
                 history.extend(loss.tolist())
             self.last_fused = {"graph": False, "rounds": n_rounds}
         else:
-            mesh = self._clients_mesh
-            if mesh.spans_processes or any(d != self.device
-                                           for _, d in mesh.local_shards(CLIENT_AXIS)):
+            mesh = self.mesh if self.mesh is not None else self._clients_mesh
+            if mesh.spans_processes or any(d != self.device for d in mesh.local_devices()):
                 raise NotImplementedError(
-                    "run_rounds_fused captures one CUDA graph on one card: a clients mesh whose "
+                    "run_rounds_fused captures one CUDA graph on one card: a mesh whose "
                     "shards lie on more than one device or process cannot be captured here "
                     "(run_rounds runs it)")
             p, sos, history = self._rounds_as_graph(body, trainable, server_opt_state, perms,
                                                     seeds if derive else None, n_waves)
         if self.partition is not None:
-            p = self.partition.merge(p, frozen)
+            p = self.partition.merge(p, frozen_shards[0] if self.is_hybrid else frozen)
         if return_server_opt_state:
             return p, history, sos
         return p, history
@@ -745,7 +831,9 @@ class FedSim:
                           wave_size: Optional[int]) -> Dict[str, torch.Tensor]:
         """Every client's evaluation sums (``client_eval_sums``), each
         [C], ``wave_size`` clients at a time, each wave split over the
-        clients mesh's shards and the sums gathered in client order."""
+        clients mesh's shards and the sums gathered in client order (on a
+        hybrid mesh each clients shard with the frozen base placed over its
+        model line, :meth:`_globals_per_shard`)."""
         data, n_samples = self._to_device(data, n_samples)
         c = int(n_samples.shape[0])
         wave = round_up(c if wave_size is None else wave_size, self._clients_per_wave_unit())
@@ -754,7 +842,7 @@ class FedSim:
             return torch.func.vmap(lambda d, n: client_eval_sums(self.model, p, d, n))
 
         mesh = self._clients_mesh
-        placed = replicate(params, mesh)
+        placed = self._globals_per_shard(params)
         parts = []
         for start in range(0, c, wave):
             stop = min(start + wave, c)

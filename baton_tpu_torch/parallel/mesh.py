@@ -20,11 +20,18 @@ device, a process places and computes only the shards it holds
 (:meth:`Mesh.local_shards`), and the psum adds them before one
 ``torch.distributed.all_reduce``.
 
-A sharded value, the result of :func:`device_put`, is a list of per-shard
-tensors, one for each shard this process holds, in shard order; a
-replicated value is one tensor per device of the mesh this process
-holds. All PartitionSpecs come from :mod:`baton_tpu_torch.parallel.
-partition`; this module builds meshes and places tensors.
+A placed value, the result of :func:`device_put`, is a list of tensors,
+one for each device of the mesh this process holds, in the mesh's order
+(row-major over its axes), each the slice of the value that device holds
+under the spec, as ``jax.device_put`` lays it out: on a 1-D mesh (or one
+whose other axes have size 1) shard ``j`` on the ``j``-th device, and a
+replicated value one copy a device. A hybrid ``("clients", "model")``
+mesh is a grid: :meth:`Mesh.line` is one row or column of it as a 1-D
+mesh (the clients along one model index, or the model shards of one
+clients shard), which is how the engine and
+:mod:`baton_tpu_torch.parallel.tensor_parallel` address it. All
+PartitionSpecs come from :mod:`baton_tpu_torch.parallel.partition`; this
+module builds meshes and places tensors.
 """
 
 from __future__ import annotations
@@ -105,6 +112,34 @@ class Mesh:
         return [(j, d) for j, (d, p) in enumerate(zip(self.axis_devices(axis_name), owners))
                 if p == self.process_index]
 
+    def line(self, axis_name: str, **at: int) -> "Mesh":
+        """The 1-D mesh along ``axis_name`` with every other axis fixed at
+        its index in ``at`` (0 where not given): on a ``("clients",
+        "model")`` mesh, ``line("clients")`` is the clients axis at model
+        index 0 and ``line("model", clients=j)`` the model shards of
+        clients shard ``j``. It keeps the devices' owners, this process's
+        index and the process group."""
+        if axis_name not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis_name!r}; its axes are {self.axis_names}")
+        unknown = set(at) - set(self.axis_names) | ({axis_name} & set(at))
+        if unknown:
+            raise ValueError(f"cannot fix axes {sorted(unknown)} of a line along {axis_name!r} "
+                             f"on a mesh with axes {self.axis_names}")
+        index = tuple(slice(None) if a == axis_name else at.get(a, 0) for a in self.axis_names)
+        return Mesh(self.devices[index], (axis_name,), process_ids=self.process_ids[index],
+                    process_index=self.process_index, process_group=self.process_group)
+
+    def local_line(self, axis_name: str) -> "Mesh":
+        """The first line along ``axis_name`` (other axes in the mesh's
+        order) whose devices this process holds every one of."""
+        others = [a for a in self.axis_names if a != axis_name]
+        for pos in np.ndindex(*(self.shape[a] for a in others)):
+            sub = self.line(axis_name, **dict(zip(others, pos)))
+            if (sub.process_ids == self.process_index).all():
+                return sub
+        raise ValueError(f"process {self.process_index} holds no whole line of the mesh along "
+                         f"{axis_name!r}: that axis crosses processes")
+
     def local_devices(self) -> list:
         """Every device of the mesh this process holds, in the mesh's order
         (a replicated value's shard devices)."""
@@ -156,27 +191,45 @@ def replicated_sharding(mesh: Mesh) -> NamedSharding:
 
 
 def device_put(x: torch.Tensor, sharding: NamedSharding) -> List[torch.Tensor]:
-    """``x`` placed on ``sharding`` (``jax.device_put``): the shards this
-    process holds, each moved with ``.to(device, non_blocking=True)``.
-    Replicated: one tensor per device of the mesh this process holds. One
-    dim over one axis: shard ``j`` is the ``j``-th equal slice of that dim
-    (its size a multiple of the axis's), on the ``j``-th device along it."""
+    """``x`` placed on ``sharding`` (``jax.device_put``): one tensor for each
+    device of the mesh this process holds, in the mesh's order (row-major
+    over its axes), each moved with ``.to(device, non_blocking=True)`` (no
+    copy where it is ``x``'s own device). Device ``(i_0, i_1, ...)`` (its
+    index along each axis) holds, for every dim the spec names axes for,
+    slice ``k`` of ``n`` equal slices of that dim, where ``n`` is the
+    product of those axes' sizes and ``k`` the device's index along them
+    read as one number, the first axis named the most significant (a
+    tuple of names splits one dim over several axes); every other dim is
+    whole. So a replicated value is one copy a device, and on a 1-D mesh
+    shard ``j`` is the ``j``-th slice on the ``j``-th device. A split dim
+    must be a multiple of its ``n``."""
     mesh, spec = sharding.mesh, sharding.spec
-    sharded = [(dim, name) for dim, name in enumerate(spec) if name is not None]
-    if not sharded:
-        return [x.to(d, non_blocking=True) for d in mesh.local_devices()]
-    if len(sharded) > 1 or isinstance(sharded[0][1], tuple):
-        raise NotImplementedError(
-            f"placing {spec} needs a tensor split over more than one mesh axis: the hybrid "
-            "clients x model mesh is the next slice of the port")
-    dim, name = sharded[0]
-    n = mesh.shape[name]
-    if x.shape[dim] % n:
-        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over the {n} shards "
-                         f"of axis {name!r}")
-    size = x.shape[dim] // n
-    return [x.narrow(dim, j * size, size).to(d, non_blocking=True)
-            for j, d in mesh.local_shards(name)]
+    splits = []  # (dim, axis names)
+    for dim, names in enumerate(spec):
+        if names is None:
+            continue
+        names = names if isinstance(names, tuple) else (names,)
+        for name in names:
+            if name not in mesh.axis_names:
+                raise ValueError(f"spec {spec} names axis {name!r}; the mesh has {mesh.axis_names}")
+        n = int(np.prod([mesh.shape[a] for a in names]))
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over the {n} shards "
+                             f"of axis {names[0] if len(names) == 1 else names!r}")
+        splits.append((dim, names, x.shape[dim] // n))
+    out = []
+    for pos in np.ndindex(*mesh.devices.shape):
+        if mesh.process_ids[pos] != mesh.process_index:
+            continue
+        index = dict(zip(mesh.axis_names, pos))
+        part = x
+        for dim, names, size in splits:
+            k = 0
+            for a in names:
+                k = k * mesh.shape[a] + index[a]
+            part = part.narrow(dim, k * size, size)
+        out.append(part.to(mesh.devices[pos], non_blocking=True))
+    return out
 
 
 def _per_shard(tree, place, n: int) -> list:
@@ -194,8 +247,9 @@ def shard_client_arrays(tree, mesh: Mesh, axis: str = CLIENT_AXIS) -> list:
     """Nested dicts of ``[C, ...]`` tensors split along the client axis:
     one tree per shard this process holds, in shard order, each holding
     that shard's clients."""
-    sharding = client_sharding(mesh, axis)
-    return _per_shard(tree, lambda x: device_put(x, sharding), len(mesh.local_shards(axis)))
+    line = mesh.line(axis)  # on a hybrid mesh, each clients shard's first model device
+    sharding = client_sharding(line, axis)
+    return _per_shard(tree, lambda x: device_put(x, sharding), len(line.local_shards(axis)))
 
 
 def replicate(tree, mesh: Mesh, axis: str = CLIENT_AXIS) -> list:

@@ -22,9 +22,12 @@ module of ``parallel/`` builds its specs from the helpers here
 ``PartitionSpec`` is constructed anywhere else in the port.
 
 Placing a value on a sharding (``RuleSet.place``, ``mesh.device_put``)
-gives the port's one representation of a sharded value: a list of
-per-shard tensors, shard ``j`` on the ``j``-th device along the sharded
-axis, or for a replicated value one tensor per device of the mesh.
+gives the port's representation of a placed value: a list of tensors, one
+for each device of the mesh this process holds in the mesh's order, each
+the slice that device holds (on a 1-D mesh shard ``j`` on the ``j``-th
+device; a replicated value one copy a device). The model functions take a
+param split over the ``model`` axis as a ``tensor_parallel.ShardedLeaf``
+(``tensor_parallel.shard_params_tp``).
 """
 
 from __future__ import annotations
@@ -35,14 +38,16 @@ import re
 import threading
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+from baton_tpu_torch.core.sharded import MODEL_AXIS
+
 logger = logging.getLogger(__name__)
 
 Params = Any
 
-# Mesh axis names, defined here (the root of the parallel/ import graph);
+# Mesh axis names, defined here (the root of the parallel/ import graph;
+# the model axis's comes from core/sharded.py, which the models import);
 # mesh.py re-exports them.
 CLIENT_AXIS = "clients"
-MODEL_AXIS = "model"
 
 
 class PartitionSpec(tuple):
@@ -248,7 +253,7 @@ class RuleSet:
 
     def place(self, params: Params, mesh) -> Params:
         """``params`` placed on ``mesh`` per the rules: every leaf a list
-        of per-shard tensors (``mesh.device_put``)."""
+        of per-device tensors (``mesh.device_put``)."""
         from baton_tpu_torch.parallel.mesh import device_put
 
         return _map_with_path(

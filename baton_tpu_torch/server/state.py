@@ -6,7 +6,10 @@ package's slash-joined names (``"blocks/3/attn/wq"``) and its shapes:
 dense weights keep JAX's ``[d_in, d_out]`` layout and are applied as
 ``x @ w``. So the bridge is a plain copy, with no transposes, to and from
 the ``{name: numpy array}`` dicts that
-``baton_tpu.server.state.params_to_state_dict`` produces.
+``baton_tpu.server.state.params_to_state_dict`` produces. A leaf placed
+over a mesh's ``model`` axis (``tensor_parallel.ShardedLeaf``) is gathered
+on the way out, and given a mesh the params are placed by the
+``transformer-tp`` table on the way in (``tensor_parallel.shard_params_tp``).
 """
 
 from __future__ import annotations
@@ -18,19 +21,24 @@ import torch
 
 from baton_tpu_torch import resolve_device
 from baton_tpu_torch.core.model import Params
+from baton_tpu_torch.parallel.tensor_parallel import is_sharded, shard_params_tp
 
 
 def params_to_state_dict(params: Params) -> Dict[str, np.ndarray]:
-    return {name: t.detach().cpu().numpy() for name, t in params.items()}
+    """``{name: numpy array}``, a placed leaf gathered whole."""
+    return {name: (t.gather() if is_sharded(t) else t).detach().cpu().numpy()
+            for name, t in params.items()}
 
 
 def state_dict_to_params(template: Params, state: Dict[str, np.ndarray],
-                         device="cuda") -> Params:
+                         device="cuda", mesh=None) -> Params:
     """Params named and typed like ``template`` from a flat state dict, on
-    ``device``. Raises KeyError on a missing tensor and ValueError on a
-    shape mismatch: a malformed upload must not corrupt the global model.
+    ``device``, or with a ``mesh`` placed on it by the ``transformer-tp``
+    table (``shard_params_tp``; the mesh then names the devices). Raises
+    KeyError on a missing tensor and ValueError on a shape mismatch: a
+    malformed upload must not corrupt the global model.
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else torch.device("cpu")
     out = {}
     for name, leaf in template.items():
         if name not in state:
@@ -41,4 +49,4 @@ def state_dict_to_params(template: Params, state: Dict[str, np.ndarray],
                 f"tensor {name!r} has shape {arr.shape}, expected {tuple(leaf.shape)}"
             )
         out[name] = torch.from_numpy(np.array(arr)).to(device=device, dtype=leaf.dtype)
-    return out
+    return out if mesh is None else shard_params_tp(out, mesh)

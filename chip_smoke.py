@@ -10,8 +10,9 @@ exits non-zero:
    ptxas's registers, shared memory and spills for each kernel;
 2. each kernel against its plain PyTorch version on the card: bf16 and
    fp32, causal or not, fully masked rows, GQA, ragged L (a single
-   partial tile at L=40, L=200), D 64 and 128, and BERT-base's own shape
-   (tolerance fp32 1e-4, bf16 2e-2); every bf16 call must go through
+   partial tile at L=40, L=200), D 64 and 128, BERT-base's own shape and
+   each model shard's shape on phase 23's hybrid meshes (tolerance fp32
+   1e-4, bf16 2e-2); every bf16 call must go through
    the tensor-core design (mma), every fp32 one through the SIMT one; in
    every bf16 case each element of the dkv and dq kernels' gaps from
    their plain versions must lie within what bf16 rounding flips of p and
@@ -145,8 +146,9 @@ exits non-zero:
    (``examples/04_llama_lora.py --scale full``'s shape, LoRA rank 16 on
    wq/wk/wv/wo, batch 8, lr 1e-2, the example's half-masked synthetic
    tokens) in bf16 with remat, cut to 4 clients x 16 samples in waves of
-   what fits: a warm-up, a timed round and a profiled one; every frozen
-   tensor bit-equal after them (host copies, one tensor at a time), the
+   what fits: a warm-up, a timed round and a profiled one; the host copy
+   of the frozen base taken for phase 23a (which continues from these
+   params and checks the base bit-equal after both), the
    adapters moved, each flash kernel on mma once per layer per step (the
    forward twice: remat runs it again in the backward); s/round,
    tokens/s, the 4·P·tokens MFU, peak memory against its estimate, device
@@ -231,6 +233,28 @@ exits non-zero:
    card over gloo, 2 shards each, the FedAvg psum of 4 clients'
    ResNet-18-sized params across them against float64, each child under
    a hard timeout.
+
+23. the mesh's ``model`` axis: hybrid ``("clients", "model")`` meshes of
+   shards of the one card, the frozen base tensor-parallel over
+   ``model``. (a) Right after phase 16a and from its params: BASELINE
+   config 4 at Llama-3-8B width and depth on 2 x 2 shards (each model
+   shard 16/4 heads), one meshless round and two hybrid rounds (the
+   second profiled) on the same shuffles: the base comes back placed (wq
+   column-, wo row-parallel) and, gathered, bit-equal to 16a's host copy;
+   each kernel's launches a round what the shapes give (1024 / 512 / 512:
+   4x the meshless, all mma); the hybrid peak at or under the meshless
+   one; the adapters' gap from the meshless round in the reference's band
+   and at most ``HYBRID_GAP_SHARE`` of the round's change; s/round,
+   tokens/s, the 4·P·tokens MFU, peak memory, busy share. (b) BERT-base
+   (vocab 30,522, bf16) with config 3's trainable head, the encoder frozen
+   and placed (``b1`` split, ``b2`` once, the vocab split on 2 shards and
+   replicated on 4), on 2 x 2 shards against meshless at phase 8's
+   cohort: launches (forward only), peak, the gap rule. (c) fp32, card
+   against CPU: a tiny LoRA Llama round on 4 x 2 shards (1e-4), the MoE
+   layer with its experts over 4 shards against replicated (JAX's rtol
+   1e-5 / atol 1e-6), and a tiny Llama's loss and gradients with its
+   base on a ``model``-4 axis, the kv heads' shard edges inside a head,
+   against replicated (JAX's rtol 2e-4 / atol 1e-5).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
 short first call after a kernel changes (build, ptxas report, comparison
@@ -550,6 +574,18 @@ def kernel_phase(fa):
     print("phase 2: kernels against their plain versions")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
     masked_row_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
+    # phase 23's per-model-shard shapes: 23a's Llama-3-8B (16/4 heads a
+    # shard of 2), 23b's BERT-base (6/6 heads, a clients shard's 4 clients
+    # x 32), 23c's tiny Llama round (2/1 heads a shard) and its model-4
+    # gradients (projections gathered: the shard edges fall inside kv heads)
+    model_shard_cases = [
+        ("llama3_8b_model_shard", 8, 16, 4, 1024, 128, bf16, True, None),
+        ("bert_base_model_shard", 128, 6, 6, 128, 64, bf16, False, "lengths"),
+        ("fp32_tiny_llama_model_shard", 8, 2, 1, 32, 64, f32, True, None),
+        ("fp32_tiny_llama_model4_gathered", 4, 4, 2, 64, 64, f32, True, None),
+    ]
+    for seed, c in enumerate(model_shard_cases, start=len(cases) + 1):
+        compare_case(fa, seed, *c)
     wrapper_cases = [(dtype, causal, False) for dtype in (f32, bf16) for causal in (False, True)]
     wrapper_cases += [(f32, False, True), (bf16, False, True)]
     for seed, case in enumerate(wrapper_cases):
@@ -2896,16 +2932,23 @@ def config4_wave(cfg, batch, rank, n_clients, device_bytes) -> int:
 
 def check_frozen_bit_equal(params, host_copy) -> int:
     """Every frozen tensor against its host copy, one at a time (no second
-    copy of the base on the card). Returns the number compared."""
+    copy of the base on the card; a tensor placed over a model axis is
+    gathered first). Returns the number compared."""
+    from baton_tpu_torch.parallel.tensor_parallel import gather_params
+
     for name, before in host_copy.items():
-        check(torch.equal(params[name].to("cpu"), before), f"frozen tensor {name} changed")
+        check(torch.equal(gather_params(params[name]).to("cpu"), before),
+              f"frozen tensor {name} changed")
     return len(host_copy)
 
 
 def config4_phase(fa, name):
     """Phase 16a: BASELINE config 4 at Llama-3-8B width and depth, bf16,
     remat, 4 clients x 16 samples (2 steps each), one wave of what fits;
-    a warm-up, the timed rounds and a profiled one."""
+    a warm-up, the timed rounds and a profiled one. Returns the launches,
+    a round's launches, the stats and the context phase 23a continues from
+    (the params on the card and the frozen base's host copy: 23a checks the
+    base bit-equal after 16a's rounds and its own)."""
     from baton_tpu_torch.examples import llama_lora
     from baton_tpu_torch.models.lora import lora_trainable
     from baton_tpu_torch.obs.compute import card_peaks
@@ -2945,7 +2988,8 @@ def config4_phase(fa, name):
     fa.reset_launches()
     for r in range(profiled_round + 1):
         before = launch_counts(fa)
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        # the device's kernels only: the host's ops make the trace slow to reduce
+        activities = [torch.profiler.ProfilerActivity.CUDA]
         with (torch.profiler.profile(activities=activities) if r == profiled_round
               else contextlib.nullcontext()) as prof:
             res, dt = timed(lambda: sim.run_round(params, data, n_samples, gen,
@@ -2970,7 +3014,6 @@ def config4_phase(fa, name):
     per_round = delta
     launches = fa.launches()
     peak = torch.cuda.max_memory_allocated()
-    n_frozen = check_frozen_bit_equal(params, host_copy)
     moved = max((params[k] - start[k]).abs().max().item() for k in params
                 if lora_trainable(k, params[k]))
     check(moved > 0, "config 4: the adapters did not move")
@@ -2978,8 +3021,7 @@ def config4_phase(fa, name):
     flops = lora_train_flops(n_params, tokens)
     bw, peak_flops = card_peaks(name)
     mfu = flops / s_median / peak_flops
-    print(f"  every frozen tensor bit-equal after {profiled_round + 1} rounds ({n_frozen} "
-          f"tensors, compared on the host one at a time); adapters moved by up to {moved:.3e}")
+    print(f"  adapters moved by up to {moved:.3e} (the frozen base is checked after phase 23a)")
     print(f"  s/round median {s_median:.3f} ({', '.join(f'{t:.3f}' for t in times)}); "
           f"{tokens / s_median:.1f} tokens/s; MFU {mfu:.4f} (4·P·tokens = {flops:.4e} FLOP a "
           f"round over {peak_flops / 1e12:.0f} TFLOP/s; the remat recompute not counted)")
@@ -2987,14 +3029,18 @@ def config4_phase(fa, name):
           f"GB (base {estimate['base'] / 1e9:.2f}, per client {estimate['per_client'] / 1e9:.2f}: "
           + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in estimate["client_parts"].items()) + ")")
     print(f"  launches over the path {launches}; a round {per_round}")
-    del host_copy, params, start, res
+    del start, res
     torch.cuda.empty_cache()
+    ctx = {"sim": sim, "model": model, "params": params, "host_copy": host_copy, "data": data,
+           "n_samples": n_samples, "wave": wave, "steps": steps, "n_params": n_params,
+           "tokens": tokens, "rounds_before": profiled_round + 1, "peak_memory_gb": peak / 1e9,
+           "per_round": per_round}
     return launches, per_round, {
         "n_params": n_params, "n_adapter": n_adapter, "wave": wave, "n_waves": n_waves,
         "steps_per_round": n_waves * steps, "round_s": times, "s_per_round_median": s_median,
         "tokens_per_s": tokens / s_median, "mfu": mfu, "flops_per_round": flops,
         "peak_memory_gb": peak / 1e9, "estimate_gb": estimate["total"] / 1e9,
-        "losses": losses, "init_s": init_s, "breakdown": breakdown, "frozen_checked": n_frozen}
+        "losses": losses, "init_s": init_s, "breakdown": breakdown}, ctx
 
 
 def remat_grads(model, params, batch):
@@ -4474,6 +4520,343 @@ def mesh_phase(fa):
     return launches, stats
 
 
+HYBRID_GRID = (2, 2)  # (a), (b): clients x model shards of the card
+HYBRID_CPU_GRID = (4, 2)  # (c): the tiny LoRA round's grid, card and CPU
+# (a), (b): the adapters' (the head's) gap from the meshless round as a share
+# of the round's largest change, about 3x the card's readings (PERF.md): 23a
+# read 6.5e-2 (bf16 partial sums round twice through 32 layers), 23b 3.6e-3;
+# a fp32 round that drops one model shard's partial reads 1.3
+# (tests/test_torch_chip_smoke.py)
+HYBRID_GAP_SHARE = 0.2
+HYBRID_TIMED_ROUNDS = 1  # (a): the hybrid rounds timed before the profiled one
+HYBRID_TP_RTOL, HYBRID_TP_ATOL = 2e-4, 1e-5  # (c): JAX's TP-against-replicated gradients
+MOE_EP_RTOL, MOE_EP_ATOL = 1e-5, 1e-6  # (c): JAX's expert-parallel case
+
+
+def card_grid(clients: int, model: int):
+    """A hybrid ``("clients", "model")`` mesh of ``clients x model`` shards of
+    ``cuda:0`` (or of the CPU with ``device="cpu"``)."""
+    from baton_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(np.array([[torch.device("cuda", 0)] * model] * clients, dtype=object),
+                ("clients", "model"))
+
+
+def hybrid_round_launches(n_layers: int, wave_steps: int, clients: int, model: int,
+                          remat: bool = True, backward: bool = True) -> dict:
+    """Each flash kernel's launches in one round on a ``clients x model``
+    grid whose model shards each attend over their own heads: every clients
+    shard trains its slice of every wave (phantoms included), and each of
+    its steps launches each kernel once a layer a model shard (the forward
+    twice under remat; no backward kernel where no gradient reaches the
+    attention, as under a frozen encoder)."""
+    per = n_layers * wave_steps * clients * model
+    back = per if backward else 0
+    return {"fwd": per * (2 if remat and backward else 1), "bwd_dkv": back, "bwd_dq": back}
+
+
+def hold_hybrid(label, got, want, start, names, limit=HYBRID_GAP_SHARE) -> dict:
+    """The hybrid round ``got`` against the meshless round ``want`` (round
+    results from the params ``start``) on the trainable params ``names``:
+    each within the reference's band (rtol = atol = ``MESH_BAND``), the loss
+    too, and the largest gap at most ``limit`` of the round's largest change
+    (the band alone passes a round that drops a model shard's partial where a
+    round moves the params less than it). Returns the readings."""
+    gap = max(float((got.params[k].double() - want.params[k].double()).abs().max())
+              for k in names)
+    moved = max(float((want.params[k].double() - start[k].double()).abs().max()) for k in names)
+    inside = all(torch.allclose(got.params[k].float(), want.params[k].float(), rtol=MESH_BAND,
+                                atol=MESH_BAND) for k in names)
+    loss_gap = (got.loss_history - want.loss_history).abs().max().item()
+    out = {"max_gap": gap, "largest_change": moved, "gap_over_change": gap / max(moved, 1e-300),
+           "inside": inside, "loss_gap": loss_gap}
+    check(inside and out["gap_over_change"] <= limit
+          and loss_gap <= MESH_BAND * want.loss_history.abs().max().item(),
+          f"{label}: the hybrid round is outside the band of the meshless one, or its gap is "
+          f"over {limit} of the round's change ({out})")
+    return out
+
+
+def check_hybrid_peak(label, hybrid_gb: float, meshless_gb: float) -> None:
+    """The hybrid round's peak at or under the meshless round's at the same
+    wave: the base is placed as views, never copied a shard."""
+    check(hybrid_gb <= meshless_gb, f"{label}: the hybrid round peaks at {hybrid_gb:.2f} GB, "
+          f"over the meshless round's {meshless_gb:.2f} GB")
+
+
+def check_placed_base(label, params, column: str, row: str) -> None:
+    """``column`` split over ``model`` on dim 1 and ``row`` on dim 0."""
+    from baton_tpu_torch.parallel.partition import dim_spec
+    from baton_tpu_torch.parallel.tensor_parallel import is_sharded
+
+    for name, spec in ((column, dim_spec("model", 1, 2)), (row, dim_spec("model", 0, 2))):
+        check(is_sharded(params[name]) and params[name].spec == spec,
+              f"{label}: {name} is {params[name]!r}, want {spec}")
+
+
+def hybrid_config4_phase(fa, name, ctx):
+    """Phase 23a: BASELINE config 4 at Llama-3-8B width and depth on a 2 x 2
+    hybrid mesh of the card, from where phase 16a left it: one meshless
+    round and two hybrid rounds (the second profiled) from the same params
+    and shuffles. The frozen base comes back placed and, gathered, bit-equal
+    to 16a's host copy (after 16a's rounds and these); each kernel's
+    launches are what the shapes give; the hybrid peak is at or under the
+    meshless one; the adapters hold the gap rule."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.examples import llama_lora
+    from baton_tpu_torch.models.lora import lora_trainable
+    from baton_tpu_torch.obs.compute import card_peaks
+
+    sim, model, params = ctx["sim"], ctx["model"], ctx["params"]
+    data, n_samples, wave = ctx["data"], ctx["n_samples"], ctx["wave"]
+    cfg = llama_lora.FULL_CONFIG
+    clients, shards = HYBRID_GRID
+    n_clients = len(n_samples)
+    wave_steps = -(-n_clients // wave) * ctx["steps"]
+    hsim = FedSim(model, batch_size=CONFIG4_BATCH, learning_rate=llama_lora.LEARNING_RATE,
+                  trainable=lora_trainable, mesh=card_grid(clients, shards))
+    perms = random_perms(n_clients, 1, data["x"].shape[1], torch.Generator().manual_seed(3))
+    adapters = [k for k in params if lora_trainable(k, params[k])]
+    print(f"phase 23a: BASELINE config 4 at Llama-3-8B width and depth on a {clients} x {shards} "
+          f"hybrid mesh of the card (the frozen base tensor-parallel over 'model': each model "
+          f"shard {cfg.n_heads // shards}/{cfg.n_kv_heads // shards} heads), wave {wave}, "
+          f"against one meshless round from the same params and shuffles")
+
+    def round_on(s, profile=False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts(fa)
+        # the device's kernels only: the host's ops of a hybrid round are
+        # ~4x 16a's, and their trace took minutes to reduce
+        activities = [torch.profiler.ProfilerActivity.CUDA]
+        with (torch.profiler.profile(activities=activities) if profile
+              else contextlib.nullcontext()) as prof:
+            res, dt = timed(lambda: s.run_round(params, data, n_samples, perms=perms,
+                                                wave_size=wave))
+        by_pass, by_design = launches_since(fa, before)
+        return res, dt, by_pass, by_design, torch.cuda.max_memory_allocated() / 1e9, prof
+
+    want, plain_s, plain_launches, _, plain_peak, _ = round_on(sim)
+    print(f"  meshless: {plain_s:.3f} s, peak {plain_peak:.2f} GB, launches {plain_launches}, "
+          f"loss {want.loss_history.tolist()}")
+    want_launches = hybrid_round_launches(cfg.n_layers, wave_steps, clients, shards)
+    rounds, breakdown = [], None
+    for r in range(HYBRID_TIMED_ROUNDS + 1):
+        profile = r == HYBRID_TIMED_ROUNDS
+        res, dt, by_pass, by_design, peak, prof = round_on(hsim, profile)
+        label = " (profiled)" if profile else ""
+        print(f"  hybrid round {r}{label}: {dt:.3f} s, peak {peak:.2f} GB, launches {by_pass} "
+              f"{by_design}, loss {res.loss_history.tolist()}")
+        check(by_pass == want_launches and set(by_design) <= {"fwd_mma", "bwd_dkv_mma",
+                                                                "bwd_dq_mma"},
+              f"23a round {r}: launches {by_pass} {by_design}, want {want_launches} on mma")
+        check_hybrid_peak(f"23a round {r}", peak, plain_peak)
+        if profile:
+            t0 = time.perf_counter()
+            breakdown = device_breakdown(prof, dt)
+            print(f"  (the trace reduced in {time.perf_counter() - t0:.1f} s)")
+        rounds.append({"res": res, "s": dt, "peak_gb": peak, "launches": by_pass})
+    # the kernels line reports the counts measured on the timed round; the
+    # formula is only the check above
+    measured = rounds[0]["launches"]
+    got = rounds[0]["res"]
+    check_placed_base("23a", got.params, "base/blocks/0/attn/wq", "base/blocks/0/attn/wo")
+    held = hold_hybrid("23a", got, want, params, adapters)
+    repeat = max(float((rounds[1]["res"].params[k] - got.params[k]).abs().max()) for k in adapters)
+    t0 = time.perf_counter()
+    n_frozen = check_frozen_bit_equal(got.params, ctx["host_copy"])
+    check_s = time.perf_counter() - t0
+    times = [r["s"] for r in rounds[:HYBRID_TIMED_ROUNDS]]
+    s_median = float(np.median(times))
+    flops = lora_train_flops(ctx["n_params"], ctx["tokens"])
+    mfu = flops / s_median / card_peaks(name)[1]
+    print(f"  the hybrid round against meshless: adapters {held['max_gap']:.3e} "
+          f"({held['gap_over_change']:.3e} of the largest change {held['largest_change']:.3e}; "
+          f"limit {HYBRID_GAP_SHARE}, band {MESH_BAND}), loss {held['loss_gap']:.3e}; hybrid "
+          f"rounds 0 and 1 apart by {repeat:.3e}; every frozen tensor bit-equal after phase 16a's "
+          f"{ctx['rounds_before']} rounds and these {1 + len(rounds)} ({n_frozen} tensors, "
+          f"gathered and compared on the host one at a time, {check_s:.1f} s)")
+    print(f"  s/round {', '.join(f'{t:.3f}' for t in times)} (median {s_median:.3f}) against "
+          f"the meshless {plain_s:.3f}; {ctx['tokens'] / s_median:.1f} tokens/s; MFU {mfu:.4f} "
+          f"(4·P·tokens); peak {max(r['peak_gb'] for r in rounds):.2f} GB against the meshless "
+          f"{plain_peak:.2f} GB; launches a round {measured} (counted on round 0), meshless "
+          f"{plain_launches}")
+    out = {"s_per_round": times, "s_per_round_median": s_median, "meshless_s": plain_s,
+           "tokens_per_s": ctx["tokens"] / s_median, "mfu": mfu,
+           "peak_memory_gb": [r["peak_gb"] for r in rounds], "meshless_peak_gb": plain_peak,
+           "launches_per_round": measured, "meshless_launches": plain_launches,
+           "held": held, "repeat_gap": repeat, "frozen_checked": n_frozen,
+           "breakdown": breakdown}
+    del rounds, got, want, hsim
+    ctx.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_bert_phase(fa):
+    """Phase 23b: BERT-base (vocab 30,522, bf16) with config 3's
+    trainable-head variant (the encoder frozen and placed over ``model``:
+    ``b1`` split, ``b2`` once, the vocab split on 2 shards) on a 2 x 2 hybrid
+    mesh of the card against the meshless round, at phase 8's cohort (8
+    clients x 64 samples, batch 32, 2 epochs, lr 5e-3, FedProx mu 0.1): a
+    warm-up, a timed round and a profiled one on each."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core.regularizers import fedprox
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.examples.bert_fedprox import make_data
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.parallel.tensor_parallel import describe_tp_sharding, is_sharded
+
+    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12, n_heads=12,
+                     d_ff=3072, n_classes=4)
+    n_clients, per_client, batch, n_epochs, lr, mu = 8, 64, 32, 2, 5e-3, 0.1
+    data, n_samples = stack_client_datasets(
+        make_data(np.random.default_rng(0), cfg, n_clients, per_client), batch_size=batch)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    model = bert_classifier_model(cfg, compute_dtype=torch.bfloat16, name="bert_base_config3")
+    clients, shards = HYBRID_GRID
+    kw = dict(batch_size=batch, learning_rate=lr, regularizer=fedprox(mu),
+              trainable=lambda path, leaf: path.startswith(CONFIG3_HEAD))
+    sims = {"meshless": FedSim(model, **kw),
+            "hybrid": FedSim(model, mesh=card_grid(clients, shards), **kw)}
+    params = sims["meshless"].init(torch.Generator().manual_seed(0))
+    perms = random_perms(n_clients, n_epochs, data["x"].shape[1], torch.Generator().manual_seed(2))
+    steps = sims["meshless"].trainer.steps_per_round(data["x"].shape[1], n_epochs)
+    on4 = describe_tp_sharding({"tok_emb": params["tok_emb"]}, card_grid(1, 4))["tok_emb"]
+    print(f"phase 23b: BERT-base (vocab {cfg.vocab_size}, bf16) with the trainable head, the "
+          f"encoder frozen, on a {clients} x {shards} hybrid mesh of the card against meshless "
+          f"({n_clients} clients x {per_client}, batch {batch}, {n_epochs} epochs, FedProx mu "
+          f"{mu}); tok_emb on 4 model shards: {on4} (30,522 does not split 4 ways)")
+    check(on4 == "PartitionSpec()", f"23b: tok_emb over 4 shards is {on4}, want the fallback")
+    out = {}
+    for label, sim in sims.items():
+        sim.run_round(params, data, n_samples, perms=perms, n_epochs=n_epochs)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts(fa)
+        res, dt = timed(lambda: sim.run_round(params, data, n_samples, perms=perms,
+                                              n_epochs=n_epochs))
+        by_pass, by_design = launches_since(fa, before)
+        out[label] = {"res": res, "s": dt, "launches": by_pass, "by_design": by_design,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"  {label}: {dt:.4f} s, peak {out[label]['peak_gb']:.2f} GB, launches {by_pass} "
+              f"{by_design}, loss {res.loss_history.tolist()}")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, profiled_s = timed(lambda: sim.run_round(params, data, n_samples, perms=perms,
+                                                         n_epochs=n_epochs))
+        out[label]["breakdown"] = device_breakdown(prof, profiled_s)
+    got, want = out["hybrid"], out["meshless"]
+    check(want["launches"] == hybrid_round_launches(cfg.n_layers, steps, 1, 1, backward=False)
+          and got["launches"] == hybrid_round_launches(cfg.n_layers, steps, clients, shards,
+                                                       backward=False),
+          f"23b: launches {got['launches']} hybrid, {want['launches']} meshless")
+    check_hybrid_peak("23b", got["peak_gb"], want["peak_gb"])
+    hp = got["res"].params
+    check_placed_base("23b", hp, "blocks/0/mlp/w1", "blocks/0/mlp/w2")
+    check(is_sharded(hp["tok_emb"]) and is_sharded(hp["blocks/0/mlp/b1"])
+          and not is_sharded(hp["blocks/0/mlp/b2"]), "23b: tok_emb, b1 or b2 placed wrongly")
+    head = sims["meshless"].partition.trainable_paths
+    held = hold_hybrid("23b", got["res"], want["res"], params, head)
+    print(f"  the hybrid round against meshless: the head {held['max_gap']:.3e} "
+          f"({held['gap_over_change']:.3e} of the largest change {held['largest_change']:.3e}; "
+          f"limit {HYBRID_GAP_SHARE}), loss {held['loss_gap']:.3e}")
+    stats = {label: {k: v for k, v in o.items() if k != "res"} for label, o in out.items()}
+    stats["held"] = held
+    del out, sims
+    torch.cuda.empty_cache()
+    return stats
+
+
+def hybrid_parity_phase():
+    """Phase 23c: the small fp32 cases, card against CPU: a tiny LoRA Llama
+    round on 4 x 2 shards of the card against 4 x 2 of the CPU (1e-4); the
+    MoE layer with its experts over 4 card shards against replicated (JAX's
+    tolerance); one loss and gradient of a tiny Llama with its base on a
+    ``model``-4 axis (the kv heads' shard edges inside a head) against
+    replicated on the card (JAX's tolerances)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core.training import random_perms
+    from baton_tpu_torch.examples import llama_lora
+    from baton_tpu_torch.models.llama import LlamaConfig, llama_lm_model
+    from baton_tpu_torch.models.lora import lora_trainable
+    from baton_tpu_torch.models.moe import MoEConfig, moe_apply, moe_init
+    from baton_tpu_torch.parallel.mesh import Mesh
+    from baton_tpu_torch.parallel.tensor_parallel import gather_params, shard_params_tp
+
+    # head dim 64, the kernels' (fp32: the SIMT design); 4/2 heads split
+    # 2/1 a shard on 2 model shards
+    tiny = LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256)
+    clients, shards = HYBRID_CPU_GRID
+    cpu_grid = Mesh(np.array([[torch.device("cpu")] * shards] * clients, dtype=object),
+                    ("clients", "model"))
+    model = llama_lora.make_sim(tiny, 4, 4, "cpu")[0].model
+    params = model.init(torch.Generator().manual_seed(0))
+    params = {k: (v + 0.05 if k.endswith("/b") else v) for k, v in params.items()}
+    data, n_samples = llama_lora.client_data(tiny, 6, 8, 4, seed=0)
+    perms = random_perms(len(n_samples), 2, data["x"].shape[1], torch.Generator().manual_seed(1))
+    print(f"phase 23c: fp32 card against CPU on hybrid meshes: a tiny LoRA Llama (d 256, 4/2 "
+          f"heads of 64) round on {clients} x {shards} shards; the MoE layer on 4 expert shards; "
+          f"a tiny Llama's gradients on a model-4 axis")
+    results = []
+    for grid, dev in ((card_grid(clients, shards), "cuda"), (cpu_grid, "cpu")):
+        sim = FedSim(model, batch_size=4, learning_rate=1e-2, trainable=lora_trainable, mesh=grid)
+        res = sim.run_round({k: v.to(dev) for k, v in params.items()}, data, n_samples,
+                            n_epochs=2, perms=perms)
+        results.append(dataclasses.replace(res, params=gather_params(res.params)))
+    errs = {"lora_round": compare_rounds("tiny LoRA llama on a hybrid mesh", *results, params,
+                                         tol=ZOO_CPU_TOL)}
+
+    moe_cfg = MoEConfig(n_experts=4, top_k=2, capacity_factor=4.0)
+    p = moe_init(torch.Generator(device="cuda").manual_seed(0), 64, 128, moe_cfg)
+    x = torch.randn(2, 64, 64, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    y_rep, aux_rep = moe_apply(p, x, moe_cfg)
+    y_ep, aux_ep = moe_apply(shard_params_tp(p, Mesh(np.array([torch.device("cuda", 0)] * 4,
+                                                              dtype=object), ("model",))),
+                             x, moe_cfg)
+    moe_gap = (y_ep - y_rep).abs().max().item()
+    check(torch.allclose(y_ep, y_rep, rtol=MOE_EP_RTOL, atol=MOE_EP_ATOL)
+          and math.isclose(aux_ep.item(), aux_rep.item(), rel_tol=1e-6),
+          f"23c: expert-parallel MoE off replicated by {moe_gap:.3e}")
+    errs["moe_expert_parallel"] = moe_gap
+
+    grads_cfg = LlamaConfig.tiny(max_len=64, d_model=256, n_heads=4, n_kv_heads=2, d_ff=256)
+    lm = llama_lm_model(grads_cfg)
+    base = {k: v.cuda() for k, v in lm.init(torch.Generator().manual_seed(0)).items()}
+    toks = torch.randint(0, grads_cfg.vocab_size, (4, grads_cfg.max_len),
+                         generator=torch.Generator().manual_seed(2)).cuda()
+    batch = {"x": toks, "y": toks}
+
+    def loss(q):
+        return lm.per_example_loss(q, batch).mean()
+
+    want_g, want_l = torch.func.grad_and_value(loss)(base)
+    placed = shard_params_tp(base, card_grid(2, 4))
+    got_g, got_l = torch.func.grad_and_value(loss)(placed)
+    got_g = gather_params(got_g)
+    grad_gap = max(((got_g[k] - want_g[k]).abs() / (HYBRID_TP_ATOL + HYBRID_TP_RTOL
+                                                    * want_g[k].abs())).max().item()
+                   for k in want_g)
+    check(math.isclose(got_l.item(), want_l.item(), rel_tol=1e-5) and grad_gap <= 1.0,
+          f"23c: model-4 gradients off replicated ({grad_gap:.3e} of the tolerance), loss "
+          f"{got_l.item()} against {want_l.item()}")
+    errs["tp_grads_share_of_tolerance"] = grad_gap
+    print(f"  expert-parallel MoE against replicated {moe_gap:.3e} (rtol {MOE_EP_RTOL}, atol "
+          f"{MOE_EP_ATOL}); model-4 gradients against replicated at {grad_gap:.3e} of rtol "
+          f"{HYBRID_TP_RTOL} / atol {HYBRID_TP_ATOL}, loss {got_l.item():.6f} against "
+          f"{want_l.item():.6f}")
+    return errs
+
+
+def hybrid_phase(fa):
+    """Phase 23 (b) and (c); (a) runs right after phase 16a, from its params."""
+    torch.cuda.empty_cache()
+    return {"bert": timed_phase("23b", hybrid_bert_phase, fa),
+            "parity": timed_phase("23c", hybrid_parity_phase)}
+
+
 def timed_phase(label, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``label``."""
     t0 = time.perf_counter()
@@ -4551,8 +4934,11 @@ def main() -> int:
     print(f"phase 15 took {time.perf_counter() - variants:.1f} s")
     zoo = time.perf_counter()
     torch.cuda.empty_cache()
-    config4_launches, config4_per_round, config4_stats = timed_phase("16a", config4_phase, fa,
-                                                                     name)
+    config4_launches, config4_per_round, config4_stats, config4_ctx = timed_phase(
+        "16a", config4_phase, fa, name)
+    # 23a continues from 16a's params and host copy: the base is not made twice
+    hybrid_stats = {"config4": timed_phase("23a", hybrid_config4_phase, fa, name, config4_ctx)}
+    del config4_ctx
     zoo_stats = {"config4": config4_stats, "remat": timed_phase("16b", remat_phase),
                  "vit": timed_phase("16c", vit_phase, fa), "lstm": timed_phase("16d", lstm_phase),
                  "parity": timed_phase("16e", zoo_parity_phase)}
@@ -4575,6 +4961,9 @@ def main() -> int:
     slice12 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_phase(fa)
     print(f"phase 22 took {time.perf_counter() - slice12:.1f} s")
+    slice13 = time.perf_counter()
+    hybrid_stats.update(hybrid_phase(fa))
+    print(f"phases 23b-c took {time.perf_counter() - slice13:.1f} s")
     for row in rows:
         counter = KERNELS[row["name"]][0]
         row["launches_config3"] = config3_launches[counter]
@@ -4596,6 +4985,10 @@ def main() -> int:
         row["launches_per_round_mesh_bert"] = mesh_launches[counter]
         row["launches_per_round_meshless_bert"] = mesh_stats["bert"]["meshless"]["launches"][
             counter]
+        row["launches_per_round_hybrid_config4"] = hybrid_stats["config4"][
+            "launches_per_round"][counter]
+        row["launches_per_round_hybrid_bert"] = hybrid_stats["bert"]["hybrid"]["launches"][
+            counter]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
@@ -4604,7 +4997,7 @@ def main() -> int:
                       "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats,
                       "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
                       "examples": examples_stats, "sequence_parallel": ring_stats,
-                      "clients_mesh": mesh_stats}))
+                      "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's meshless BERT-base round for one checkout, to compare two
-checkouts on one card.
+"""Time the port's meshless round for one checkout, to compare two checkouts
+on one card.
 
-``python3 scripts/torch_round_ab.py --root DIR`` imports ``baton_tpu_torch``
-from ``DIR`` (default: this checkout), builds its flash kernels, and runs
-``chip_smoke.py``'s phase-3 cohort (BERT-base, bf16 compute, 8 clients x 32
-samples, one wave, no mesh) through ``FedSim.run_round``: one warm-up round,
-then ``--rounds`` timed ones on the same params and shuffles, each closed by
-a device sync. Prints one JSON line: the root, the seconds of each timed
+``python3 scripts/torch_round_ab.py --root DIR [--cohort bert|config4]``
+imports ``baton_tpu_torch`` from ``DIR`` (default: this checkout), builds its
+flash kernels, and runs one of ``chip_smoke.py``'s cohorts through
+``FedSim.run_round``: ``bert`` (the default) is phase 3's (BERT-base, bf16
+compute, 8 clients x 32 samples, one wave, no mesh), ``config4`` phase 16a's
+(BASELINE config 4 at Llama-3-8B width and depth, LoRA rank 16, bf16 with
+remat, 4 clients x 16 samples in waves of 2, about 8.5 s a round on an H100).
+One warm-up round, then ``--rounds`` timed ones (default 10 for ``bert``, 3
+for ``config4``) on the same params and shuffles, each closed by a device
+sync. Prints one JSON line: the root, the cohort, the seconds of each timed
 round, their median, the flash launches of a round by pass and the loss.
 Compare two checkouts in one session on the machine, in the order A, B, B, A,
 one process each. Needs a CUDA card.
@@ -31,7 +35,9 @@ HERE = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose package is timed")
-    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--cohort", choices=("bert", "config4"), default="bert")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="timed rounds (default 10 for bert, 3 for config4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_round_ab: no CUDA device is available", file=sys.stderr)
@@ -50,17 +56,31 @@ def main() -> int:
     if not str(Path(fa.__file__).resolve()).startswith(root):
         raise RuntimeError(f"imported {fa.__file__}, not the package in {root}")
     fa.load_library()
-    _, model, data, n_samples = smoke.bert_base_cohort()
+    wave = None
+    if args.cohort == "bert":
+        _, model, data, n_samples = smoke.bert_base_cohort()
+        sim = FedSim(model, batch_size=32, learning_rate=0.01)
+        params = sim.init(torch.Generator().manual_seed(0))
+    else:
+        from baton_tpu_torch.examples import llama_lora
+
+        cfg, batch, rank = llama_lora.FULL_CONFIG, smoke.CONFIG4_BATCH, smoke.CONFIG4_RANK
+        sim, _ = llama_lora.make_sim(cfg, rank, batch, "cuda", compute_dtype=torch.bfloat16,
+                                     remat=True)
+        params = sim.init(torch.Generator(device="cuda").manual_seed(0))
+        data, n_samples = llama_lora.client_data(cfg, smoke.CONFIG4_CLIENTS,
+                                                 smoke.CONFIG4_PER_CLIENT, batch, seed=0)
+        wave = smoke.config4_wave(cfg, batch, rank, smoke.CONFIG4_CLIENTS,
+                                  torch.cuda.get_device_properties(0).total_memory)
+    rounds = args.rounds or (10 if args.cohort == "bert" else 3)
     data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
     n_samples = torch.as_tensor(n_samples, device="cuda")
-    sim = FedSim(model, batch_size=32, learning_rate=0.01)
-    params = sim.init(torch.Generator().manual_seed(0))
     perms = random_perms(len(n_samples), 1, data["x"].shape[1], torch.Generator().manual_seed(1))
 
     def one_round():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = sim.run_round(params, data, n_samples, perms=perms)
+        res = sim.run_round(params, data, n_samples, perms=perms, wave_size=wave)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -68,8 +88,9 @@ def main() -> int:
     before = dict(fa.launches())
     res, _ = one_round()
     launches = {k: v - before.get(k, 0) for k, v in fa.launches().items()}
-    times = [one_round()[1] for _ in range(args.rounds)]
-    print(json.dumps({"root": root, "s_per_round": times, "median_s": float(np.median(times)),
+    times = [one_round()[1] for _ in range(rounds)]
+    print(json.dumps({"root": root, "cohort": args.cohort, "s_per_round": times,
+                      "median_s": float(np.median(times)),
                       "launches_per_round": launches, "loss": res.loss_history.tolist()}))
     return 0
 

@@ -35,7 +35,9 @@ def fedavg_psum(n_proc: int) -> dict:
     weights = (np.arange(c) + 1).astype(np.float32)
     expected = {k: (weights.reshape((c,) + (1,) * (v.ndim - 1)) * v).sum(0) / weights.sum()
                 for k, v in theta.items()}
-    sharding = client_sharding(mesh)
+    # one part for each clients shard: the clients line of the grid (a
+    # device_put on the whole grid gives every device its part)
+    sharding = client_sharding(mesh.line("clients"))
     local = {k: device_put(torch.from_numpy(v), sharding) for k, v in theta.items()}
     stacks = [{k: local[k][i] for k in local} for i in range(len(local["w"]))]
     assert [j for j, _ in mesh.local_shards()] == [2 * dist.get_rank(), 2 * dist.get_rank() + 1]
@@ -68,6 +70,42 @@ def fedsim_round() -> float:
     return gap
 
 
+def hybrid_round() -> dict:
+    """A LoRA round on the hybrid mesh over both processes (clients 2 a
+    process, the model axis inside each) against the meshless round, and the
+    all-reduces it made (the clients axis's one a round)."""
+    from baton_tpu_torch.models.llama import LlamaConfig, llama_lm_model, llama_lora_target
+    from baton_tpu_torch.models.lora import lora_trainable, lora_wrap
+    from baton_tpu_torch.ops import aggregation
+    from baton_tpu_torch.parallel.tensor_parallel import gather_params, is_sharded
+
+    mesh = make_hybrid_mesh([("model", 2)], dcn_axis="clients", devices=CPU4)
+    cfg = LlamaConfig.tiny(max_len=8, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64)
+    model = lora_wrap(llama_lm_model(cfg), rank=2, target=llama_lora_target)
+    params = model.init(torch.Generator().manual_seed(0))
+    params = {k: v + 0.05 if k.endswith("/b") else v for k, v in params.items()}
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (6, 4, cfg.max_len)))
+    data, n = {"x": toks, "y": toks}, torch.tensor([4, 2, 0, 3, 4, 1])
+    perms = torch.stack([torch.randperm(4, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(6)])
+    kw = dict(batch_size=2, learning_rate=0.05, trainable=lora_trainable)
+    plain = FedSim(model, device="cpu", **kw).run_round(params, data, n, perms=perms)
+    calls = []
+    real = aggregation._all_reduce
+    aggregation._all_reduce = lambda *a: calls.append(1) or real(*a)
+    try:
+        hybrid = FedSim(model, mesh=mesh, **kw).run_round(params, data, n, perms=perms,
+                                                          collect_client_losses=False)
+    finally:
+        aggregation._all_reduce = real
+    assert is_sharded(hybrid.params["base/blocks/0/attn/wq"])
+    got = gather_params(hybrid.params)
+    gap = max((got[k] - plain.params[k]).abs().max().item() for k in params)
+    assert gap <= 1e-5, gap
+    return {"gap": gap, "all_reduces": len(calls)}
+
+
 def main() -> None:
     coord, n_proc, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     torch.set_num_threads(1)
@@ -76,8 +114,9 @@ def main() -> None:
         assert dist.get_world_size() == n_proc and dist.get_backend() == "gloo"
         shape = fedavg_psum(n_proc)
         gap = fedsim_round()
+        hybrid = hybrid_round()
         print(json.dumps({"rank": rank, "world": dist.get_world_size(), "mesh": shape,
-                          "round_gap": gap, "ok": True}), flush=True)
+                          "round_gap": gap, "hybrid": hybrid, "ok": True}), flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

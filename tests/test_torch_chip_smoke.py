@@ -209,10 +209,10 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "llama_timing_phase", "resnet_round_phase", "vision_parity_phase",
           "fedprox_bert_phase", "resnet_optimizer_phase", "options_parity_phase",
           "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
-          "variants_phase", "config4_phase", "remat_phase", "vit_phase", "lstm_phase",
-          "zoo_parity_phase", "crossover_phase", "config5_phase", "config5_timing_phase",
-          "auto_wave_phase", "fused_phase", "examples_phase", "sequence_parallel_phase",
-          "mesh_phase")
+          "variants_phase", "config4_phase", "hybrid_config4_phase", "remat_phase", "vit_phase",
+          "lstm_phase", "zoo_parity_phase", "crossover_phase", "config5_phase",
+          "config5_timing_phase", "auto_wave_phase", "fused_phase", "examples_phase",
+          "sequence_parallel_phase", "mesh_phase", "hybrid_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -232,6 +232,10 @@ RING_ROW = {"float32": {"ms": 2.0, "bound_ms": 0.5}, "bfloat16": {"ms": 0.5, "bo
 # phase 22a: BERT-base's 12 layers, one round on 4 shards and meshless
 MESH_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 MESHLESS_COUNTS = {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}
+# phase 23: config 4's round on 2 x 2 shards, 4x the meshless; BERT's frozen
+# encoder on 2 x 2, 12 layers x 4 steps x 4 shards, forward only
+HYBRID_COUNTS = {"fwd": 1024, "bwd_dkv": 512, "bwd_dq": 512}
+HYBRID_BERT_COUNTS = {"fwd": 192, "bwd_dkv": 0, "bwd_dq": 0}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -256,7 +260,9 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "config1_phase": {}, "variants_phase": {"launches": VARIANT_COUNTS},
                     "llama_timing_phase": {"flash_fwd": LLAMA_ROW},
                     "config4_phase": (CONFIG4_COUNTS, CONFIG4_PER_ROUND,
-                                      {"steps_per_round": 4}),
+                                      {"steps_per_round": 4}, {}),
+                    "hybrid_config4_phase": {"launches_per_round": HYBRID_COUNTS},
+                    "hybrid_phase": {"bert": {"hybrid": {"launches": HYBRID_BERT_COUNTS}}},
                     "remat_phase": {}, "vit_phase": {}, "lstm_phase": {},
                     "zoo_parity_phase": {}, "crossover_phase": {},
                     "config5_phase": (CONFIG5_COUNTS, CONFIG5_PER_ROUND,
@@ -309,7 +315,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
         "launches_ring_flash": 2880, "launches_per_step_ring_flash": [576] * 5,
         "ring_block_shape": RING_ROW, "launches_per_round_mesh_bert": 48,
-        "launches_per_round_meshless_bert": 12}]}
+        "launches_per_round_meshless_bert": 12, "launches_per_round_hybrid_config4": 1024,
+        "launches_per_round_hybrid_bert": 192}]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -321,7 +328,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                      "vit_phase", "lstm_phase", "zoo_parity_phase",
                                      "crossover_phase", "config5_phase", "auto_wave_phase",
                                      "fused_phase", "examples_phase",
-                                     "sequence_parallel_phase", "mesh_phase"])
+                                     "sequence_parallel_phase", "mesh_phase",
+                                     "hybrid_config4_phase", "hybrid_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -1050,3 +1058,127 @@ def test_two_processes_over_gloo_on_the_cpu():
     outs = chip_smoke.two_process_phase("cpu")
     assert [o["local_shards"] for o in outs] == [[0, 1], [2, 3]]
     assert all(o["backend"] == "gloo" and o["share_of_bound"] <= 1.0 for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# phase 23's checks
+
+
+def _counting_flash(monkeypatch):
+    """The flash wrappers counting their calls as their kernels count
+    launches on the card."""
+    counted = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+    for name in counted:
+        real = getattr(fa, f"_{name}")
+
+        def wrapper(*args, _real=real, _name=name):
+            counted[_name] += 1
+            return _real(*args)
+
+        monkeypatch.setattr(fa, f"_{name}", wrapper)
+    return counted
+
+
+def _tiny_lora_hybrid_case(remat=False):
+    """A tiny LoRA Llama (4/2 heads: 2/1 a shard on 2 model shards), 6
+    clients of 8 sequences, batch 4, its adapters nonzero."""
+    from baton_tpu_torch.examples import llama_lora
+    from baton_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.tiny(max_len=16, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    model = llama_lora.make_sim(cfg, 4, 4, "cpu", remat=remat)[1]
+    params = model.init(torch.Generator().manual_seed(0))
+    params = {k: (v + 0.05 if k.endswith("/b") else v) for k, v in params.items()}
+    data, n_samples = llama_lora.client_data(cfg, 6, 8, 4, seed=0)
+    perms = torch.stack([torch.randperm(8, generator=torch.Generator().manual_seed(c))[None]
+                         for c in range(6)])
+    return cfg, model, params, data, n_samples, perms
+
+
+def _cpu_grid(clients, model):
+    from baton_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(np.array([[torch.device("cpu")] * model] * clients, dtype=object),
+                ("clients", "model"))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_hybrid_launch_count_is_what_a_hybrid_round_launches(monkeypatch, remat):
+    """The count phase 23 holds the card to, against a counted CPU round on
+    2 x 2 shards: 6 clients in waves of 4 (2 waves, the second padded), 2
+    steps each, 2 layers: every clients shard's every step launches each
+    kernel once a layer a model shard (the forward twice under remat), and
+    a frozen encoder under a trainable head launches the forward only."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.models.lora import lora_trainable
+
+    counted = _counting_flash(monkeypatch)
+    cfg, model, params, data, n_samples, perms = _tiny_lora_hybrid_case(remat)
+    sim = FedSim(model, batch_size=4, learning_rate=1e-2, trainable=lora_trainable,
+                 mesh=_cpu_grid(2, 2))
+    sim.run_round(params, data, n_samples, perms=perms, wave_size=4)
+    assert counted == chip_smoke.hybrid_round_launches(cfg.n_layers, 2 * 2, 2, 2, remat=remat)
+    assert chip_smoke.hybrid_round_launches(32, 4, 2, 2) == HYBRID_COUNTS
+    assert chip_smoke.hybrid_round_launches(32, 4, 1, 1) == CONFIG4_PER_ROUND
+    bert = bert_classifier_model(BertConfig.tiny())
+    bert_params = bert.init(torch.Generator().manual_seed(0))
+    bert_data, bert_n = _tiny_bert_cohort()[2:]
+    for k in counted:
+        counted[k] = 0
+    FedSim(bert, batch_size=4, learning_rate=0.05, mesh=_cpu_grid(2, 2),
+           trainable=lambda path, leaf: path.startswith(chip_smoke.CONFIG3_HEAD)).run_round(
+        bert_params, bert_data, bert_n, perms=torch.zeros(4, 1, 8, dtype=torch.long)
+        + torch.arange(8))
+    assert counted == chip_smoke.hybrid_round_launches(2, 2, 2, 2, backward=False)
+    assert chip_smoke.hybrid_round_launches(12, 4, 2, 2, backward=False) == HYBRID_BERT_COUNTS
+
+
+@pytest.mark.parametrize("fault", [None, "one_model_partial_dropped"])
+def test_hybrid_round_held_against_meshless(monkeypatch, fault):
+    """Phase 23's gap rule on a tiny fp32 LoRA round on 2 x 2 CPU shards:
+    the hybrid round passes it (its gap a rounding error of the change); a
+    round whose model-axis reduction drops the last shard's partial moves
+    the adapters far from the meshless round and fails it."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models import transformer
+    from baton_tpu_torch.models.lora import lora_trainable
+
+    _, model, params, data, n_samples, perms = _tiny_lora_hybrid_case()
+    kw = dict(batch_size=4, learning_rate=1e-2, trainable=lora_trainable)
+    want = FedSim(model, device="cpu", **kw).run_round(params, data, n_samples, perms=perms)
+    if fault:
+        real = transformer.model_sum
+        monkeypatch.setattr(transformer, "model_sum",
+                            lambda parts: real(parts[:-1]) if len(parts) > 1 else real(parts))
+    got = FedSim(model, mesh=_cpu_grid(2, 2), **kw).run_round(params, data, n_samples,
+                                                             perms=perms)
+    adapters = [k for k in params if lora_trainable(k, params[k])]
+    gap = max(float((got.params[k] - want.params[k]).abs().max()) for k in adapters)
+    moved = max(float((want.params[k] - params[k]).abs().max()) for k in adapters)
+    if fault:
+        assert gap / moved > 5 * chip_smoke.HYBRID_GAP_SHARE
+        with pytest.raises(RuntimeError, match="23a: the hybrid round"):
+            chip_smoke.hold_hybrid("23a", got, want, params, adapters)
+    else:
+        held = chip_smoke.hold_hybrid("23a", got, want, params, adapters)
+        assert held["gap_over_change"] < 1e-4 and held["loss_gap"] < 1e-5
+        chip_smoke.check_placed_base("23a", got.params, "base/blocks/0/attn/wq",
+                                     "base/blocks/0/attn/wo")
+
+
+def test_hybrid_peak_and_placement_checks():
+    """The memory rule: at or under the meshless peak passes, above fails;
+    the placement check fails a base left whole or split the wrong way."""
+    chip_smoke.check_hybrid_peak("23a", 44.0, 55.02)
+    chip_smoke.check_hybrid_peak("23a", 55.02, 55.02)
+    with pytest.raises(RuntimeError, match="over the meshless round's"):
+        chip_smoke.check_hybrid_peak("23a", 55.03, 55.02)
+    from baton_tpu_torch.parallel.tensor_parallel import shard_params_tp
+
+    params = {"wq": torch.zeros(8, 8), "wo": torch.zeros(8, 8)}
+    chip_smoke.check_placed_base("23a", shard_params_tp(params, _cpu_grid(1, 2)), "wq", "wo")
+    with pytest.raises(RuntimeError, match="want PartitionSpec"):
+        chip_smoke.check_placed_base("23a", params, "wq", "wo")
+    with pytest.raises(RuntimeError, match="want PartitionSpec"):
+        chip_smoke.check_placed_base("23a", shard_params_tp(params, _cpu_grid(1, 2)), "wo", "wq")

@@ -276,12 +276,13 @@ def test_init_server_opt_state_covers_the_trainable_params(setup):
 
 
 def test_refused_options(setup):
-    """Only a mesh with a ``model`` axis is still refused: ``dp=`` builds a
-    DP trainer, and ``wave_size="auto"`` answers the whole cohort off the
-    card, so its round equals the one-wave round."""
+    """No option is refused any more: a mesh with a ``model`` axis builds a
+    hybrid sim, ``dp=`` builds a DP trainer, and ``wave_size="auto"``
+    answers the whole cohort off the card, so its round equals the
+    one-wave round."""
     data, n_samples, _, _, tmodel, tparams = setup
-    with pytest.raises(NotImplementedError):
-        FedSim(tmodel, mesh=make_mesh(2, ("clients", "model"), devices=["cpu"] * 2))
+    assert FedSim(tmodel, mesh=make_mesh(2, ("clients", "model"),
+                                         devices=["cpu"] * 2)).is_hybrid
     dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
     assert FedSim(tmodel, device="cpu", dp=dp).trainer.dp == dp
     sim = FedSim(tmodel, batch_size=BATCH, learning_rate=LR, device="cpu")

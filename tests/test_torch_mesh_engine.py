@@ -8,8 +8,8 @@ a wave smaller than the cohort, ``evaluate_round`` and ``evaluate_clients``;
 the tiny ResNet. Then the port's mesh against its own meshless path
 (``run_rounds``, ``run_rounds_fused``, ``wave_size="auto"``, the wave
 sizer's per-shard probe with DP noise rows), a shard's DP noise rows (the
-rows of the wave's draw, owning their memory), and the refusals left: a
-mesh with a ``model`` axis."""
+rows of the wave's draw, owning their memory), and the meshes FedSim
+refuses: none with a ``model`` axis inside a process any more."""
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +29,7 @@ from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.models.resnet import resnet_model
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.ops.privacy import DPConfig
-from baton_tpu_torch.parallel.mesh import make_mesh
+from baton_tpu_torch.parallel.mesh import Mesh, make_mesh
 from _torch_variants import jax_round_perms, to_port
 
 torch.set_num_threads(1)
@@ -230,14 +230,25 @@ def test_dp_noise_rows_are_the_meshless_rows():
 
 
 def test_only_a_model_axis_is_refused():
+    """A mesh with a ``model`` axis runs now (its waves a multiple of the
+    clients extent); refused are a mesh without a ``clients`` axis, one
+    with a third axis of more than one shard, and one whose ``model`` axis
+    crosses processes (all ValueError, as the mesh cannot be honoured)."""
     model = linear_regression_model(3)
-    hybrid = make_mesh(8, ("clients", "model"), devices=CPU8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        FedSim(model, mesh=hybrid)
+    hybrid = FedSim(model, mesh=Mesh(np.array([CPU8[:2]] * 4, dtype=object),
+                                     ("clients", "model")))
+    assert hybrid.is_hybrid and hybrid._clients_per_wave_unit() == 4
+    assert hybrid.partition_rule_set == "transformer-tp"
     with pytest.raises(ValueError, match="'clients' axis"):
         FedSim(model, mesh=make_mesh(8, ("seq",), devices=CPU8))
+    with pytest.raises(ValueError, match="'clients' axis"):
+        FedSim(model, mesh=Mesh(np.array([CPU8[:2]] * 4, dtype=object), ("clients", "seq")))
+    with pytest.raises(ValueError, match="crosses processes"):
+        FedSim(model, mesh=Mesh(np.array([CPU8[:2]] * 4, dtype=object), ("clients", "model"),
+                                process_ids=[[0, 1]] * 4))
     sim = FedSim(model, mesh=_mesh())
     assert sim.device == torch.device("cpu") and sim._clients_per_wave_unit() == 8
+    assert not sim.is_hybrid and sim.partition_rule_set == "client-stacked"
 
 
 def test_a_shards_noise_rows_are_the_waves_rows_and_own_their_memory():

@@ -4,7 +4,10 @@ holds 4 CPU shards, joins one process group through
 ``initialize_multihost``, builds ``make_hybrid_mesh([("model", 2)],
 dcn_axis="clients")`` and runs the FedAvg psum with the clients axis
 crossing the process boundary, against numpy at rtol 1e-5; then a FedSim
-round on 8 shards over both processes against the meshless round (1e-5).
+round on 8 shards over both processes against the meshless round (1e-5),
+and a LoRA round on that hybrid mesh (the model axis inside each
+process, the base placed over it) against meshless (1e-5) with the one
+all-reduce a round of the clients axis.
 Every child runs under a hard timeout and is killed in ``finally``; the
 children destroy their process group on exit. Also: one process needs no
 process group, a bad coordinator address raises, and the defaults give
@@ -62,6 +65,7 @@ def test_two_process_fedavg_over_gloo():
         assert o["ok"] and o["world"] == 2
         assert o["mesh"] == {"clients": 4, "model": 2}
         assert o["round_gap"] <= 1e-5
+        assert o["hybrid"]["gap"] <= 1e-5 and o["hybrid"]["all_reduces"] == 1
 
 
 def test_one_process_needs_no_process_group():

@@ -236,10 +236,32 @@ def test_indivisible_leaf_falls_back_replicated_on_mesh():
         device_put(odd, tp.NamedSharding(make_mesh(4, devices=[CPU] * 4), tp.client_spec()))
 
 
-def test_a_spec_over_two_axes_is_the_next_slice():
-    mesh = Mesh(np.array([[CPU] * 2] * 2, dtype=object), ("clients", "model"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        device_put(torch.zeros(4, 4), tp.NamedSharding(mesh, tp.PartitionSpec("clients", "model")))
+TWO_AXIS_SPECS = [("clients", "model"), ("model", "clients"), (None, "model"), ("model",),
+                  (("clients", "model"),), (("model", "clients"), None), ("clients",), ()]
+
+
+@pytest.mark.parametrize("spec", TWO_AXIS_SPECS, ids=[str(s) for s in TWO_AXIS_SPECS])
+def test_a_spec_over_two_axes_is_the_next_slice(spec):
+    """``device_put`` on a 2 x 4 ``("clients", "model")`` mesh gives every
+    device, in the mesh's order, the slice ``jax.device_put`` gives the
+    same device of the same mesh: one dim over either axis with the other
+    replicated, two dims over both, one dim over a tuple of axes (major
+    first), and replicated."""
+    x = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("clients", "model"))
+    placed = jax.device_put(x, jax.sharding.NamedSharding(jmesh, jax.sharding.PartitionSpec(*spec)))
+    by_device = {s.device: np.asarray(s.data) for s in placed.addressable_shards}
+    want = [by_device[d] for d in jmesh.devices.flat]
+    mesh = Mesh(np.array([[CPU] * 4] * 2, dtype=object), ("clients", "model"))
+    got = device_put(torch.from_numpy(x), tp.NamedSharding(mesh, tp.PartitionSpec(*spec)))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    # a line of the grid is a 1-D mesh: the model shards of clients shard 1
+    line = mesh.line("model", clients=1)
+    assert line.axis_names == ("model",) and line.shape == {"model": 4}
+    with pytest.raises(ValueError, match="does not split"):
+        device_put(torch.zeros(6, 6), tp.NamedSharding(mesh, tp.PartitionSpec(None, "model")))
 
 
 # tests/test_tensor_parallel.py's rule cases, through the port's table

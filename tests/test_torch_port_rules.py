@@ -1,13 +1,13 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
 demo, the examples, and FedSim over each model of the zoo) refuse to run
-without a GPU unless asked for the CPU, every option not ported yet
-raises ``NotImplementedError`` while the ported ones build, the only
-such refusal left is a mesh with a ``model`` axis, the next slice (no
-``NotImplementedError`` in the port's source names DP-SGD, the wave
-sizer, the fused rounds or a clients mesh as not ported), the
-federation variants refuse the reference's incompatible sims with its
-``ValueError``s, and the chip smoke test has no CPU fallback."""
+without a GPU unless asked for the CPU, every option builds (a clients
+mesh and a hybrid clients x model mesh among them), no
+``NotImplementedError`` in the port's source names a next slice or an
+option as not ported (what is left of them are JAX's own refusals, such
+as a robust aggregator on a hybrid mesh), the federation variants refuse
+the reference's incompatible sims with its ``ValueError``s, and the chip
+smoke test has no CPU fallback."""
 
 import ast
 import asyncio
@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from aiohttp import web
@@ -35,6 +36,7 @@ from baton_tpu_torch.examples import (
 from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.ops.privacy import DPConfig
 from baton_tpu_torch.parallel import ClusteredFedSim, FedBuff, FedPer, StatefulClients, make_mesh
+from baton_tpu_torch.parallel.mesh import Mesh
 from baton_tpu_torch.server import http_worker
 from baton_tpu_torch.server.http_manager import Manager
 from baton_tpu_torch.server.http_worker import ExperimentWorker
@@ -235,12 +237,12 @@ def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
 
 
 def test_unported_options_are_refused():
-    """Only a mesh with a ``model`` axis is refused now; a clients mesh,
-    ``dp=``, ``auto_wave_size``, ``wave_size="auto"`` and
+    """No option is refused now: a hybrid clients x model mesh, a clients
+    mesh, ``dp=``, ``auto_wave_size``, ``wave_size="auto"`` and
     ``run_rounds_fused`` run on the CPU."""
     model = bert_classifier_model(BertConfig.tiny())
-    with pytest.raises(NotImplementedError):
-        FedSim(model, mesh=make_mesh(8, ("clients", "model"), devices=["cpu"] * 8))
+    hybrid = FedSim(model, mesh=make_mesh(8, ("clients", "model"), devices=["cpu"] * 8))
+    assert hybrid.is_hybrid and hybrid.device.type == "cpu"
     assert FedSim(model, mesh=make_mesh(8, devices=["cpu"] * 8)).device.type == "cpu"
     dp = DPConfig(clip_norm=1.0, noise_multiplier=0.5)
     assert FedSim(model, device="cpu", dp=dp).trainer.dp == dp
@@ -323,22 +325,33 @@ def _not_implemented_messages(path):
 
 
 def test_the_only_refusal_left_is_a_mesh_with_a_model_axis():
+    """No ``NotImplementedError`` in the port names a next slice, ROADMAP or
+    an option as not ported; the refusals left are JAX's own (the robust
+    aggregators on a hybrid mesh among them)."""
     messages = [m for path in PORT_FILES for m in _not_implemented_messages(path)]
-    assert any("'model' axis" in m and "next slice" in m for m in messages)
+    assert any("hybrid clients x model mesh" in m and "pure clients mesh" in m
+               for m in messages)
     for m in messages:
-        assert "ROADMAP item 11" not in m and "not ported" not in m, m
-        assert "next slice" not in m or "model" in m, m
+        assert "ROADMAP" not in m and "not ported" not in m, m
+        assert "next slice" not in m, m
         for name in ("DP-SGD", "dp=", "auto_wave_size"):
             assert name not in m, m
 
 
 def test_a_mesh_is_refused_naming_its_roadmap_item():
-    """A clients mesh runs; the hybrid mesh's ``model`` axis is refused,
-    naming the next slice and ROADMAP's queue."""
-    queue = "next slice of the port \\(ROADMAP Queue 1\\)"
-    with pytest.raises(NotImplementedError, match=queue):
-        FedSim(linear_regression_model(),
-               mesh=make_mesh(4, ("clients", "model"), devices=["cpu"] * 4))
+    """A clients mesh and a hybrid clients x model mesh both run a round;
+    on the hybrid mesh a robust aggregator is refused with JAX's reason."""
+    data = {"x": torch.ones(4, 2, 10), "y": torch.zeros(4, 2)}
+    n = torch.tensor([2, 1, 2, 2])
+    for shape in ((4, 1), (2, 2)):
+        mesh = Mesh(np.array([[torch.device("cpu")] * shape[1]] * shape[0], dtype=object),
+                    ("clients", "model"))
+        sim = FedSim(linear_regression_model(), batch_size=2, mesh=mesh)
+        params = sim.init(torch.Generator().manual_seed(0))
+        assert torch.isfinite(sim.run_round(params, data, n, torch.Generator()).loss_history).all()
+        with pytest.raises(NotImplementedError, match="pure clients mesh"):
+            FedSim(linear_regression_model(), batch_size=2, mesh=mesh,
+                   aggregator="median").run_round(params, data, n, torch.Generator())
     assert FedSim(linear_regression_model(), mesh=make_mesh(4, devices=["cpu"] * 4)).mesh
 
 
