@@ -1,9 +1,10 @@
 // The few PTX instructions the tensor-core flash kernels are built from
-// (flash_attention_mma.cu), each behind a small device function: 16- and
-// 4-byte asynchronous copies into shared memory (cp.async, zero-filling
-// when the source is out of range), ldmatrix of four 8 x 8 bf16 tiles
-// (plain and transposed), and the warp-wide bf16 product
-// mma.sync.m16n8k16 with fp32 accumulators.
+// (flash_attention_mma.cu, flash_attention_tf32.cu), each behind a small
+// device function: 16- and 4-byte asynchronous copies into shared memory
+// (cp.async, zero-filling when the source is out of range), ldmatrix of
+// four 8 x 8 bf16 tiles (plain and transposed), the warp-wide bf16 product
+// mma.sync.m16n8k16 with fp32 accumulators, and fp32 products in 3xTF32
+// (the TF32 split and mma.sync.m16n8k8).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4; each
 // 32-bit register holds two bf16, the lower column or k index in the low
@@ -70,4 +71,55 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ----------------------------------------------------------------------
+// fp32 products on the TF32 tensor cores in three parts (3xTF32). Each fp32
+// operand x splits into big = rna(x) and small = rna(x - big), both TF32
+// values (10 explicit mantissa bits) in a 32-bit register: big + small is x
+// to within 2^-22 of |x|. a.b is then as.bb + ab.bs + ab.bb, each product
+// exact in the tensor cores and summed in fp32 accumulators; the dropped
+// as.bs is below 2^-22 of |a||b|. The tensor cores' fp32 adds do not round
+// to nearest, so a long sum takes its steps in fresh fragments and adds them
+// in fp32 outside (flash_attention_tf32.cu, add_to).
+//
+// Fragment layouts of mma.m16n8k8 with .tf32 operands (g = lane / 4,
+// t = lane % 4; one value a register):
+//   A 16 x 8: a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4),
+//             a3 (row g+8, k t+4)
+//   B 8 x 8:  b0 (k t, col g), b1 (k t+4, col g)
+//   C 16 x 8: as m16n8k16's
+
+// x rounded to TF32, to nearest with ties away from zero: the value of
+// cvt.rna.tf32.f32 for every finite x (and for +-inf), as two integer ops
+// on the bits (add half a TF32 ulp, clear the 13 low bits). ptxas expands
+// cvt.rna into four instructions, one of them an inf/NaN test that only a
+// NaN with nothing but low mantissa bits set would need.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, each TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c += a . b for a 16 x 8 TF32 A, an 8 x 8 TF32 B and a 16 x 8 fp32 C
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32 from the split fragments of a (ab + as) and b (bb + bs):
+// the two small cross products first, then big . big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb[0], bb[1]);
+  mma_tf32(c, ab, bs[0], bs[1]);
+  mma_tf32(c, ab, bb[0], bb[1]);
 }

@@ -2,25 +2,28 @@
 each beside a plain PyTorch version of the same function (counterpart of
 ``baton_tpu/ops/flash_attention.py``).
 
-Two designs, chosen by dtype (``_design``), not as a fallback:
+Three designs, chosen by dtype and pass (``_design``), not as a fallback:
 
 - ``mma`` (``csrc/flash_attention_mma.cu``): bf16 tiles in shared memory
   filled by ``cp.async``, products on the tensor cores (``mma.sync``).
-  Every bf16 call.
+  Every bf16 pass.
 - ``simt`` (``csrc/flash_attention.cu``): fp32 tiles and scalar FMAs on
-  the CUDA cores. Every fp32 call (the tensor cores would round fp32 to
-  TF32).
+  the CUDA cores. The fp32 forward.
+- ``tf32x3`` (``csrc/flash_attention_tf32.cu``): fp32 tiles by
+  ``cp.async``, every product on the TF32 tensor cores in three parts
+  (each operand split into two TF32 values; fp32 accuracy). The fp32
+  backward, both passes.
 
-=================  ================================  ===========================
-wrapper            CUDA kernel (design)              TPU kernel it replaces
-=================  ================================  ===========================
-``_fwd``           ``fwd_mma_kernel`` (mma, bf16)    ``_fwd_kernel`` (:65-131)
+=================  ==================================  ===========================
+wrapper            CUDA kernel (design)                TPU kernel it replaces
+=================  ==================================  ===========================
+``_fwd``           ``fwd_mma_kernel`` (mma, bf16)      ``_fwd_kernel`` (:65-131)
                    ``fwd_kernel`` (simt, fp32)
-``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)    ``_bwd_dkv_kernel`` (:203-250)
-                   ``dkv_kernel`` (simt, fp32)
-``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)     ``_bwd_dq_kernel`` (:253-290)
-                   ``dq_kernel`` (simt, fp32)
-=================  ================================  ===========================
+``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)      ``_bwd_dkv_kernel`` (:203-250)
+                   ``dkv_tf32x3_kernel`` (tf32x3, fp32)
+``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)       ``_bwd_dq_kernel`` (:253-290)
+                   ``dq_tf32x3_kernel`` (tf32x3, fp32)
+=================  ==================================  ===========================
 
 ``flash_block_fwd`` and ``flash_block_bwd`` expose one k/v block's
 passes (out with its lse; the gradients against a global out and lse)
@@ -66,15 +69,15 @@ import torch
 NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("flash_attention.cu", "flash_attention_mma.cu")
+_SOURCES = ("flash_attention.cu", "flash_attention_mma.cu", "flash_attention_tf32.cu")
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
 # chip_smoke.py resets them before the path it counts
-launches_by_design = {"fwd_mma": 0, "fwd_simt": 0, "bwd_dkv_mma": 0, "bwd_dkv_simt": 0,
-                      "bwd_dq_mma": 0, "bwd_dq_simt": 0}
+launches_by_design = {"fwd_mma": 0, "fwd_simt": 0, "bwd_dkv_mma": 0, "bwd_dkv_tf32x3": 0,
+                      "bwd_dq_mma": 0, "bwd_dq_tf32x3": 0}
 
 # the C entry points and their ctypes argument types: a pointer (tensors,
 # the stream) is c_void_p, an int c_int, a float c_float
@@ -83,9 +86,9 @@ SIGNATURES = {
     "flash_fwd_mma": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_mma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_fwd_simt": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dkv_simt": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dkv_tf32x3": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_bwd_dq_mma": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dq_simt": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dq_tf32x3": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 _lib = None
@@ -163,29 +166,36 @@ def _on_cpu(*xs) -> bool:
     raise ValueError(f"flash attention needs all inputs on one CPU or CUDA device, got {kinds}")
 
 
-def _design(dtype: torch.dtype, d: int) -> str:
-    """The kernel design for a dtype and head dim: ``"mma"`` (tensor
-    cores) for bf16, ``"simt"`` (CUDA cores) for fp32; raises otherwise."""
+def _design(dtype: torch.dtype, d: int, pass_: str) -> str:
+    """The kernel design for a dtype, head dim and pass (``"fwd"``,
+    ``"bwd_dkv"``, ``"bwd_dq"``): ``"mma"`` (bf16 tensor cores) for every
+    bf16 pass; for fp32, ``"simt"`` (CUDA cores) for the forward and
+    ``"tf32x3"`` (TF32 tensor cores, three products) for the backward.
+    Raises for anything else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take fp32 or bf16, got {dtype}")
     if d not in (64, 128):
         raise ValueError(f"flash kernels take head dim 64 or 128, got {d}")
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    if pass_ not in ("fwd", "bwd_dkv", "bwd_dq"):
+        raise ValueError(f"no flash pass {pass_!r}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    return "simt" if pass_ == "fwd" else "tf32x3"
 
 
-def _kernel_args(q, k, v):
+def _kernel_args(q, k, v, pass_):
     """Validate what the kernels take; returns (design, head dim)."""
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v must lie on one device")
     d = q.shape[-1]
-    return _design(q.dtype, d), d
+    return _design(q.dtype, d, pass_), d
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the mma kernels copy rows in
-    16-byte pieces); a view at an odd offset is copied."""
+    """``t`` contiguous and 16-byte aligned (the mma and tf32x3 kernels
+    copy rows in 16-byte pieces); a view at an odd offset is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -263,7 +273,7 @@ def _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale):
 def _fwd(q, k, v, bias2d, causal, scale):
     if _on_cpu(q, k, v, bias2d):
         return _fwd_plain(q, k, v, bias2d, causal, scale)
-    design, d = _kernel_args(q, k, v)
+    design, d = _kernel_args(q, k, v, "fwd")
     q, k, v = _dense(q), _dense(k), _dense(v)
     bias2d = bias2d.float().contiguous()
     b, hq, lq, _ = q.shape
@@ -289,7 +299,7 @@ def _bwd_inputs(q, k, v, bias2d, dout, lse, delta):
 def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):
     if _on_cpu(q, k, v, bias2d, dout, lse, delta):
         return _bwd_dkv_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
-    design, _ = _kernel_args(q, k, v)
+    design, _ = _kernel_args(q, k, v, "bwd_dkv")
     inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
@@ -306,7 +316,7 @@ def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):
 def _bwd_dq(q, k, v, bias2d, dout, lse, delta, causal, scale):
     if _on_cpu(q, k, v, bias2d, dout, lse, delta):
         return _bwd_dq_plain(q, k, v, bias2d, dout, lse, delta, causal, scale)
-    design, _ = _kernel_args(q, k, v)
+    design, _ = _kernel_args(q, k, v, "bwd_dq")
     inputs = _bwd_inputs(q, k, v, bias2d, dout, lse, delta)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]

@@ -13,7 +13,8 @@ exits non-zero:
    partial tile at L=40, L=200), D 64 and 128, BERT-base's own shape and
    each model shard's shape on phase 23's hybrid meshes (tolerance fp32
    1e-4, bf16 2e-2); every bf16 call must go through
-   the tensor-core design (mma), every fp32 one through the SIMT one; in
+   the tensor-core design (mma), every fp32 forward through the SIMT one
+   and every fp32 backward through the 3xTF32 tensor-core one (tf32x3); in
    every bf16 case each element of the dkv and dq kernels' gaps from
    their plain versions must lie within what bf16 rounding flips of p and
    ds can give (``flip_check``); and one fp32 sample with every key
@@ -212,8 +213,10 @@ exits non-zero:
    shard by shard (fp32 1e-4, bf16 2e-2), every launch's design checked;
    times of both and of SDPA on the whole sequence; each kernel's time at
    the ring block's shape (B 1, 8/4 heads, L 4,096, D 64) in fp32 and
-   bf16 beside its bound; (d) the dense ring, Ulysses (N = 4) and the
-   striped fn against the flash call at L 8,192 in fp32.
+   bf16 beside its bound (fp32: the CUDA cores' and the 3xTF32 tensor
+   cores' bound), and the fp32 backward pair's against SDPA's fp32
+   backward; (d) the dense ring, Ulysses (N = 4) and the striped fn
+   against the flash call at L 8,192 in fp32.
 22. the clients mesh on the one card (a mesh may repeat ``cuda:0``):
    (a) phase 3's BERT-base round on 4 shards against the same round
    meshless (same weights and shuffles): each flash kernel 4 x 12 launches
@@ -256,11 +259,17 @@ exits non-zero:
    base on a ``model``-4 axis, the kv heads' shard edges inside a head,
    against replicated (JAX's rtol 2e-4 / atol 1e-5).
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone: the
-short first call after a kernel changes (build, ptxas report, comparison
-at real widths, times). It prints no result line.
+``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
+21's fp32 times at the ring block: the short first call after a kernel
+changes (build, ptxas report, comparison at real widths, times). It prints
+no result line.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+Before the last line comes the ``kernels`` line: one row a hand-written
+kernel, by its launch key (``fwd_mma``, ``bwd_dkv_mma``, ``bwd_dq_mma`` on
+the main path, phase 3's BERT-base round; ``fwd_simt``, ``bwd_dkv_tf32x3``,
+``bwd_dq_tf32x3`` on example 06's ring x flash, phase 21a), each with its
+launches on its path, its error in phase 2, and its times and bounds at
+that path's shape. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -286,16 +295,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# kernel name -> (launch counter, design on the bf16 main path, its source,
-# TPU kernel it replaces)
+# the TPU kernel each pass replaces, and each hand-written kernel's source by
+# its launch key ("<pass>_<design>", as counted in fa.launches_by_design);
+# the kernels line has one row a key, named after its C entry point
+# ("flash_" + key): bf16 (mma) on the main path, phase 3's BERT-base round,
+# fp32 (simt, tf32x3) on example 06's ring x flash, phase 21a
 CSRC = "baton_tpu_torch/ops/csrc/"
+TPU_KERNELS = {"fwd": "baton_tpu/ops/flash_attention.py:65",
+               "bwd_dkv": "baton_tpu/ops/flash_attention.py:203",
+               "bwd_dq": "baton_tpu/ops/flash_attention.py:253"}
 KERNELS = {
-    "flash_fwd": ("fwd", "mma", CSRC + "flash_attention_mma.cu",
-                  "baton_tpu/ops/flash_attention.py:65"),
-    "flash_bwd_dkv": ("bwd_dkv", "mma", CSRC + "flash_attention_mma.cu",
-                      "baton_tpu/ops/flash_attention.py:203"),
-    "flash_bwd_dq": ("bwd_dq", "mma", CSRC + "flash_attention_mma.cu",
-                     "baton_tpu/ops/flash_attention.py:253"),
+    "fwd_mma": CSRC + "flash_attention_mma.cu",
+    "bwd_dkv_mma": CSRC + "flash_attention_mma.cu",
+    "bwd_dq_mma": CSRC + "flash_attention_mma.cu",
+    "fwd_simt": CSRC + "flash_attention.cu",
+    "bwd_dkv_tf32x3": CSRC + "flash_attention_tf32.cu",
+    "bwd_dq_tf32x3": CSRC + "flash_attention_tf32.cu",
 }
 
 
@@ -333,6 +348,21 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+PASSES = ("fwd", "bwd_dkv", "bwd_dq")
+
+
+def design_keys(fa, dtype, d=64) -> dict:
+    """{pass: its launch key "<pass>_<design>"} for one dtype: what each
+    pass's kernel counts under in ``fa.launches_by_design``."""
+    return {p: f"{p}_{fa._design(dtype, d, p)}" for p in PASSES}
+
+
+def design_names(fa, dtype) -> str:
+    """The designs of the three passes, as printed: "mma" or "simt/tf32x3/tf32x3"."""
+    designs = [key[len(p) + 1:] for p, key in design_keys(fa, dtype).items()]
+    return designs[0] if len(set(designs)) == 1 else "/".join(designs)
+
+
 def launch_counts(fa):
     """The launch counts now, by pass and by design, for ``launches_since``."""
     return fa.launches(), dict(fa.launches_by_design)
@@ -356,7 +386,7 @@ NORM_TOKENS = ("groupnorm", "group_norm", "rowwisemoments", "fusedparams",
 
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma)?_kernel", n):
+    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_tf32x3)?_kernel", n):
         return "flash attention (this port)"
     # before matmul: cuDNN's implicit-GEMM conv kernels carry gemm/xmma too
     if any(t in n for t in CONV_TOKENS):
@@ -427,7 +457,7 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     tol = TOL[dtype]
     out_p, lse_p = fa._fwd_plain(q, k, v, bias, causal, scale)
     delta = (dout.float() * out_p.float()).sum(-1)
-    design = "mma" if dtype == torch.bfloat16 else "simt"
+    design = design_names(fa, dtype)
     before = dict(fa.launches_by_design)
     pairs = {
         "flash_fwd": (fa._fwd(q, k, v, bias, causal, scale), (out_p, lse_p)),
@@ -438,7 +468,7 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     }
     torch.cuda.synchronize()
     ran = {k: n - before[k] for k, n in fa.launches_by_design.items() if n != before[k]}
-    check(ran == {f"fwd_{design}": 1, f"bwd_dkv_{design}": 1, f"bwd_dq_{design}": 1},
+    check(ran == dict.fromkeys(design_keys(fa, dtype).values(), 1),
           f"{name}: launches by design {ran}")
     errs = {}
     for kname, (got, want) in pairs.items():
@@ -494,7 +524,7 @@ def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias
     kernel = fa._bwd_dkv(*args)
     torch.cuda.synchronize()
     ran = {key: n - before[key] for key, n in fa.launches_by_design.items() if n != before[key]}
-    check(ran == {"bwd_dkv_simt": 1}, f"{name}: launches by design {ran}")
+    check(ran == {"bwd_dkv_tf32x3": 1}, f"{name}: launches by design {ran}")
     plain = fa._bwd_dkv_plain(*args)
     q64, k64, v64, do64 = (t.double() for t in (q, fa._expand_kv(k, hq), fa._expand_kv(v, hq),
                                                  dout))
@@ -528,7 +558,7 @@ def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias
         check(share_k <= 1.0 and share_p <= 1.0,
               f"{name} {what}: kernel {share_k:.3g}, plain {share_p:.3g} of the fp32 "
               "summation bound from float64")
-    print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} float32 every key masked, simt, "
+    print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} float32 every key masked, tf32x3, "
           "against float64: " + "; ".join(
               f"{w} kernel {o['kernel_gap']:.2e} ({o['kernel_share_of_bound']:.2e} of bound), "
               f"plain {o['plain_gap']:.2e} ({o['plain_share_of_bound']:.2e}), kernel-plain "
@@ -564,7 +594,7 @@ def kernel_phase(fa):
         ("llama3_8b", 8, 32, 8, 1024, 128, bf16, True, None),
         ("vit_b16", 16, 12, 12, 197, 64, bf16, False, None),
         # phase 21's ring block (B 1, 8/4 heads, L/N = 4,096, D 64): the fp32
-        # SIMT kernels of example 06's full preset and the bf16 mma kernels of
+        # kernels of example 06's full preset and the bf16 mma kernels of
         # 21c, past blocks and the causal diagonal, with and without padding
         *((f"ring_block_{str(dtype)[6:]}{tag}", *RING_BLOCK, dtype, causal, bias_kind)
           for dtype in (f32, bf16)
@@ -590,7 +620,7 @@ def kernel_phase(fa):
     wrapper_cases += [(f32, False, True), (bf16, False, True)]
     for seed, case in enumerate(wrapper_cases):
         block_wrapper_case(fa, 100 + seed, *case)
-    return results["bert_base"]
+    return results
 
 
 def block_wrapper_case(fa, seed, dtype, causal, all_padding=False):
@@ -614,10 +644,10 @@ def block_wrapper_case(fa, seed, dtype, causal, all_padding=False):
     grads = fa.flash_block_bwd(q, k, v, bias, g_out, dout, g_lse, causal)
     torch.cuda.synchronize()
     _, by_design = launches_since(fa, before)
-    design = "mma" if dtype == torch.bfloat16 else "simt"
+    design = design_names(fa, dtype)
     name = (f"block wrappers {str(dtype)[6:]} causal={int(causal)}"
             + (" all padding" if all_padding else ""))
-    check(by_design == {f"{p}_{design}": 1 for p in ("fwd", "bwd_dkv", "bwd_dq")},
+    check(by_design == dict.fromkeys(design_keys(fa, dtype).values(), 1),
           f"{name}: launches by design {by_design}")
     check((out.dtype, lse.dtype) == (dtype, torch.float32)
           and [g.dtype for g in grads] == [dtype] * 3 + [torch.float32]
@@ -867,8 +897,8 @@ def in_context_phase(fa):
           f"max |param diff| {err:.3e} (tol 1e-4; max |param change| {moved:.3e}); "
           f"loss {gpu.loss_history.tolist()} vs {cpu.loss_history.tolist()}")
     check(all(n == cfg.n_layers for n in delta.values()), f"card round launches {delta}")
-    check(by_design == {"fwd_simt": cfg.n_layers, "bwd_dkv_simt": cfg.n_layers,
-                        "bwd_dq_simt": cfg.n_layers}, f"fp32 round launches by design {by_design}")
+    check(by_design == dict.fromkeys(design_keys(fa, torch.float32).values(), cfg.n_layers),
+          f"fp32 round launches by design {by_design}")
     check(err <= 1e-4, f"card and CPU params differ by {err:.3e}")
     check(loss_err <= 1e-4, f"card and CPU losses differ by {loss_err:.3e}")
 
@@ -928,10 +958,12 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
         ms2 = time_ms(kernel)  # a second reading shows the spread
         nbytes, flops = work[kname]
         t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-        counter, design, source, replaces = KERNELS[kname]
+        counter = kname[len("flash_"):]
+        key = design_keys(fa, dtype)[counter]
+        design = key[len(counter) + 1:]
         rows.append({
-            "name": kname, "route": "cuda", "design": design, "source": source,
-            "replaces": replaces,
+            "name": f"flash_{key}", "pass": counter, "route": "cuda", "design": design,
+            "source": KERNELS[key], "replaces": TPU_KERNELS[counter],
             "launches": main_launches[counter] if main_launches else None,
             "launches_per_round": per_round[counter] if per_round else None,
             "max_abs_err": bert_errs[kname], "tol": TOL[dtype],
@@ -950,18 +982,20 @@ def timing_phase(fa, name, main_launches, per_round, bert_errs):
               f"{nbytes / ms / 1e9:.2f} TB/s achieved, {100 * max(t_bytes, t_ops) / ms:.1f}% "
               f"of the bound)")
 
-    # the fp32 SIMT kernels (phase 4's path, not the main one)
+    # the fp32 kernels (phase 4's path, not the main one)
     q32, k32, v32, dout32 = (t.float() for t in (q, k, v, dout))
     args32 = (q32, k32, v32, bias, dout32, lse, delta, False, scale)
-    simt = {"flash_fwd_simt_fp32": time_ms(lambda: fa._fwd(q32, k32, v32, bias, False, scale)),
-            "flash_bwd_dkv_simt_fp32": time_ms(lambda: fa._bwd_dkv(*args32)),
-            "flash_bwd_dq_simt_fp32": time_ms(lambda: fa._bwd_dq(*args32))}
-    print("  fp32 SIMT at the same shape: "
-          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in simt.items()))
+    keys32 = design_keys(fa, torch.float32)
+    fp32 = {f"flash_{keys32['fwd']}_fp32":
+            time_ms(lambda: fa._fwd(q32, k32, v32, bias, False, scale)),
+            f"flash_{keys32['bwd_dkv']}_fp32": time_ms(lambda: fa._bwd_dkv(*args32)),
+            f"flash_{keys32['bwd_dq']}_fp32": time_ms(lambda: fa._bwd_dq(*args32))}
+    print("  fp32 kernels at the same shape: "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in fp32.items()))
     # a yardstick for the kernels' bytes/s: PyTorch's copy of q reads and writes it once
     clone_tb_s = 2 * q.numel() * el / time_ms(q.clone) / 1e9
     print(f"  q.clone() moves {clone_tb_s:.3f} TB/s on this card")
-    return rows, dict(simt, clone_tb_s=clone_tb_s)
+    return rows, dict(fp32, clone_tb_s=clone_tb_s)
 
 
 # Phase 6's reference check. At init, bf16 rounding alone moves a
@@ -2866,8 +2900,8 @@ def variants_phase(fa, phase3_peak_gb):
         smodel, smodel.init(torch.Generator().manual_seed(3)),
         smodel.init(torch.Generator().manual_seed(4)), sdata, sn, 8, 0.01, perms)
     _, by_design = launches_since(fa, before)
-    check(set(by_design) == {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
-          f"the fp32 card runs launched {by_design}, want the simt kernels")
+    check(set(by_design) == set(design_keys(fa, torch.float32).values()),
+          f"the fp32 card runs launched {by_design}, want the fp32 kernels")
     print(f"  the fp32 runs on the card and the CPU took {time.perf_counter() - t0:.1f} s")
     print(f"  launches over the variants' own BERT-base runs (stateful 3 rounds, fedbuff 6 "
           f"steps, fedper 3 rounds, clustered 3 rounds; not their checks) {stats['launches']}")
@@ -3306,9 +3340,12 @@ def crossover_phase(name, out_dir):
 def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
                     dtype=torch.bfloat16):
     """Kernel, plain and SDPA times at one attention shape and the card's
-    bound (FLOPs over the dtype's peak), counting only the (query, key)
-    pairs a causal mask keeps (the kernels skip tiles wholly in the
-    future)."""
+    bound, counting only the (query, key) pairs a causal mask keeps (the
+    kernels skip tiles wholly in the future). The operations bound is the
+    FLOPs over bf16's peak, or for fp32 the lesser of the CUDA cores' time
+    and that of three TF32 products on the tensor cores (3xTF32: fp32's
+    accuracy), each kept beside it; an fp32 call adds a row ``bwd_pair``:
+    the two backward kernels called back to back against SDPA's backward."""
     import torch.nn.functional as F
 
     from baton_tpu_torch.obs.compute import card_peaks
@@ -3347,8 +3384,12 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
         "flash_bwd_dq": (el * (2 * q_el + 2 * kv_el) + bias_b + 8 * rows + 4 * q_el,
                          6 * pairs * d),
     }
+    if dtype == torch.float32:
+        timed_fns["bwd_pair"] = (lambda: (fa._bwd_dkv(*args), fa._bwd_dq(*args)),
+                                 lambda: (fa._bwd_dkv_plain(*args), fa._bwd_dq_plain(*args)),
+                                 sdpa_bwd)
+        work["bwd_pair"] = tuple(map(sum, zip(work["flash_bwd_dkv"], work["flash_bwd_dq"])))
     bw, bf16_peak = card_peaks(name)
-    peak = bf16_peak if dtype == torch.bfloat16 else FP32_PEAK
     print(f"times at {label}'s shape: B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, "
           f"{'causal' if causal else 'not causal'}, bias {bias_kind}, {str(dtype)[6:]}"
           + ("; the bound counts the causal half" if causal else ""))
@@ -3356,16 +3397,24 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
     for kname, (kernel, plain, library) in timed_fns.items():
         ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain, iters=3), time_ms(library)
         nbytes, flops = work[kname]
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        t_bytes = nbytes / bw * 1e3
+        if dtype == torch.bfloat16:
+            t_ops, fp32_bounds = flops / bf16_peak * 1e3, {}
+        else:  # fp32: on the CUDA cores, or in three TF32 products on the tensor cores
+            fp32_bounds = {"bound_ms_fp32_cores": max(t_bytes, flops / FP32_PEAK * 1e3),
+                           "bound_ms_3xtf32": max(t_bytes, 3 * flops / TF32_PEAK * 1e3)}
+            t_ops = min(flops / FP32_PEAK, 3 * flops / TF32_PEAK) * 1e3
         out_rows[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                            "bound_ms": max(t_bytes, t_ops),
                            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                            "bytes": nbytes, "flops": flops,
-                           "bound_share": max(t_bytes, t_ops) / ms}
+                           "bound_share": max(t_bytes, t_ops) / ms, **fp32_bounds}
         print(f"  {kname}: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms by {out_rows[kname]['bound_by']} "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
-              f"{100 * max(t_bytes, t_ops) / ms:.1f}% of the bound)")
+              f"{100 * max(t_bytes, t_ops) / ms:.1f}% of the bound"
+              + "".join(f"; {k} {v:.4f} ({100 * v / ms:.1f}%)" for k, v in fp32_bounds.items())
+              + ")")
     return out_rows
 
 
@@ -3440,7 +3489,7 @@ def dp_parity_against_cpu(fa) -> dict:
     """A 2-layer ViT-B/16-width DP round (fp32, sigma 0, clip 1.0) on the
     card against the same round on the CPU: 2 clients (8 and 5 images,
     batch 4), same weights and shuffles; params and losses within
-    ``ZOO_CPU_TOL``, the fp32 kernels (simt) once per layer per step."""
+    ``ZOO_CPU_TOL``, the fp32 kernels once per layer per step."""
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.models.vit import ViTConfig, vit_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
@@ -3470,7 +3519,7 @@ def dp_parity_against_cpu(fa) -> dict:
           f"DP round card against CPU: params {err:.3e}, loss {loss_err:.3e}")
     steps = 2  # two batches of 4 a client, one wave
     check(by_pass == {"fwd": 2 * steps, "bwd_dkv": 2 * steps, "bwd_dq": 2 * steps}
-          and set(by_design) <= {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
+          and set(by_design) <= set(design_keys(fa, torch.float32).values()),
           f"DP fp32 round launches {by_pass} by design {by_design}")
     return {"param_err": err, "loss_err": loss_err, "moved": moved}
 
@@ -3825,6 +3874,7 @@ RING_SEAMS_LEN = 8192  # (d): the dense seams hold (L/N)^2 scores a block under 
 RING_PADDED_LEN = 13000  # (c)'s valid keys: shard 3 partly, shards 4-7 all padding
 RING_STRIPED_STEPS = 2  # (b): cut from the preset's 5
 FP32_PEAK = 67e12  # FLOP/s in fp32 outside the tensor cores (H100 SXM data sheet)
+TF32_PEAK = 495e12  # FLOP/s in TF32 on the tensor cores, dense (the same data sheet)
 RING_TOL = 1e-4  # (a)-(b): loss and each gradient against the flash model, relative
 
 
@@ -3964,8 +4014,8 @@ def long_context_phase(fa):
     check(len(measured) == steps and all(m == per_step for m in measured)
           and by_pass == {k: c * steps for k, c in per_step.items()},
           f"21a: launches a step {measured} ({by_pass} in all), want {per_step} a step x {steps}")
-    check(set(by_design) <= {"fwd_simt", "bwd_dkv_simt", "bwd_dq_simt"},
-          f"21a: launches by design {by_design}, want every fp32 launch on simt")
+    check(set(by_design) == set(design_keys(fa, torch.float32).values()),
+          f"21a: launches by design {by_design}, want every fp32 pass on its design")
     check(all(math.isfinite(x) for x in losses) and len(losses) == steps,
           f"21a: losses {losses}")
     check(abs(losses[0] - ring_loss) <= RING_TOL * abs(ring_loss),
@@ -4036,7 +4086,7 @@ def ring_flash_alone_phase(fa):
     errs, times = {}, {}
     calls = ring_block_calls(n)
     for dtype in (torch.bfloat16, torch.float32):
-        design = "mma" if dtype == torch.bfloat16 else "simt"
+        design, keys = design_names(fa, dtype), set(design_keys(fa, dtype).values())
         dname = str(dtype)[6:]
         for valid in (None, RING_PADDED_LEN):
             inputs = ring_inputs(21, b, hq, hkv, l, d, dtype, valid)
@@ -4045,7 +4095,7 @@ def ring_flash_alone_phase(fa):
             got = attention_vjp(ring, *inputs)
             by_pass, by_design = launches_since(fa, before)
             check(by_pass == {"fwd": calls, "bwd_dkv": calls, "bwd_dq": calls}
-                  and set(by_design) == {f"{p}_{design}" for p in ("fwd", "bwd_dkv", "bwd_dq")},
+                  and set(by_design) == keys,
                   f"21c {label}: launches {by_pass} {by_design}, want {calls} each on {design}")
             del got
             errs[label] = hold_attention(f"21c {label}", ring, flash_attention, inputs, n,
@@ -4121,14 +4171,47 @@ def sequence_parallel_phase(fa, name):
     stats = {"long_context": stats, "striped": striped_phase(fa)}
     torch.cuda.empty_cache()
     stats["ring_flash_alone"] = ring_flash_alone_phase(fa)
-    block_rows = {}
-    for dtype in (torch.float32, torch.bfloat16):  # not causal: 28 of a layer's 36 block calls
-        rows = attention_times(fa, name, "the ring block", *RING_BLOCK, causal=False,
-                               bias_kind=None, seed=31, dtype=dtype)
-        for kname, row in rows.items():
-            block_rows.setdefault(kname, {})[str(dtype)[6:]] = row
+    block_rows, stats["ring_block_bwd_pair_fp32"] = ring_block_times(fa, name)
     stats["seams"] = ring_seams_phase()
     return launches, per_step, block_rows, stats
+
+
+def ring_block_times(fa, name, dtypes=(torch.float32, torch.bfloat16)):
+    """``attention_times`` at the ring block's shape, not causal (28 of a
+    layer's 36 block calls), per dtype: ({kernel: {dtype: row}}, the fp32
+    backward pair's row)."""
+    block_rows, pair = {}, None
+    for dtype in dtypes:
+        rows = attention_times(fa, name, "the ring block", *RING_BLOCK, causal=False,
+                               bias_kind=None, seed=31, dtype=dtype)
+        pair = rows.pop("bwd_pair", pair)
+        for kname, row in rows.items():
+            block_rows.setdefault(kname, {})[str(dtype)[6:]] = row
+    return block_rows, pair
+
+
+def fp32_rows(fa, block_rows, errs, launches=None, per_step=None) -> list:
+    """The kernels line's rows of the fp32 kernels, whose path is example
+    06's ring x flash (phase 21a): times and bounds at the ring block's
+    fp32 shape, the max abs error of phase 2's fp32 ring-block case
+    (``errs``), and 21a's launches in all and a step (None when it did not
+    run)."""
+    rows = []
+    for counter, key in design_keys(fa, torch.float32).items():
+        times = block_rows[f"flash_{counter}"]["float32"]
+        rows.append({
+            "name": f"flash_{key}", "pass": counter, "route": "cuda",
+            "design": key[len(counter) + 1:], "source": KERNELS[key],
+            "replaces": TPU_KERNELS[counter],
+            "launches": launches[counter] if launches else None,
+            "launches_per_step_ring_flash": ([step[counter] for step in per_step]
+                                             if per_step else None),
+            "max_abs_err": errs[f"flash_{counter}"], "tol": TOL[torch.float32],
+            **times,
+            "library_call": ("scaled_dot_product_attention forward" if counter == "fwd"
+                             else "scaled_dot_product_attention backward (dq, dk, dv)"),
+            "shape": "the ring block: B 1, 8/4 heads, L 4,096, D 64, not causal, fp32"})
+    return rows
 
 
 # phase 22: the clients mesh on the one card. A mesh may repeat its device:
@@ -4785,7 +4868,7 @@ def hybrid_parity_phase():
     from baton_tpu_torch.parallel.mesh import Mesh
     from baton_tpu_torch.parallel.tensor_parallel import gather_params, shard_params_tp
 
-    # head dim 64, the kernels' (fp32: the SIMT design); 4/2 heads split
+    # head dim 64, the kernels' (fp32: the simt and tf32x3 designs); 4/2 heads split
     # 2/1 a shard on 2 model shards
     tiny = LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256)
     clients, shards = HYBRID_CPU_GRID
@@ -4896,18 +4979,21 @@ def main() -> int:
             print("  " + line.strip())
 
     phases = time.perf_counter()
-    bert_errs = kernel_phase(fa)
+    errs = kernel_phase(fa)
     if kernels_only:
-        rows, extra = timing_phase(fa, name, None, None, bert_errs)
+        rows, extra = timing_phase(fa, name, None, None, errs["bert_base"])
         for row, llama in zip(rows, llama_timing_phase(fa, name).values()):
             row["llama_shape"] = llama
+        block_rows, extra["ring_block_bwd_pair_fp32"] = ring_block_times(fa, name,
+                                                                         (torch.float32,))
+        rows += fp32_rows(fa, block_rows, errs["ring_block_float32"])
         print(json.dumps({"kernels": rows, "extra": extra}))
         print(f"phases 2 and 5 took {time.perf_counter() - phases:.1f} s; no result line "
               "(--kernels-only)")
         return 0
     main_launches, per_round, round_stats = bert_round_phase(fa)
     in_context_phase(fa)
-    rows, extra = timing_phase(fa, name, main_launches, per_round, bert_errs)
+    rows, extra = timing_phase(fa, name, main_launches, per_round, errs["bert_base"])
     for row, llama in zip(rows, llama_timing_phase(fa, name).values()):
         row["llama_shape"] = llama
     print(f"phases 2-5 took {time.perf_counter() - phases:.1f} s")
@@ -4964,8 +5050,8 @@ def main() -> int:
     slice13 = time.perf_counter()
     hybrid_stats.update(hybrid_phase(fa))
     print(f"phases 23b-c took {time.perf_counter() - slice13:.1f} s")
-    for row in rows:
-        counter = KERNELS[row["name"]][0]
+    for row in rows:  # the bf16 (mma) kernels' other paths
+        counter = row["pass"]
         row["launches_config3"] = config3_launches[counter]
         row["launches_per_round_config3"] = config3_per_round[counter]
         row["launches_variants"] = variants_stats["launches"][counter]
@@ -4976,12 +5062,10 @@ def main() -> int:
         row["launches_config5"] = config5_launches[counter]
         row["launches_per_round_config5"] = config5_per_round[counter]
         row["launches_per_step_config5"] = config5_stats["per_step"][counter]
-        row["config5_shape"] = config5_times[row["name"]]
+        row["config5_shape"] = config5_times[f"flash_{counter}"]
         row["launches_fused_bert"] = fused_stats["launches_fused_bert"][counter]
         row["launches_per_round_fused_bert"] = fused_stats["launches_per_round_fused_bert"][counter]
-        row["launches_ring_flash"] = ring_launches[counter]
-        row["launches_per_step_ring_flash"] = [step[counter] for step in ring_per_step]
-        row["ring_block_shape"] = ring_rows[row["name"]]
+        row["ring_block_shape"] = ring_rows[f"flash_{counter}"]["bfloat16"]
         row["launches_per_round_mesh_bert"] = mesh_launches[counter]
         row["launches_per_round_meshless_bert"] = mesh_stats["bert"]["meshless"]["launches"][
             counter]
@@ -4989,6 +5073,7 @@ def main() -> int:
             "launches_per_round"][counter]
         row["launches_per_round_hybrid_bert"] = hybrid_stats["bert"]["hybrid"]["launches"][
             counter]
+    rows += fp32_rows(fa, ring_rows, errs["ring_block_float32"], ring_launches, ring_per_step)
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,

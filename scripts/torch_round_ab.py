@@ -2,7 +2,7 @@
 """Time the port's meshless round for one checkout, to compare two checkouts
 on one card.
 
-``python3 scripts/torch_round_ab.py --root DIR [--cohort bert|config4]``
+``python3 scripts/torch_round_ab.py --root DIR [--cohort bert|config4|example06]``
 imports ``baton_tpu_torch`` from ``DIR`` (default: this checkout), builds its
 flash kernels, and runs one of ``chip_smoke.py``'s cohorts through
 ``FedSim.run_round``: ``bert`` (the default) is phase 3's (BERT-base, bf16
@@ -13,6 +13,13 @@ One warm-up round, then ``--rounds`` timed ones (default 10 for ``bert``, 3
 for ``config4``) on the same params and shuffles, each closed by a device
 sync. Prints one JSON line: the root, the cohort, the seconds of each timed
 round, their median, the flash launches of a round by pass and the loss.
+``example06`` times training steps instead of rounds: example 06's full
+preset (``long_context_ring.full_preset``: a Llama-class decoder at 32,768
+tokens, ring x flash over 8 shards of the card, fp32, remat) as phase 21a
+of ``chip_smoke.py`` runs it, one warm-up step and ``--rounds`` timed ones
+(default 4), each from one step's loss read-back to the next; it prints the
+seconds of each, their median, tokens/s and the flash launches of a step
+by pass and by design.
 Compare two checkouts in one session on the machine, in the order A, B, B, A,
 one process each. Needs a CUDA card.
 """
@@ -35,9 +42,10 @@ HERE = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose package is timed")
-    ap.add_argument("--cohort", choices=("bert", "config4"), default="bert")
+    ap.add_argument("--cohort", choices=("bert", "config4", "example06"), default="bert")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="timed rounds (default 10 for bert, 3 for config4)")
+                    help="timed rounds (default 10 for bert, 3 for config4) or steps "
+                         "(4 for example06)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_round_ab: no CUDA device is available", file=sys.stderr)
@@ -56,6 +64,8 @@ def main() -> int:
     if not str(Path(fa.__file__).resolve()).startswith(root):
         raise RuntimeError(f"imported {fa.__file__}, not the package in {root}")
     fa.load_library()
+    if args.cohort == "example06":
+        return example06_steps(root, fa, args.rounds or 4)
     wave = None
     if args.cohort == "bert":
         _, model, data, n_samples = smoke.bert_base_cohort()
@@ -92,6 +102,33 @@ def main() -> int:
     print(json.dumps({"root": root, "cohort": args.cohort, "s_per_round": times,
                       "median_s": float(np.median(times)),
                       "launches_per_round": launches, "loss": res.loss_history.tolist()}))
+    return 0
+
+
+def example06_steps(root, fa, steps) -> int:
+    """Example 06's full preset for one warm-up and ``steps`` timed steps."""
+    from baton_tpu_torch.examples import long_context_ring as ex
+
+    full = dict(ex.full_preset(), n_steps=1 + steps)
+    cfg = full["config"]
+    stamps, counts = [], []
+
+    def stamp(step, loss):  # after each step's loss read-back
+        stamps.append(time.perf_counter())
+        counts.append((fa.launches(), dict(fa.launches_by_design)))
+
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    losses = ex.run(**full, device="cuda", progress_fn=stamp)
+    times = np.diff(stamps).tolist()
+    (pass0, design0), (pass1, design1) = counts[0], counts[1]
+    median = float(np.median(times))
+    print(json.dumps({"root": root, "cohort": "example06", "s_per_step": times,
+                      "median_s": median, "tokens_per_s": full["batch_size"] * cfg.max_len / median,
+                      "launches_per_step": {k: n - pass0[k] for k, n in pass1.items()},
+                      "launches_per_step_by_design": {k: n - design0[k] for k, n in design1.items()
+                                                      if n != design0[k]},
+                      "losses": losses}))
     return 0
 
 

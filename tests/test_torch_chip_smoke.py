@@ -151,6 +151,8 @@ def test_dq_flip_check(b, hq, hkv, l, causal, bias_kind, p_error):
      "matmul (cuBLAS)"),
     ("nvjet_hsh_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul (cuBLAS)"),
     ("void fwd_mma_kernel<64, false>(FwdArgs)", "flash attention (this port)"),
+    ("void (anonymous namespace)::dkv_tf32x3_kernel<64>(float const*, float const*)",
+     "flash attention (this port)"),
     ("void at::native::elementwise_kernel<128, 2, ...>", "elementwise and other"),
     ("_ZN17cutlass__5x_cudnn6KernelINS_4conv6kernel23ImplicitGemmConvolutionINS1_11thread",
      "convolution (cuDNN)"),
@@ -229,6 +231,8 @@ FUSED_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 RING_PER_STEP = {"fwd": 576, "bwd_dkv": 288, "bwd_dq": 288}
 RING_COUNTS = {k: 5 * n for k, n in RING_PER_STEP.items()}
 RING_ROW = {"float32": {"ms": 2.0, "bound_ms": 0.5}, "bfloat16": {"ms": 0.5, "bound_ms": 0.1}}
+# phase 2's fp32 ring-block case: max abs error by kernel
+RING_ERRS = {"flash_fwd": 1e-6, "flash_bwd_dkv": 2e-6, "flash_bwd_dq": 3e-6}
 # phase 22a: BERT-base's 12 layers, one round on 4 shards and meshless
 MESH_COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 MESHLESS_COUNTS = {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}
@@ -251,8 +255,9 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
             called.append(phase)
             if phase == fail:
                 raise RuntimeError(f"check failed: {phase}")
-            return {"bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {"peak_memory_gb": 37.24}),
-                    "timing_phase": ([{"name": "flash_fwd"}], {}),
+            return {"kernel_phase": {"bert_base": {}, "ring_block_float32": RING_ERRS},
+                    "bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {"peak_memory_gb": 37.24}),
+                    "timing_phase": ([{"name": "flash_fwd_mma", "pass": "fwd"}], {}),
                     "resnet_round_phase": {},
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
                     "resnet_optimizer_phase": {}, "options_parity_phase": {},
@@ -273,7 +278,7 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                                     "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
                     "examples_phase": {},
                     "sequence_parallel_phase": (RING_COUNTS, [RING_PER_STEP] * 5,
-                                                {"flash_fwd": RING_ROW}, {}),
+                                                dict.fromkeys(RING_ERRS, RING_ROW), {}),
                     "mesh_phase": (MESH_COUNTS,
                                    {"bert": {"meshless": {"launches": MESHLESS_COUNTS}}}),
                     }.get(phase)
@@ -306,18 +311,44 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+    csrc = "baton_tpu_torch/ops/csrc/"
+    fp32_rows = [{
+        "name": f"flash_{counter}_{design}", "pass": counter, "route": "cuda",
+        "design": design, "source": csrc + source, "replaces": chip_smoke.TPU_KERNELS[counter],
+        "launches": RING_COUNTS[counter],
+        "launches_per_step_ring_flash": [RING_PER_STEP[counter]] * 5,
+        "max_abs_err": RING_ERRS[f"flash_{counter}"], "tol": 1e-4, **RING_ROW["float32"],
+        "library_call": ("scaled_dot_product_attention forward" if counter == "fwd"
+                         else "scaled_dot_product_attention backward (dq, dk, dv)"),
+        "shape": "the ring block: B 1, 8/4 heads, L 4,096, D 64, not causal, fp32"}
+        for counter, design, source in (("fwd", "simt", "flash_attention.cu"),
+                                        ("bwd_dkv", "tf32x3", "flash_attention_tf32.cu"),
+                                        ("bwd_dq", "tf32x3", "flash_attention_tf32.cu"))]
     assert json.loads(lines[-2]) == {"kernels": [{
-        "name": "flash_fwd", "launches_config3": 48, "launches_per_round_config3": 12,
+        "name": "flash_fwd_mma", "pass": "fwd", "launches_config3": 48,
+        "launches_per_round_config3": 12,
         "launches_variants": 816, "llama_shape": LLAMA_ROW, "launches_config4": 1024,
         "launches_per_round_config4": 256, "launches_per_step_config4": 64,
         "launches_config5": 288, "launches_per_round_config5": 96,
         "launches_per_step_config5": 24, "config5_shape": CONFIG5_ROW,
         "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
-        "launches_ring_flash": 2880, "launches_per_step_ring_flash": [576] * 5,
-        "ring_block_shape": RING_ROW, "launches_per_round_mesh_bert": 48,
+        "ring_block_shape": RING_ROW["bfloat16"], "launches_per_round_mesh_bert": 48,
         "launches_per_round_meshless_bert": 12, "launches_per_round_hybrid_config4": 1024,
-        "launches_per_round_hybrid_bert": 192}]}
+        "launches_per_round_hybrid_bert": 192}, *fp32_rows]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def test_kernels_line_has_a_row_per_launch_key():
+    """``KERNELS`` names one source in the repo for every launch key the
+    kernels count under, and each pass's design on each dtype is one of
+    them."""
+    assert set(chip_smoke.KERNELS) == set(fa.launches_by_design)
+    root = Path(chip_smoke.__file__).resolve().parent
+    assert all((root / src).is_file() for src in chip_smoke.KERNELS.values())
+    for dtype in (torch.float32, torch.bfloat16):
+        assert set(chip_smoke.design_keys(fa, dtype).values()) <= set(chip_smoke.KERNELS)
+    assert chip_smoke.design_names(fa, torch.float32) == "simt/tf32x3/tf32x3"
+    assert chip_smoke.design_names(fa, torch.bfloat16) == "mma"
 
 
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
@@ -680,7 +711,7 @@ def test_step_launch_check():
                                        {"fwd_mma": 96}, 12, 0, fwd_extra=1)
     with pytest.raises(RuntimeError, match="mma"):
         chip_smoke.check_step_launches("round", {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12},
-                                       {"fwd_simt": 12, "bwd_dkv_mma": 12, "bwd_dq_mma": 12},
+                                       {"fwd_mma": 12, "bwd_dkv_tf32x3": 12, "bwd_dq_mma": 12},
                                        12, 1)
 
 
@@ -887,9 +918,8 @@ def test_block_wrapper_check(monkeypatch, dtype, fault):
     monkeypatch.setattr(chip_smoke, "attention_inputs",
                         functools.partial(chip_smoke.attention_inputs, device="cpu"))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    design = "mma" if dtype == torch.bfloat16 else "simt"
-    launched = {} if fault == "fallback" else {
-        f"{p}_{design}": 1 for p in ("fwd", "bwd_dkv", "bwd_dq")}
+    launched = {} if fault == "fallback" else dict.fromkeys(
+        chip_smoke.design_keys(fa, dtype).values(), 1)
     monkeypatch.setattr(chip_smoke, "launches_since", lambda fa, before: ({}, launched))
     real_bwd = fa.flash_block_bwd
 
@@ -939,7 +969,7 @@ def test_masked_row_case_against_float64(monkeypatch, fault):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
 
     def counted(*args):
-        fa.launches_by_design["bwd_dkv_simt"] += 1
+        fa.launches_by_design["bwd_dkv_tf32x3"] += 1
         dk, dv, db = fa._bwd_dkv_plain(*args)
         if fault == "db":
             db = db.clone()

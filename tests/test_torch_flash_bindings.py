@@ -1,7 +1,9 @@
 """The flash kernels' bindings and dispatch, without a GPU or ``nvcc``:
 every ctypes signature against the ``extern "C"`` entry points of the CUDA
 sources, and the Python side's choice of design (tensor-core ``mma`` for
-bf16, ``simt`` for fp32) and of entry point for each pass."""
+every bf16 pass; for fp32, ``simt`` for the forward and the 3xTF32
+tensor-core ``tf32x3`` for the backward) and of entry point for each
+pass."""
 
 import ctypes
 import re
@@ -77,12 +79,15 @@ def test_load_library_binds_every_signature(monkeypatch, tmp_path):
     monkeypatch.setattr(fa, "_lib", None)
 
 
-@pytest.mark.parametrize("dtype,d,design", [
-    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+@pytest.mark.parametrize("pass_", ["fwd", "bwd_dkv", "bwd_dq"])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64), (torch.float32, 128),
 ])
-def test_design_by_dtype_and_head_dim(dtype, d, design):
-    assert fa._design(dtype, d) == design
+def test_design_by_dtype_and_head_dim(dtype, d, pass_):
+    """bf16 takes the mma design in every pass; fp32 the SIMT forward and
+    the 3xTF32 backward."""
+    want = ("mma" if dtype == torch.bfloat16 else "simt" if pass_ == "fwd" else "tf32x3")
+    assert fa._design(dtype, d, pass_) == want
 
 
 @pytest.mark.parametrize("dtype,d,error", [
@@ -91,12 +96,19 @@ def test_design_by_dtype_and_head_dim(dtype, d, design):
     (torch.bfloat16, 256, ValueError),
 ])
 def test_other_dtypes_and_head_dims_are_refused(dtype, d, error):
-    with pytest.raises(error):
-        fa._design(dtype, d)
+    for pass_ in ("fwd", "bwd_dkv", "bwd_dq"):
+        with pytest.raises(error):
+            fa._design(dtype, d, pass_)
 
 
-@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
-def test_wrappers_launch_the_entry_point_of_their_design(monkeypatch, dtype, design):
+def test_an_unknown_pass_is_refused():
+    with pytest.raises(ValueError, match="pass"):
+        fa._design(torch.float32, 64, "bwd")
+
+
+@pytest.mark.parametrize("dtype,designs", [(torch.bfloat16, ("mma", "mma", "mma")),
+                                           (torch.float32, ("simt", "tf32x3", "tf32x3"))])
+def test_wrappers_launch_the_entry_point_of_their_design(monkeypatch, dtype, designs):
     """With the kernel path forced for CPU tensors and the launch recorded,
     each pass calls its design's entry point with as many arguments as its
     signature (the stream comes last, from _launch), and counts it."""
@@ -113,13 +125,13 @@ def test_wrappers_launch_the_entry_point_of_their_design(monkeypatch, dtype, des
     fa._bwd_dkv(q, k, v, bias, dout, lse, delta, True, 0.125)
     fa._bwd_dq(q, k, v, bias, dout, lse, delta, True, 0.125)
     names = [name for name, _ in calls]
-    assert names == [f"flash_fwd_{design}", f"flash_bwd_dkv_{design}", f"flash_bwd_dq_{design}"]
+    keys = [f"{p}_{design}" for p, design in zip(("fwd", "bwd_dkv", "bwd_dq"), designs)]
+    assert names == [f"flash_{key}" for key in keys]
     for name, args in calls:
         assert len(args) + 1 == len(fa.SIGNATURES[name]), name
         assert args[0] == d, name
     assert fa.launches() == {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
-    assert {k: n for k, n in fa.launches_by_design.items() if n} == {
-        f"fwd_{design}": 1, f"bwd_dkv_{design}": 1, f"bwd_dq_{design}": 1}
+    assert {k: n for k, n in fa.launches_by_design.items() if n} == dict.fromkeys(keys, 1)
     fa.reset_launches()
     assert not any(fa.launches_by_design.values())
 
