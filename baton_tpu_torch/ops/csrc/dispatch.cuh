@@ -1,5 +1,5 @@
 // The head-size switch of the flash kernels' entry points, shared by
-// flash_attention.cu, flash_attention_mma.cu and flash_attention_tf32.cu:
+// flash_attention_mma.cu and flash_attention_tf32.cu:
 // f(std::integral_constant<int, D>{}) for D = 64 or 128, whose result (a
 // cudaError_t) is returned as an int; any other head size is refused with
 // cudaErrorInvalidValue.

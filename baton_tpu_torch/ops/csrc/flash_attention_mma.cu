@@ -1,20 +1,20 @@
 // Flash attention on Hopper's tensor cores, bf16: the forward pass and
 // both passes of the backward, each behind a plain C entry point (bound
 // with ctypes from baton_tpu_torch/ops/flash_attention.py). Every bf16 call
-// comes here; fp32 calls keep the SIMT kernels of flash_attention.cu (fp32
-// on the tensor cores would be TF32).
+// comes here; fp32 calls go to the 3xTF32 kernels of flash_attention_tf32.cu
+// (one TF32 product alone would lose fp32's accuracy).
 //
 // Replaces the three Pallas TPU kernels of baton_tpu/ops/flash_attention.py:
 //   fwd_mma_kernel  <- _fwd_kernel      (:65-131, launched by _fwd :151-189)
 //   dkv_mma_kernel  <- _bwd_dkv_kernel  (:203-250, pass 1 of _bwd_call :325-342)
 //   dq_mma_kernel   <- _bwd_dq_kernel   (:253-290, pass 2 of _bwd_call :344-358)
 //
-// Layout and semantics are those of flash_attention.cu: q [B, Hq, Lq, D],
+// Layout and semantics (the same in flash_attention_tf32.cu): q [B, Hq, Lq, D],
 // k/v [B, Hkv, Lk, D] contiguous bf16, bias [B, Lk] fp32 (additive, per key),
 // lse/delta [B, Hq, Lq] fp32, query head h reads kv head h / (Hq / Hkv), D
 // is 64 or 128, any L (rows past L are zero-filled by the copies and masked
 // in the fragments, so no pad copies are made). The tiles are 64 queries by
-// 64 keys, as in the SIMT kernels, so causal tile skipping, and with it the
+// 64 keys, as in the fp32 kernels, so causal tile skipping, and with it the
 // one edge where a causal row whose visible keys are all masked averages
 // over the kv tiles that are not skipped, is the same.
 //

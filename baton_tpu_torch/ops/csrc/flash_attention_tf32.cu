@@ -1,78 +1,93 @@
-// Flash attention's fp32 backward on Hopper's tensor cores in 3xTF32: the
-// two passes of the backward, each behind a plain C entry point (bound with
-// ctypes from baton_tpu_torch/ops/flash_attention.py). Every fp32 backward
-// call comes here; the fp32 forward stays the SIMT kernel of
-// flash_attention.cu, and every bf16 pass is flash_attention_mma.cu's.
+// Flash attention's fp32 passes on Hopper's tensor cores in 3xTF32: the
+// forward and the two passes of the backward, each behind a plain C entry
+// point (bound with ctypes from baton_tpu_torch/ops/flash_attention.py).
+// Every fp32 call comes here; every bf16 pass is flash_attention_mma.cu's.
 //
-// Replaces two Pallas TPU kernels of baton_tpu/ops/flash_attention.py:
+// Replaces the three Pallas TPU kernels of baton_tpu/ops/flash_attention.py
+// in fp32:
+//   fwd_tf32x3_kernel <- _fwd_kernel      (:65-131, launched by _fwd :151-189)
 //   dkv_tf32x3_kernel <- _bwd_dkv_kernel  (:203-250, pass 1 of _bwd_call :325-342)
 //   dq_tf32x3_kernel  <- _bwd_dq_kernel   (:253-290, pass 2 of _bwd_call :344-358)
 //
-// Layout and semantics are those of the other two sources: q [B, Hq, Lq, D],
+// Layout and semantics (the same in flash_attention_mma.cu): q [B, Hq, Lq, D],
 // k/v [B, Hkv, Lk, D] contiguous fp32, bias [B, Lk] fp32 (additive, per key),
 // lse/delta [B, Hq, Lq] fp32, query head h reads kv head h / (Hq / Hkv), D is
 // 64 or 128, any L (rows past L are zero-filled by the copies and masked in
-// the fragments). The tiles are 64 queries by 64 keys, as in the other
-// designs, so causal tile skipping is the same.
+// the fragments). The tiles are 64 queries by 64 keys, as in the bf16
+// design, so causal tile skipping is the same.
 //
 // What bounds them on the H100: operations. At the ring block of example 06
-// (B 1, 8/4 heads, L 4,096, D 64) dkv does 68.7 GFLOP and dq 51.5 GFLOP on
-// 8-25 MB. On the CUDA cores (67 TFLOP/s fp32) that is 1.03 and 0.77 ms;
-// the SIMT kernels these replace reached 34-39% of it, bound by the
-// shared-memory loads that fed their scalar FMAs. TF32 tensor cores run
-// 495 TFLOP/s, but one TF32 product keeps only 11 bits of each operand
-// (about 4e-4 off in these gradients, beyond the port's fp32 tolerance of
-// 1e-4). So every product here is 3xTF32 (csrc/ptx.cuh): each operand split
-// into two TF32 parts, three mma.sync.m16n8k8 a product, fp32 accumulators;
-// as accurate as fp32 FMAs, at an effective 495 / 3 = 165 TFLOP/s: 0.42 ms
-// (dkv) and 0.31 ms (dq) at that shape. The split is two integer ops a part
-// (tf32_rna); what limits these kernels is the tensor cores' mma.sync rate,
-// the instructions that feed them (fragment loads and splits) and, for
-// dkv, registers.
+// (B 1, 8/4 heads, L 4,096, D 64) the forward does 34.4 GFLOP, dkv 68.7 and
+// dq 51.5 GFLOP, on 8-25 MB. On the CUDA cores (67 TFLOP/s fp32) that is
+// 0.51, 1.03 and 0.77 ms; the SIMT kernels these replace reached 34-39% of
+// it, bound by the shared-memory loads that fed their scalar FMAs. TF32
+// tensor cores run 495 TFLOP/s, but one TF32 product keeps only 11 bits of
+// each operand (about 4e-4 off in these gradients, beyond the port's fp32
+// tolerance of 1e-4). So every product here is 3xTF32 (csrc/ptx.cuh): each
+// operand split into two TF32 parts, three mma.sync.m16n8k8 a product, fp32
+// accumulators; as accurate as fp32 FMAs, at an effective 495 / 3 = 165
+// TFLOP/s: 0.21 ms (forward), 0.42 ms (dkv) and 0.31 ms (dq) at that shape.
+// The split is two integer ops a part (tf32_rna). What limits these kernels
+// is that a block does its work for a tile one step after another (copies,
+// fragment loads and splits, products, the forward's softmax), its warps
+// kept in step by barriers, with two blocks an SM to overlap them (one at
+// D = 128), and, for dkv, registers.
 // The design:
 // - tiles stay fp32 in shared memory, filled by cp.async (16 bytes a
-//   thread); the q/do tiles (dkv) and the kv tiles (dq) are double
+//   thread); the kv tiles (forward, dq) and the q/do tiles (dkv) are double
 //   buffered, so tile j+1 is in flight while tile j computes;
 // - rows are padded by 4 floats (a stride of 4 mod 32 words), so every
 //   fragment load below, a plain 32-bit shared load a value, hits 32
 //   different banks;
 // - a warp owns 16 rows and works on the accumulator fragments in
-//   registers, as the bf16 kernels do: dkv on transposed products (s^T =
-//   k.q^T, dp^T = v.do^T), so its dk and dv rows are its own; dq on s =
-//   q.k^T and dp = do.v^T;
-// - p^T and ds^T (dkv), ds (dq) feed the next product straight from the
-//   registers: an accumulator's n8 block holds columns 2t and 2t+1 of rows
-//   g and g+8, which is an A fragment of one k8 step once the step's k
-//   index t is read as column 2t and t+4 as 2t+1. The B fragments of that
-//   step are read in the same order (rows 2t and 2t+1 of the do, q or k
+//   registers, as the bf16 kernels do: the forward on s = q.k^T, dkv on
+//   transposed products (s^T = k.q^T, dp^T = v.do^T), so its dk and dv rows
+//   are its own; dq on s = q.k^T and dp = do.v^T;
+// - p (forward), p^T and ds^T (dkv), ds (dq) feed the next product straight
+//   from the registers: an accumulator's n8 block holds columns 2t and 2t+1
+//   of rows g and g+8, which is an A fragment of one k8 step once the step's
+//   k index t is read as column 2t and t+4 as 2t+1. The B fragments of that
+//   step are read in the same order (rows 2t and 2t+1 of the v, do, q or k
 //   tile), which is also what makes those loads conflict-free. No P or dS
 //   tile goes through shared memory;
-// - at D = 64 the warp's own rows of k and v (dkv), q and do (dq) stay in
-//   registers as raw fp32 fragments, split at each use, and their tiles'
-//   shared memory then holds the small planes of the B tiles: each q and do
-//   tile (dkv), k and v tile (dq) is split once as it lands, big in place
-//   and small beside it, so the four warps that read each B fragment twice
-//   load its two parts instead of splitting it up to eight times. At D = 128
-//   the dk/dv accumulators alone take 128 registers a thread, and the tiles
-//   leave no room for small planes, so the A fragments are read from
-//   shared memory and every fragment is split as it is loaded;
+// - at D = 64 the warp's own rows of q (forward), k and v (dkv), q and do
+//   (dq) stay in registers: the forward's split once as they load (64
+//   registers), the backward's raw and split at each use. In the backward
+//   their tiles' shared memory then holds the small planes of the B tiles:
+//   each k and v tile (dq), q and do tile (dkv) is split once as it lands,
+//   big in place and small beside it, so the four warps that read each B
+//   fragment load its two parts instead of splitting it again and again
+//   (102.5 KB of shared memory a block, two blocks an SM). The forward
+//   splits each B fragment of k and v as it loads it instead: measured
+//   against split planes at the same occupancy, that was faster (the tile
+//   split is a phase of its own between two barriers; the splits at load
+//   interleave with the products), and its four tiles take 70 KB. Two
+//   blocks an SM, as registers allow (the forward's q, s, p.v and out
+//   fragments take 160 of them). At D = 128 the tiles leave no room for
+//   small planes (and dkv's dk/dv accumulators alone take 128 registers a
+//   thread), so the A fragments are read from shared memory and every
+//   fragment is split as it is loaded; one block an SM;
 // - registers bound the D = 64 dkv kernel (two blocks an SM leave 255 a
 //   thread, and its k and v fragments and dk and dv accumulators take 128):
 //   it forms s^T, then dp^T, then dv, then dk, one product at a time, so
 //   only one operand's split fragments are live.
 // mma.sync rather than wgmma: wgmma takes TF32 operands only K-major from
-// shared memory, which the transposed products (p^T.do, ds^T.q, ds.k) are
-// not without a copy. Times, bounds and what holds them back: PERF.md.
+// shared memory, which p.v and the transposed products (p^T.do, ds^T.q,
+// ds.k) are not without a copy; the forward with s and p.v as wgmma (v
+// transposed as it was split) measured no faster, as the steps above stay
+// in series. Times, bounds and what holds them back: PERF.md.
 //
-// Numerics are the SIMT kernels': scores, softmax statistics and every
-// accumulator in fp32, expf, the score one fmaf(s, scale, bias); db sums the
-// unrounded ds; masked scores are the finite -1e30. The tensor cores' fp32
-// adds do not round to nearest, so the long sums (dk and dv over the
-// queries, dq over the keys) take two k8 steps' products at a time in a
-// fresh fragment and add it to the accumulator with an fp32 add, which
-// does; only the short dot products over D (s, dp) stay in one mma chain.
-// The summation order, the split's 2^-22 and those D-long chains are what
-// differs from an fp32 FMA chain.
+// Numerics are those of the TPU kernels in fp32: scores, softmax statistics
+// and every accumulator in fp32, expf, the score one fmaf(s, scale, bias);
+// the forward's l sums the unrounded p, db the unrounded ds; masked scores
+// are the finite -1e30, so a fully masked row averages uniformly. The
+// tensor cores' fp32 adds do not round to nearest, so the long sums (the
+// forward's p.v and dq over the keys, dk and dv over the queries) take at
+// most one kv tile's products (forward: eight k8 steps) or two k8 steps'
+// (backward) in a fresh fragment and add it to the accumulator with an
+// fp32 add, which does; only those and the short dot products over D (s,
+// dp) stay in one mma chain. The summation order, the split's 2^-22 and
+// those short chains are what differs from an fp32 FMA chain.
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -93,6 +108,11 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // rows [row0, row0 + TILE) of a row-major [L, D] fp32 matrix into a shared
@@ -206,6 +226,215 @@ __device__ __forceinline__ void split_tile(float* tile, float* small_plane) {
     split_tf32(x.w, big.w, small.w);
     *reinterpret_cast<uint4*>(tile + o) = big;
     *reinterpret_cast<uint4*>(small_plane + o) = small;
+  }
+}
+
+// ----------------------------------------------------------------------
+// forward: out [B, Hq, Lq, D] = softmax(q.k^T * scale + bias [, causal]).v
+// and the row lse [B, Hq, Lq], fp32
+//
+// One block per (b, h, 64-query tile); warp w owns query rows 16w..16w+15,
+// and each thread keeps the softmax statistics m and l of its two rows in
+// registers. The kv tiles and their bias are double-buffered. Per kv tile:
+// s = q.k^T (k's rows are B's columns), x = s * scale + bias, the online
+// softmax on the CUDA cores (row max and row sum over the quad), then
+// acc = acc * alpha + p.v with p straight from the registers (v's rows are
+// the contraction): the tile's p.v in a fresh fragment, added in fp32.
+
+// At D = 64 the warp's q rows stay in registers for the whole key loop,
+// split once as they are loaded (64 registers a thread), and every B
+// fragment of k and v is split as it loads (four tiles of shared memory, q
+// loaded through the second k buffer); two blocks an SM. At D = 128 q is
+// read from shared memory and every fragment is split as it loads, one
+// block an SM. The alternatives measured against these (PERF.md): q raw
+// and split at each use (no different), and k and v split once into small
+// planes as they land (as fast at the ring block, slower at BERT's shape).
+
+// the forward's shared memory in tiles of [TILE][D + PAD] (plus the bias)
+template <int D> constexpr int fwd_tiles() { return D == 64 ? 4 : 5; }
+
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
+fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ bias,
+                  float* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Lq,
+                  int Lk, int nq, int causal, float scale) {
+  constexpr int S = D + PAD;
+  constexpr int KS = D / 8;     // k8 steps of s over the head dim
+  constexpr int ON = D / 8;     // n8 blocks of a row of out
+  constexpr int SN = TILE / 8;  // n8 blocks of a row of s, k8 steps of p.v
+  constexpr bool QREG = D == 64;  // q in registers for the key loop, split once
+  constexpr int QP = QREG ? KS : 1;
+  extern __shared__ __align__(16) float smem[];
+  // D = 64: [K0 K1 | V0 V1 | bias], q lands in K1; D = 128: [Q | K0 K1 | V0 V1 | bias]
+  float* Ks = smem + (QREG ? 0 : 1) * TILE * S;  // [2][TILE][S]
+  float* Vs = Ks + 2 * TILE * S;                 // [2][TILE][S]
+  float* Bs = Vs + 2 * TILE * S;                 // [2][TILE] bias of the kv tile
+  float* Qs = QREG ? Ks + TILE * S : smem;       // [TILE][S]
+
+  const int tile = blockIdx.x % nq;
+  const int bh = blockIdx.x / nq;
+  const int h = bh % Hq, b = bh / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = tile * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const float* kb = k + (size_t)(b * Hkv + hk) * Lk * D;
+  const float* vb = v + (size_t)(b * Hkv + hk) * Lk * D;
+  const float* bb = bias + (size_t)b * Lk;
+
+  // causal: kv tiles wholly in the future of every query of this tile add nothing
+  const int k_end = causal ? min(Lk, q0 + TILE) : Lk;
+  const int n_kv = (k_end + TILE - 1) / TILE;
+
+  copy_tile<D>(Qs, q + (size_t)bh * Lq * D, q0, Lq);
+  copy_tile<D>(Ks, kb, 0, Lk);
+  copy_tile<D>(Vs, vb, 0, Lk);
+  copy_vec(Bs, bb, 0, Lk);
+  cp_async_commit();
+
+  uint32_t qbig[QP][4], qsmall[QP][4];  // the warp's q rows, split (QREG)
+  if constexpr (QREG) {  // q into registers before its tile's memory is reused
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      float a[4];
+      load_a<D>(a, Qs, r0, kk * 8);
+      split_a(a, qbig[kk], qsmall[kk]);
+    }
+    __syncthreads();
+  }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_kv) {  // the next kv tile loads while this one computes
+      const int k1 = (it + 1) * TILE;
+      copy_tile<D>(Ks + (buf ^ 1) * TILE * S, kb, k1, Lk);
+      copy_tile<D>(Vs + (buf ^ 1) * TILE * S, vb, k1, Lk);
+      copy_vec(Bs + (buf ^ 1) * TILE, bb, k1, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + buf * TILE * S;
+    const float* Vt = Vs + buf * TILE * S;
+    const float* bt = Bs + buf * TILE;
+    const int k0 = it * TILE;
+
+    // s = q.k^T: the warp's 16 rows x 64 keys
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ab[e] = qbig[kk][e], as[e] = qsmall[kk][e];
+      } else {
+        float a[4];
+        load_a<D>(a, Qs, r0, kk * 8);
+        split_a(a, ab, as);
+      }
+#pragma unroll
+      for (int nn = 0; nn < SN; ++nn) {
+        uint32_t fb[2], fs[2];
+        load_b<D, false>(fb, fs, Kt, nullptr, nn * 8, kk * 8);
+        mma_3xtf32(s[nn], ab, as, fb, fs);
+      }
+    }
+
+    // the online softmax; element e of block j is row qrow[e / 2], key
+    // k0 + 8j + 2t + e % 2. Keys past Lk (zero-filled) are left out of the
+    // max and get p = 0, causally masked ones the finite NEG_INF; only edge
+    // tiles (ragged, or on the causal diagonal of the warp's rows) test each
+    // key. Rows past Lq are computed and never stored.
+    const bool edge = k0 + TILE > Lk || (causal && k0 + TILE - 1 > q0 + r0);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(bt + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = fmaf(s[j][e], scale, (e & 1) ? bj.y : bj.x);
+        if (edge) {
+          const int kj = k0 + j * 8 + 2 * t + (e & 1);
+          if (causal && qrow[e >> 1] < kj) x = NEG_INF;
+          if (kj < Lk) mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        } else {
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+        s[j][e] = x;
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = !edge || k0 + j * 8 + 2 * t + (e & 1) < Lk;
+        const float p = ok ? expf(s[j][e] - m[e >> 1]) : 0.f;
+        rs[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+
+    // acc = acc * alpha + p.v: the tile's 64 keys (eight k8 steps) in a
+    // fresh fragment for each n8 block of out, added in fp32
+    float pv[ON][4];
+#pragma unroll
+    for (int n = 0; n < ON; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      uint32_t pb[4], ps[4];
+      acc_to_a(pb, ps, s[j]);
+#pragma unroll
+      for (int nn = 0; nn < ON; ++nn) {
+        uint32_t fb[2], fs[2];
+        load_b_trans<D, false>(fb, fs, Vt, nullptr, j * 8, nn * 8);
+        mma_3xtf32(pv[nn], pb, ps, fb, fs);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < ON; ++nn) {
+      acc[nn][0] *= alpha[0];
+      acc[nn][1] *= alpha[0];
+      acc[nn][2] *= alpha[1];
+      acc[nn][3] *= alpha[1];
+      add_to(acc[nn], pv[nn]);
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+  // out = acc / max(l, 1e-30), lse = m + log(l): a fully masked row
+  // (every x the finite NEG_INF) averages uniformly. Each quad holds 32
+  // contiguous bytes of a row: whole sectors, no staging.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= Lq) continue;
+    const float ll = fmaxf(l[r], 1e-30f);
+    float* row = out + ((size_t)bh * Lq + qrow[r]) * D;
+#pragma unroll
+    for (int n = 0; n < ON; ++n)
+      *reinterpret_cast<float2*>(row + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * r] / ll, acc[n][2 * r + 1] / ll);
+    if (t == 0) lse[(size_t)bh * Lq + qrow[r]] = m[r] + logf(ll);
   }
 }
 
@@ -657,6 +886,20 @@ template <int D> constexpr size_t tile_bytes() { return (size_t)TILE * (D + PAD)
 }  // namespace
 
 extern "C" {
+
+// out [B,Hq,Lq,D] and lse [B,Hq,Lq] from fp32 inputs
+int flash_fwd_tf32x3(int d, const void* q, const void* k, const void* v, const void* bias,
+                     void* out, void* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+                     float scale, void* stream) {
+  return dispatch_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    const int nq = (Lq + TILE - 1) / TILE;
+    return launch(fwd_tf32x3_kernel<D>, B * Hq * nq,
+                  fwd_tiles<D>() * tile_bytes<D>() + 2 * TILE * sizeof(float), stream,
+                  (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+                  (float*)out, (float*)lse, Hq, Hkv, Lq, Lk, nq, causal, scale);
+  });
+}
 
 // dk, dv [B,Hq,Lk,D] and db [B,Hq,Lk] per query head, from fp32 inputs
 int flash_bwd_dkv_tf32x3(int d, const void* q, const void* k, const void* v, const void* bias,

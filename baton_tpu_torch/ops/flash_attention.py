@@ -2,23 +2,21 @@
 each beside a plain PyTorch version of the same function (counterpart of
 ``baton_tpu/ops/flash_attention.py``).
 
-Three designs, chosen by dtype and pass (``_design``), not as a fallback:
+Two designs, chosen by dtype (``_design``), not as a fallback:
 
 - ``mma`` (``csrc/flash_attention_mma.cu``): bf16 tiles in shared memory
   filled by ``cp.async``, products on the tensor cores (``mma.sync``).
   Every bf16 pass.
-- ``simt`` (``csrc/flash_attention.cu``): fp32 tiles and scalar FMAs on
-  the CUDA cores. The fp32 forward.
 - ``tf32x3`` (``csrc/flash_attention_tf32.cu``): fp32 tiles by
   ``cp.async``, every product on the TF32 tensor cores in three parts
-  (each operand split into two TF32 values; fp32 accuracy). The fp32
-  backward, both passes.
+  (each operand split into two TF32 values; fp32 accuracy). Every fp32
+  pass: the forward and both passes of the backward.
 
 =================  ==================================  ===========================
 wrapper            CUDA kernel (design)                TPU kernel it replaces
 =================  ==================================  ===========================
 ``_fwd``           ``fwd_mma_kernel`` (mma, bf16)      ``_fwd_kernel`` (:65-131)
-                   ``fwd_kernel`` (simt, fp32)
+                   ``fwd_tf32x3_kernel`` (tf32x3, fp32)
 ``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)      ``_bwd_dkv_kernel`` (:203-250)
                    ``dkv_tf32x3_kernel`` (tf32x3, fp32)
 ``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)       ``_bwd_dq_kernel`` (:253-290)
@@ -69,14 +67,14 @@ import torch
 NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("flash_attention.cu", "flash_attention_mma.cu", "flash_attention_tf32.cu")
+_SOURCES = ("flash_attention_mma.cu", "flash_attention_tf32.cu")
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
 # chip_smoke.py resets them before the path it counts
-launches_by_design = {"fwd_mma": 0, "fwd_simt": 0, "bwd_dkv_mma": 0, "bwd_dkv_tf32x3": 0,
+launches_by_design = {"fwd_mma": 0, "fwd_tf32x3": 0, "bwd_dkv_mma": 0, "bwd_dkv_tf32x3": 0,
                       "bwd_dq_mma": 0, "bwd_dq_tf32x3": 0}
 
 # the C entry points and their ctypes argument types: a pointer (tensors,
@@ -85,7 +83,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_fwd_mma": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_mma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
-    "flash_fwd_simt": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
+    "flash_fwd_tf32x3": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_tf32x3": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_bwd_dq_mma": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
     "flash_bwd_dq_tf32x3": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -169,18 +167,15 @@ def _on_cpu(*xs) -> bool:
 def _design(dtype: torch.dtype, d: int, pass_: str) -> str:
     """The kernel design for a dtype, head dim and pass (``"fwd"``,
     ``"bwd_dkv"``, ``"bwd_dq"``): ``"mma"`` (bf16 tensor cores) for every
-    bf16 pass; for fp32, ``"simt"`` (CUDA cores) for the forward and
-    ``"tf32x3"`` (TF32 tensor cores, three products) for the backward.
-    Raises for anything else."""
+    bf16 pass, ``"tf32x3"`` (TF32 tensor cores, three products) for every
+    fp32 pass. Raises for anything else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take fp32 or bf16, got {dtype}")
     if d not in (64, 128):
         raise ValueError(f"flash kernels take head dim 64 or 128, got {d}")
     if pass_ not in ("fwd", "bwd_dkv", "bwd_dq"):
         raise ValueError(f"no flash pass {pass_!r}")
-    if dtype == torch.bfloat16:
-        return "mma"
-    return "simt" if pass_ == "fwd" else "tf32x3"
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _kernel_args(q, k, v, pass_):

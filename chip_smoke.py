@@ -13,15 +13,16 @@ exits non-zero:
    partial tile at L=40, L=200), D 64 and 128, BERT-base's own shape and
    each model shard's shape on phase 23's hybrid meshes (tolerance fp32
    1e-4, bf16 2e-2); every bf16 call must go through
-   the tensor-core design (mma), every fp32 forward through the SIMT one
-   and every fp32 backward through the 3xTF32 tensor-core one (tf32x3); in
-   every bf16 case each element of the dkv and dq kernels' gaps from
+   the tensor-core design (mma), every fp32 call (the forward and both
+   passes of the backward) through the 3xTF32 tensor-core one (tf32x3);
+   in every bf16 case each element of the dkv and dq kernels' gaps from
    their plain versions must lie within what bf16 rounding flips of p and
    ds can give (``flip_check``); and one fp32 sample with every key
-   masked at L 4,096, where dk, dv and dbias sum 4,096 terms of order 1:
-   the dkv kernel and its plain version each held against float64 on the
-   same inputs within the worst-case fp32 error of those sums
-   (``masked_row_oracle_case``);
+   masked at L 4,096, where out, dk, dv and dbias sum 4,096 terms of
+   order 1: the forward and dkv kernels and their plain versions each
+   held against float64 on the same inputs within the worst-case fp32
+   error of those sums (``masked_row_oracle_case``,
+   ``masked_row_forward_oracle_case``);
 3. the main path at full width: BERT-base (bf16 compute) FedSim rounds,
    8 clients x 32 samples, L=128, one warm-up, ten timed rounds (mean and
    median: the host shares its cores, so single rounds vary), one
@@ -260,13 +261,13 @@ exits non-zero:
    against replicated (JAX's rtol 2e-4 / atol 1e-5).
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
-21's fp32 times at the ring block: the short first call after a kernel
-changes (build, ptxas report, comparison at real widths, times). It prints
-no result line.
+21's fp32 times at the ring block (the forward and the backward pair): the
+short first call after a kernel changes (build, ptxas report, comparison at
+real widths, times). It prints no result line.
 
 Before the last line comes the ``kernels`` line: one row a hand-written
 kernel, by its launch key (``fwd_mma``, ``bwd_dkv_mma``, ``bwd_dq_mma`` on
-the main path, phase 3's BERT-base round; ``fwd_simt``, ``bwd_dkv_tf32x3``,
+the main path, phase 3's BERT-base round; ``fwd_tf32x3``, ``bwd_dkv_tf32x3``,
 ``bwd_dq_tf32x3`` on example 06's ring x flash, phase 21a), each with its
 launches on its path, its error in phase 2, and its times and bounds at
 that path's shape. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -299,7 +300,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # its launch key ("<pass>_<design>", as counted in fa.launches_by_design);
 # the kernels line has one row a key, named after its C entry point
 # ("flash_" + key): bf16 (mma) on the main path, phase 3's BERT-base round,
-# fp32 (simt, tf32x3) on example 06's ring x flash, phase 21a
+# fp32 (tf32x3) on example 06's ring x flash, phase 21a
 CSRC = "baton_tpu_torch/ops/csrc/"
 TPU_KERNELS = {"fwd": "baton_tpu/ops/flash_attention.py:65",
                "bwd_dkv": "baton_tpu/ops/flash_attention.py:203",
@@ -308,7 +309,7 @@ KERNELS = {
     "fwd_mma": CSRC + "flash_attention_mma.cu",
     "bwd_dkv_mma": CSRC + "flash_attention_mma.cu",
     "bwd_dq_mma": CSRC + "flash_attention_mma.cu",
-    "fwd_simt": CSRC + "flash_attention.cu",
+    "fwd_tf32x3": CSRC + "flash_attention_tf32.cu",
     "bwd_dkv_tf32x3": CSRC + "flash_attention_tf32.cu",
     "bwd_dq_tf32x3": CSRC + "flash_attention_tf32.cu",
 }
@@ -358,7 +359,8 @@ def design_keys(fa, dtype, d=64) -> dict:
 
 
 def design_names(fa, dtype) -> str:
-    """The designs of the three passes, as printed: "mma" or "simt/tf32x3/tf32x3"."""
+    """The designs of the three passes, as printed: "mma" or "tf32x3" (or
+    "a/b/c" were they to differ)."""
     designs = [key[len(p) + 1:] for p, key in design_keys(fa, dtype).items()]
     return designs[0] if len(set(designs)) == 1 else "/".join(designs)
 
@@ -448,6 +450,11 @@ def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind, device="cuda"):
     return [t.to(device, dtype) for t in (q, k, v, dout)] + [bias.to(device)]
 
 
+def launched_since(fa, before):
+    """The launches by design since the snapshot ``before``, nonzero ones only."""
+    return {key: n - before[key] for key, n in fa.launches_by_design.items() if n != before[key]}
+
+
 def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     """Each kernel against its plain version on the same inputs; returns
     {kernel: max abs error}. The backward kernels get the plain forward's
@@ -467,7 +474,7 @@ def compare_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
                          (fa._bwd_dq_plain(q, k, v, bias, dout, lse_p, delta, causal, scale),)),
     }
     torch.cuda.synchronize()
-    ran = {k: n - before[k] for k, n in fa.launches_by_design.items() if n != before[k]}
+    ran = launched_since(fa, before)
     check(ran == dict.fromkeys(design_keys(fa, dtype).values(), 1),
           f"{name}: launches by design {ran}")
     errs = {}
@@ -502,6 +509,29 @@ def gamma(n: int) -> float:
     return n * U32 / (1 - n * U32)
 
 
+def hold_against_float64(name, label, shape, whats, kernel, plain, oracle, bounds):
+    """Each output of a kernel and of its plain version against its float64
+    oracle, element by element, within ``bounds``: prints each gap and its
+    share of the bound, fails past it, and returns them by output."""
+    out = {}
+    for what, got_k, got_p, want, bound in zip(whats, kernel, plain, oracle, bounds):
+        gap_k, gap_p = ((g.double() - want).abs() for g in (got_k, got_p))
+        share_k, share_p = ((g / bound.clamp_min(1e-300)).max().item() for g in (gap_k, gap_p))
+        out[what] = {"kernel_gap": gap_k.max().item(), "plain_gap": gap_p.max().item(),
+                     "kernel_share_of_bound": share_k, "plain_share_of_bound": share_p,
+                     "kernel_plain_gap": (got_k - got_p).abs().max().item(),
+                     "max_abs": want.abs().max().item()}
+        check(share_k <= 1.0 and share_p <= 1.0,
+              f"{name} {label}{what}: kernel {share_k:.3g}, plain {share_p:.3g} of the fp32 "
+              "summation bound from float64")
+    print(f"  {name:24s} {shape} float32 every key masked, {label}tf32x3, against float64: "
+          + "; ".join(
+              f"{w} kernel {o['kernel_gap']:.2e} ({o['kernel_share_of_bound']:.2e} of bound), "
+              f"plain {o['plain_gap']:.2e} ({o['plain_share_of_bound']:.2e}), kernel-plain "
+              f"{o['kernel_plain_gap']:.2e}, |max| {o['max_abs']:.2e}" for w, o in out.items()))
+    return out
+
+
 def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias_kind):
     """The fp32 dkv kernel on a sample whose every key is masked, held
     against float64. There lse = -1e30 swallows the scores, so p = 1 at
@@ -523,7 +553,7 @@ def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias
     before = dict(fa.launches_by_design)
     kernel = fa._bwd_dkv(*args)
     torch.cuda.synchronize()
-    ran = {key: n - before[key] for key, n in fa.launches_by_design.items() if n != before[key]}
+    ran = launched_since(fa, before)
     check(ran == {"bwd_dkv_tf32x3": 1}, f"{name}: launches by design {ran}")
     plain = fa._bwd_dkv_plain(*args)
     q64, k64, v64, do64 = (t.double() for t in (q, fa._expand_kv(k, hq), fa._expand_kv(v, hq),
@@ -546,24 +576,61 @@ def masked_row_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal, bias
               gamma(l) * torch.einsum("bhqk,bhqd->bhkd", p, do64.abs()),
               gamma(l) * ds.abs().sum(2) + err_ds.sum(2))
     del p, ds, err_ds
-    out = {}
-    for what, got_k, got_p, want, bound in zip(("dk", "dv", "db"), kernel, plain, oracle,
-                                               bounds):
-        gap_k, gap_p = ((g.double() - want).abs() for g in (got_k, got_p))
-        share_k, share_p = ((g / bound.clamp_min(1e-300)).max().item() for g in (gap_k, gap_p))
-        out[what] = {"kernel_gap": gap_k.max().item(), "plain_gap": gap_p.max().item(),
-                     "kernel_share_of_bound": share_k, "plain_share_of_bound": share_p,
-                     "kernel_plain_gap": (got_k - got_p).abs().max().item(),
-                     "max_abs": want.abs().max().item()}
-        check(share_k <= 1.0 and share_p <= 1.0,
-              f"{name} {what}: kernel {share_k:.3g}, plain {share_p:.3g} of the fp32 "
-              "summation bound from float64")
-    print(f"  {name:24s} B={b} Hq={hq} Hkv={hkv} L={l} D={d} float32 every key masked, tf32x3, "
-          "against float64: " + "; ".join(
-              f"{w} kernel {o['kernel_gap']:.2e} ({o['kernel_share_of_bound']:.2e} of bound), "
-              f"plain {o['plain_gap']:.2e} ({o['plain_share_of_bound']:.2e}), kernel-plain "
-              f"{o['kernel_plain_gap']:.2e}, |max| {o['max_abs']:.2e}" for w, o in out.items()))
-    return out
+    return hold_against_float64(name, "", f"B={b} Hq={hq} Hkv={hkv} L={l} D={d}",
+                                ("dk", "dv", "db"), kernel, plain, oracle, bounds)
+
+
+def masked_row_forward_oracle_case(fa, seed, name, b, hq, hkv, l, d, dtype, causal,
+                                   bias_kind):
+    """The fp32 forward kernel on a sample whose every key is masked, held
+    against float64: the forward's long sums. Every score is the bias's
+    -1e30 (q.k^T * scale is swallowed), so the row max is -1e30 and p = 1 at
+    every key in both fp32 and float64: out is the mean of ``l`` rows of v
+    and l the sum of ``l`` ones, each a sum of ``l`` terms that the kernel
+    takes a kv tile at a time in fresh fragments and adds in fp32, and the
+    plain version in one einsum. The bound is the worst case of any order of
+    fp32 sums, so it does not tell a truncating tensor-core chain over the
+    keys from a rounding one; the check that caught such a chain in the
+    backward is phase 21a's step-0 check, one flash call over 32,768 tokens
+    against the ring within 1e-4. Both are held against float64 on the same
+    inputs, element by element: out within ``gamma(l)`` of the sum of
+    magnitudes of p.v and of its p.v (the error of the sums and, through l,
+    of the division) plus the division's rounding; lse = m + log l within
+    the score's error (``gamma(d)`` of its dot product, the rounding of the
+    score), the log's change under l's ``gamma(l)`` and the roundings of
+    the log and the add. Returns the gaps of both from float64 and their
+    share of the bound."""
+    check(dtype == torch.float32 and not causal and bias_kind == "masked_rows" and b == 1,
+          f"{name}: the oracle case is one fp32 sample with every key masked")
+    q, k, v, _, bias = attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind)
+    scale = d ** -0.5
+    before = dict(fa.launches_by_design)
+    kernel = fa._fwd(q, k, v, bias, causal, scale)
+    torch.cuda.synchronize()
+    ran = launched_since(fa, before)
+    check(ran == {"fwd_tf32x3": 1}, f"{name}: launches by design {ran}")
+    plain = fa._fwd_plain(q, k, v, bias, causal, scale)
+    q64, k64, v64 = (t.double() for t in (q, fa._expand_kv(k, hq), fa._expand_kv(v, hq)))
+    x = torch.einsum("bhqd,bhkd->bhqk", q64, k64) * scale + bias.double()[:, None, None, :]
+    # the score's error: its D-term dot product, then the rounding of fmaf
+    err_x = (gamma(d) * scale * torch.einsum("bhqd,bhkd->bhqk", q64.abs(), k64.abs())
+             + U32 * x.abs()).amax(-1)
+    m = x.amax(-1, keepdim=True)
+    p = torch.exp(x - m)
+    check(bool((p == 1).all()), f"{name}: p is not 1 at every masked key")
+    del x
+    total = p.sum(-1)
+    pv = torch.einsum("bhqk,bhkd->bhqd", p, v64)
+    out64 = pv / total[..., None]
+    lse64 = m.squeeze(-1) + torch.log(total)
+    g = gamma(l)
+    # first order in g, with 2g of room for the second-order terms
+    bounds = ((g * (torch.einsum("bhqk,bhkd->bhqd", p, v64.abs()) + pv.abs())
+               / total[..., None] + U32 * out64.abs()) * (1 + 2 * g),
+              err_x + g * (1 + g) + 2 * U32 * torch.log(total).abs() + U32 * lse64.abs())
+    del p
+    return hold_against_float64(name, "forward ", f"B={b} Hq={hq} Hkv={hkv} L={l} D={d}",
+                                ("out", "lse"), kernel, plain, (out64, lse64), bounds)
 
 
 # phase 2's long masked-row case (ROADMAP Queue 3): one fp32 sample with
@@ -604,6 +671,7 @@ def kernel_phase(fa):
     print("phase 2: kernels against their plain versions")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
     masked_row_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
+    masked_row_forward_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
     # phase 23's per-model-shard shapes: 23a's Llama-3-8B (16/4 heads a
     # shard of 2), 23b's BERT-base (6/6 heads, a clients shard's 4 clients
     # x 32), 23c's tiny Llama round (2/1 heads a shard) and its model-4
@@ -2654,9 +2722,11 @@ def check_step_launches(name, by_pass, by_design, n_layers, steps, fwd_extra=0) 
 
 
 def profiled(fn, label):
-    """``fn()`` once under torch.profiler: (result, ``device_breakdown``)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    """``fn()`` once under torch.profiler, tracing the device's kernels only
+    (as 16a and 23a do): (result, ``device_breakdown``). The host's op
+    events are not recorded: ``device_breakdown`` reads none of them, and
+    reducing them took tens of seconds of phase 19 alone."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out, dt = timed(fn)
     print(f"  {label} under the profiler:")
     return out, device_breakdown(prof, dt)
@@ -3404,6 +3474,8 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
             fp32_bounds = {"bound_ms_fp32_cores": max(t_bytes, flops / FP32_PEAK * 1e3),
                            "bound_ms_3xtf32": max(t_bytes, 3 * flops / TF32_PEAK * 1e3)}
             t_ops = min(flops / FP32_PEAK, 3 * flops / TF32_PEAK) * 1e3
+            fp32_bounds.update({f"bound_share_{k[len('bound_ms_'):]}": v / ms
+                                for k, v in list(fp32_bounds.items())})
         out_rows[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                            "bound_ms": max(t_bytes, t_ops),
                            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3413,7 +3485,8 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
               f"{max(t_bytes, t_ops):.4f} ms by {out_rows[kname]['bound_by']} "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
               f"{100 * max(t_bytes, t_ops) / ms:.1f}% of the bound"
-              + "".join(f"; {k} {v:.4f} ({100 * v / ms:.1f}%)" for k, v in fp32_bounds.items())
+              + "".join(f"; {k} {v:.4f} ({100 * v / ms:.1f}%)" for k, v in fp32_bounds.items()
+                        if k.startswith("bound_ms"))
               + ")")
     return out_rows
 
@@ -4868,7 +4941,7 @@ def hybrid_parity_phase():
     from baton_tpu_torch.parallel.mesh import Mesh
     from baton_tpu_torch.parallel.tensor_parallel import gather_params, shard_params_tp
 
-    # head dim 64, the kernels' (fp32: the simt and tf32x3 designs); 4/2 heads split
+    # head dim 64, the kernels' (fp32: the tf32x3 design); 4/2 heads split
     # 2/1 a shard on 2 model shards
     tiny = LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256)
     clients, shards = HYBRID_CPU_GRID

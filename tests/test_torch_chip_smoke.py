@@ -321,7 +321,7 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "library_call": ("scaled_dot_product_attention forward" if counter == "fwd"
                          else "scaled_dot_product_attention backward (dq, dk, dv)"),
         "shape": "the ring block: B 1, 8/4 heads, L 4,096, D 64, not causal, fp32"}
-        for counter, design, source in (("fwd", "simt", "flash_attention.cu"),
+        for counter, design, source in (("fwd", "tf32x3", "flash_attention_tf32.cu"),
                                         ("bwd_dkv", "tf32x3", "flash_attention_tf32.cu"),
                                         ("bwd_dq", "tf32x3", "flash_attention_tf32.cu"))]
     assert json.loads(lines[-2]) == {"kernels": [{
@@ -347,7 +347,7 @@ def test_kernels_line_has_a_row_per_launch_key():
     assert all((root / src).is_file() for src in chip_smoke.KERNELS.values())
     for dtype in (torch.float32, torch.bfloat16):
         assert set(chip_smoke.design_keys(fa, dtype).values()) <= set(chip_smoke.KERNELS)
-    assert chip_smoke.design_names(fa, torch.float32) == "simt/tf32x3/tf32x3"
+    assert chip_smoke.design_names(fa, torch.float32) == "tf32x3"
     assert chip_smoke.design_names(fa, torch.bfloat16) == "mma"
 
 
@@ -985,6 +985,38 @@ def test_masked_row_case_against_float64(monkeypatch, fault):
     else:
         with pytest.raises(RuntimeError, match="db: kernel"):
             chip_smoke.masked_row_oracle_case(fa, 0, *case)
+
+
+@pytest.mark.parametrize("fault", [None, "out"])
+def test_masked_row_forward_case_against_float64(monkeypatch, fault):
+    """Phase 2's forward long-sum oracle on the same sample at L 512 on the
+    CPU (the forward wrapper takes its plain version, its launch counted by
+    a stub): out and lse within the fp32 summation bound of float64; an out
+    off by 1e-3 at one element (|out| ~0.1, the bound there ~3e-5) is
+    not."""
+    import functools
+
+    monkeypatch.setattr(chip_smoke, "attention_inputs",
+                        functools.partial(chip_smoke.attention_inputs, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def counted(*args):
+        fa.launches_by_design["fwd_tf32x3"] += 1
+        out, lse = fa._fwd_plain(*args)
+        if fault == "out":
+            out = out.clone()
+            out[0, 1, 7, 3] += 1e-3
+        return out, lse
+
+    monkeypatch.setattr(fa, "_fwd", counted)
+    case = ("masked_long", 1, 4, 2, 512, 64, torch.float32, False, "masked_rows")
+    if fault is None:
+        got = chip_smoke.masked_row_forward_oracle_case(fa, 0, *case)
+        assert set(got) == {"out", "lse"}
+        assert all(o["kernel_share_of_bound"] <= 1.0 for o in got.values())
+    else:
+        with pytest.raises(RuntimeError, match="forward out: kernel"):
+            chip_smoke.masked_row_forward_oracle_case(fa, 0, *case)
 
 
 def test_gamma_is_the_worst_case_fp32_sum_error():

@@ -1,9 +1,8 @@
 """The flash kernels' bindings and dispatch, without a GPU or ``nvcc``:
 every ctypes signature against the ``extern "C"`` entry points of the CUDA
 sources, and the Python side's choice of design (tensor-core ``mma`` for
-every bf16 pass; for fp32, ``simt`` for the forward and the 3xTF32
-tensor-core ``tf32x3`` for the backward) and of entry point for each
-pass."""
+every bf16 pass, the 3xTF32 tensor-core ``tf32x3`` for every fp32 pass) and
+of entry point for each pass."""
 
 import ctypes
 import re
@@ -84,9 +83,9 @@ def test_load_library_binds_every_signature(monkeypatch, tmp_path):
     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64), (torch.float32, 128),
 ])
 def test_design_by_dtype_and_head_dim(dtype, d, pass_):
-    """bf16 takes the mma design in every pass; fp32 the SIMT forward and
-    the 3xTF32 backward."""
-    want = ("mma" if dtype == torch.bfloat16 else "simt" if pass_ == "fwd" else "tf32x3")
+    """bf16 takes the mma design in every pass, fp32 the 3xTF32 one in
+    every pass (the forward included: no SIMT design is left)."""
+    want = "mma" if dtype == torch.bfloat16 else "tf32x3"
     assert fa._design(dtype, d, pass_) == want
 
 
@@ -107,7 +106,7 @@ def test_an_unknown_pass_is_refused():
 
 
 @pytest.mark.parametrize("dtype,designs", [(torch.bfloat16, ("mma", "mma", "mma")),
-                                           (torch.float32, ("simt", "tf32x3", "tf32x3"))])
+                                           (torch.float32, ("tf32x3", "tf32x3", "tf32x3"))])
 def test_wrappers_launch_the_entry_point_of_their_design(monkeypatch, dtype, designs):
     """With the kernel path forced for CPU tensors and the launch recorded,
     each pass calls its design's entry point with as many arguments as its

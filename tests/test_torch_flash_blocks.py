@@ -141,4 +141,4 @@ def test_a_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     monkeypatch.setattr(fa, "_launch", launch)
     with pytest.raises(RuntimeError, match="no card"):
         fa.flash_block_fwd(q, k, v, torch.zeros(1, 16), False)
-    assert launched == ["flash_fwd_simt"]
+    assert launched == ["flash_fwd_tf32x3"]

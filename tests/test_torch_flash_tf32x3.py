@@ -1,8 +1,8 @@
-"""The arithmetic of the fp32 backward kernels' 3xTF32 design
+"""The arithmetic of the fp32 kernels' 3xTF32 design
 (``baton_tpu_torch/ops/csrc/flash_attention_tf32.cu``), emulated on the
-CPU, against the JAX package's backward (``_bwd_call`` in Pallas interpret
-mode, block 8), as ``tests/test_torch_flash_attention.py`` holds the plain
-versions.
+CPU, against the JAX package's forward (``_fwd``) and backward
+(``_bwd_call``) in Pallas interpret mode, block 8, as
+``tests/test_torch_flash_attention.py`` holds the plain versions.
 
 The kernels split each fp32 operand x of a product into big = rna(x) and
 small = rna(x - big), both TF32 values rounded as ``cvt.rna.tf32.f32``
@@ -11,10 +11,16 @@ take a.b as as.bb + ab.bs + ab.bb in fp32 accumulators. The emulation
 computes each product as those three fp32 matmuls of the TF32 parts (each
 product of two TF32 values is exact in fp32) and recomputes p and ds from
 the forward's lse as the kernels do: dv = p^T.do, dk = ds^T.q·scale,
-dq = ds.k·scale, dbias the sum of the unrounded ds. It must lie within the
-port's fp32 gradient tolerance (1e-4) of JAX at D 64 and 128, with GQA,
-causal masks, a ragged L, fully masked rows and a padding bias; one TF32
-product alone (1xTF32) must not, which is why the kernels split."""
+dq = ds.k·scale, dbias the sum of the unrounded ds. The forward's
+emulation takes the kv tiles as the kernel does: s by the three products,
+the score fmaf(s, scale, bias), the online softmax over each tile in fp32
+(row max, alpha = exp(m - m_new), l = l·alpha + the sum of the unrounded
+p), each tile's p.v by the three products added in fp32 to the
+alpha-scaled accumulator, then out = acc / max(l, 1e-30) and
+lse = m + log(l). Both must lie within the port's fp32 tolerance (1e-4)
+of JAX at D 64 and 128, with GQA, causal masks, a ragged L, fully masked
+rows and a padding bias; one TF32 product alone (1xTF32) must not, which
+is why the kernels split."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +92,35 @@ def bwd_emulated(mm, q, k, v, bias2d, out, dout, lse, causal, scale):
     return dq, fold(dk_h), fold(dv_h), ds.sum(2).sum(1)
 
 
+def fwd_emulated(mm, q, k, v, bias2d, causal, scale, tile=64):
+    """(out, lse) as the forward kernel computes them, a kv tile of
+    ``tile`` keys at a time (the kernel's is 64; keys past L count for
+    nothing, so the last tile is cut to L here), every product through
+    ``mm``."""
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    k_h, v_h = fa._expand_kv(k, hq), fa._expand_kv(v, hq)
+    m = torch.full((b, hq, lq, 1), fa.NEG_INF)
+    l = torch.zeros(b, hq, lq, 1)
+    acc = torch.zeros(b, hq, lq, d)
+    for k0 in range(0, lk, tile):
+        kt, vt = k_h[:, :, k0:k0 + tile], v_h[:, :, k0:k0 + tile]
+        # fmaf(s, scale, bias): s·scale is exact in float64, one rounding to fp32
+        x = (mm(q, kt.transpose(-1, -2)).double() * scale
+             + bias2d[:, None, None, k0:k0 + tile].double()).float()
+        if causal:
+            keep = torch.arange(lq)[:, None] >= torch.arange(k0, k0 + kt.shape[2])[None, :]
+            x = torch.where(keep, x, torch.full_like(x, fa.NEG_INF))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, vt)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return acc / l, (m + torch.log(l)).squeeze(-1)
+
+
 def _inputs(seed, b, hq, hkv, l, d, bias_kind):
     rng = np.random.default_rng(seed)
     q, dout = (rng.standard_normal((b, hq, l, d)).astype(np.float32) for _ in range(2))
@@ -114,6 +149,29 @@ def _jax_backward(q, k, v, dout, bias2d, causal, scale):
     return np.asarray(out)[:, :, :l], np.asarray(lse)[:, :, :l], cut
 
 
+def _jax_forward(q, k, v, bias2d, causal, scale):
+    """JAX's forward on the inputs padded to whole blocks, as
+    ``_jax_backward``'s: out and lse as numpy arrays cut back to L."""
+    l = q.shape[2]
+    pad = -l % BLOCK
+    rows = lambda a: np.pad(a, ((0, 0), (0, 0), (0, pad), (0, 0)))  # noqa: E731
+    jq, jk, jv = (jnp.asarray(rows(a)) for a in (q, k, v))
+    jb = jnp.asarray(np.pad(bias2d, ((0, 0), (0, pad)), constant_values=-1e30))
+    out, lse = jax_fwd(jq, jk, jv, jb, causal, scale, BLOCK, BLOCK, True)
+    return np.asarray(out)[:, :, :l], np.asarray(lse)[:, :, :l]
+
+
+def _forward_case(name, mm, tiles=(64,), seed=0):
+    """JAX's (out, lse) and the emulated forward's for each kv tile size."""
+    b, hq, hkv, l, d, causal, bias_kind = CASES[name]
+    q, k, v, _, bias2d = _inputs(seed, b, hq, hkv, l, d, bias_kind)
+    scale = d ** -0.5
+    want = _jax_forward(q, k, v, bias2d, causal, scale)
+    t = [torch.from_numpy(a) for a in (q, k, v, bias2d)]
+    return {tile: [g.numpy() for g in fwd_emulated(mm, *t, causal, scale, tile)]
+            for tile in tiles}, want
+
+
 def _case(name, mm, seed=0):
     b, hq, hkv, l, d, causal, bias_kind = CASES[name]
     q, k, v, dout, bias2d = _inputs(seed, b, hq, hkv, l, d, bias_kind)
@@ -139,6 +197,35 @@ def test_1xtf32_backward_misses_the_fp32_tolerance():
     got, want = _case("d128_causal", mm_1xtf32)
     worst = max(np.max(np.abs(g - w) / (GRAD_TOL + GRAD_TOL * np.abs(w)))
                 for g, w in zip(got, want))
+    assert worst > 1.0, worst
+
+
+# the forward's negative control: every case misses 1e-4 in 1xTF32 (by 3.5x
+# to 7.5x on the CPU at seed 0) and meets it in 3xTF32 (at 1% of it or
+# less); this one misses it most
+FORWARD_CONTROL = "d128_causal"
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_3xtf32_forward_matches_jax(name):
+    """The kernel's tiles of 64 keys (one tile at these L), and tiles of 8
+    keys, which take every case through the alpha rescaling of the online
+    softmax across tiles."""
+    got, want = _forward_case(name, mm_3xtf32, tiles=(64, 8))
+    for tile, pair in got.items():
+        for what, g, w in zip(("out", "lse"), pair, want):
+            assert np.isfinite(g).all(), (tile, what)
+            np.testing.assert_allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                       err_msg=f"{what}, tiles of {tile} keys")
+
+
+def test_1xtf32_forward_misses_the_fp32_tolerance():
+    """The negative control of the forward: one TF32 product per fp32
+    product, seed 0, the FORWARD_CONTROL case, is beyond 1e-4 of JAX in out
+    or lse (the 3xTF32 version of the same case is within it)."""
+    got, want = _forward_case(FORWARD_CONTROL, mm_1xtf32)
+    worst = max(np.max(np.abs(g - w) / (GRAD_TOL + GRAD_TOL * np.abs(w)))
+                for g, w in zip(got[64], want))
     assert worst > 1.0, worst
 
 
