@@ -175,6 +175,7 @@ def build_record(
     n_epochs: int = 1,
     steps: Optional[int] = None,
     device_kind: str = "unknown",
+    n_chips: int = 1,
     model_family: Optional[str] = None,
     model_family_reason: Optional[str] = None,
     compile_fields: Optional[dict] = None,
@@ -183,13 +184,17 @@ def build_record(
     peak_hbm_reason: Optional[str] = None,
 ) -> dict:
     """One round's compute record, with throughput and MFU derived and
-    the null-with-reason invariant kept by construction. The port runs a
-    round on one device, so per chip is per round."""
+    the null-with-reason invariant kept by construction. ``n_samples`` is
+    the whole round's, trained over ``n_chips`` chips (the distinct
+    (process, device) pairs of a mesh; 1 off a mesh and on a mesh whose
+    shards all lie on one card), so the per-chip rate is the round's rate
+    over ``n_chips``."""
     train_s = float(train_s)
+    n_chips = max(1, int(n_chips))
     rec: dict = {
         "train_s": round(train_s, 6),
         "steps": int(steps) if steps is not None else int(max(1, n_epochs)),
-        "n_chips": 1,
+        "n_chips": n_chips,
         "device_kind": device_kind,
     }
     rec["model_family"] = model_family
@@ -198,7 +203,7 @@ def build_record(
     if train_s > 0 and n_samples > 0:
         sps = float(n_samples) * max(1, int(n_epochs)) / train_s
         rec["samples_per_sec"] = round(sps, 3)
-        rec["samples_per_sec_per_chip"] = round(sps, 3)
+        rec["samples_per_sec_per_chip"] = round(sps / n_chips, 3)
     else:
         why = "zero training wall time" if n_samples > 0 else "no samples"
         rec["samples_per_sec"] = None
@@ -255,7 +260,7 @@ class ComputeProbe:
 
     def record_round(self, *, key: Any, signature: Any, train_s: float, n_samples: float,
                      device: torch.device, n_epochs: int = 1,
-                     steps: Optional[int] = None) -> dict:
+                     steps: Optional[int] = None, n_chips: int = 1) -> dict:
         gb, source, reason = peak_memory_gb(device)
         return build_record(
             train_s=train_s,
@@ -263,6 +268,7 @@ class ComputeProbe:
             n_epochs=n_epochs,
             steps=steps,
             device_kind=device_kind_of(device),
+            n_chips=n_chips,
             model_family=self.model_family,
             model_family_reason=self.model_family_reason,
             compile_fields=self.tracker.observe(key, signature, wall_s=train_s),

@@ -611,6 +611,15 @@ class FedSim:
             server_opt_state = self.server_optimizer.init(trainable)
         return server_update(self.server_optimizer, trainable, aggregate, server_opt_state)
 
+    @property
+    def _n_chips(self) -> int:
+        """The chips a round runs on: the distinct (process, device) pairs
+        of the mesh, so shards that repeat one card count it once."""
+        if self.mesh is None:
+            return 1
+        return len({(int(p), str(d)) for p, d in
+                    zip(self.mesh.process_ids.flat, self.mesh.devices.flat)})
+
     def _record_compute(self, train_s, data, n_samples, capacity, wave_size, n_epochs, robust):
         """Set ``last_compute`` to the round's compute record. A probe
         failure is logged and leaves it None: it never fails the round."""
@@ -621,7 +630,8 @@ class FedSim:
             self.last_compute = self.compute_probe.record_round(
                 key="run_round", signature=sig, train_s=train_s,
                 n_samples=float(n_samples.sum()), device=self.device, n_epochs=n_epochs,
-                steps=c * n_epochs * -(-capacity // self.trainer.batch_size))
+                steps=c * n_epochs * -(-capacity // self.trainer.batch_size),
+                n_chips=self._n_chips)
         except Exception:
             log.exception("compute probe failed; last_compute is None for this round")
             self.last_compute = None

@@ -259,6 +259,34 @@ exits non-zero:
    1e-5 / atol 1e-6), and a tiny Llama's loss and gradients with its
    base on a ``model``-4 axis, the kv heads' shard edges inside a head,
    against replicated (JAX's rtol 2e-4 / atol 1e-5).
+24. the operations planes, right after phase 11 and with its helpers:
+   (a) phase 11's federation (ResNet-18, bf16 compute, 8 workers x 48
+   samples, batch 32, lr 0.05, all on the card in this process) behind 2
+   ``EdgeAggregator``s of 4 workers each under one root ``Manager``: a
+   warm-up and 2 timed rounds. In each round the root's new params lie
+   within the two-level fp32 fold's worst case of the float64 fold of
+   the uploads the workers sent (``hold_edge_fold``: γ(n) of Σ w|x| / Σ w,
+   n the roundings an upload meets: the edge's product, 4 additions and
+   division, the root's product, 2 additions, its fold shards' merge and
+   division); the root served the round blob once an edge and the edges
+   once a worker; the root received one ``edge_partial`` an edge and no
+   direct update, the partials crediting every worker once; each edge
+   shipped one partial; every worker's compute record names the card.
+   One round's trace holds spans of the manager, the edges and the
+   workers. s/round against phase 11's flat round, the edges' fold and
+   blob-fetch seconds and the round's split are printed. (b) While it is
+   up, ``python -m baton_tpu_torch.ops --once --json`` against the root
+   and both edges (a subprocess under a time limit) exits 0: every node
+   answered, no ``page`` alert fires, and the compute pane carries the
+   card's numbers (peak memory from ``torch.cuda``). (c) The reference's
+   ``edge_cohort`` scenario (8 workers of a linear model behind 2 edges;
+   steady, edge_loss with edge 1 killed, recovery: 8 / 8 / 6 s; without
+   its baseline, the JAX package's numbers) through the port's loadgen
+   with ``device="cuda"``: every one of its 11 SLO assertions passes
+   through the port's ``evaluate_slo``, every round ends, the killed
+   edge's workers fall back to the root (``edge_route_fallbacks``), and
+   the params of the root and the workers live on the card. No flash
+   kernel launches in phase 24.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
 21's fp32 times at the ring block (the forward and the backward pair): the
@@ -1725,20 +1753,31 @@ HTTP_FOLD_TOL = 1e-6  # global params against the fold of the bodies the manager
 HTTP_REPLAY_TOL = 1e-4  # the fp32 HTTP round against its in-process replay (as phases 4, 7, 10)
 REPLAY_MOVE_SHARE = 1e-2  # ... and the gap within this share of the round's largest param change
 ROUND_LIMIT_S = 120.0  # one HTTP round, from start_round until every worker is idle again
+EDGE_SETTLE_S = 0.05  # an edge (phase 24) ships this long after its last worker reported
+EDGE_SHIP_LIMIT_S = 30.0  # phase 24a waits this long at most for the edges' ship counts
+
+
+def upload_sums(bodies):
+    """Over BTW1 upload bodies in fp64, by tensor name: ``Σ w·x``,
+    ``Σ w·|x|`` and ``Σ w`` (``w`` each body's ``n_samples``)."""
+    from baton_tpu_torch.server import wire
+
+    sums, mags, total = {}, {}, 0.0
+    for body in bodies:
+        tensors, meta = wire.decode(body)
+        w = float(meta["n_samples"])
+        for k, v in tensors.items():
+            x = np.asarray(v, np.float64)
+            sums[k] = sums.get(k, 0.0) + x * w
+            mags[k] = mags.get(k, 0.0) + np.abs(x) * w
+        total += w
+    return sums, mags, total
 
 
 def fold_of_uploads(bodies):
     """The sample-weighted mean of BTW1 upload bodies, recomputed from the
     bodies in fp64: ``({name: fp32 array}, total weight)``."""
-    from baton_tpu_torch.server import wire
-
-    sums, total = {}, 0.0
-    for body in bodies:
-        tensors, meta = wire.decode(body)
-        w = float(meta["n_samples"])
-        for k, v in tensors.items():
-            sums[k] = sums.get(k, 0.0) + np.asarray(v, np.float64) * w
-        total += w
+    sums, _, total = upload_sums(bodies)
     return {k: (v / total).astype(np.float32) for k, v in sums.items()}, total
 
 
@@ -1774,6 +1813,45 @@ def round_split(spans):
             "merge": mean["aggregate"], "uploads": len(by["upload"])}
 
 
+EDGE_SPLIT_NEEDS = (("manager", "round_setup"), ("worker", "local_train"),
+                    ("worker", "encode_update"), ("worker", "upload"), ("edge", "edge_ingest"),
+                    ("edge", "ingest_decode"), ("edge", "ingest_fold"),
+                    ("edge", "edge_partial_upload"), ("manager", "ingest_decode"),
+                    ("manager", "ingest_fold"), ("manager", "aggregate"))
+# the keys of edge_round_split that are the root's partial folds
+EDGE_SPLIT_ROOT = ("partial_ship", "root_decode", "root_fold", "merge", "partials")
+
+
+def edge_round_split(spans):
+    """A round's split behind edges from its trace (the manager's spans and
+    those its edges and workers shipped), in seconds, each tier's spans
+    against its own: the manager's setup, the workers' local train (mean
+    and max) and upload encode, the transfer to the edge (the worker's
+    upload less the edge's ingest of it: the edge answers once it has
+    folded), the edge's ingest, decode and fold of one upload; then the
+    root's partial folds: an edge's partial shipped (its transfer and the
+    root's ingest), the root's decode and fold of one partial, and the
+    merge."""
+    by = {}
+    for s in spans:
+        by.setdefault((tier_of(s), s["name"]), []).append(s["end"] - s["start"])
+    missing = [n for n in EDGE_SPLIT_NEEDS if not by.get(n)]
+    check(not missing, f"spans missing from the round's trace: {missing} (has {sorted(by)})")
+    mean = {n: float(np.mean(v)) for n, v in by.items()}
+    return {"setup": mean["manager", "round_setup"],
+            "local_train": mean["worker", "local_train"],
+            "local_train_max": max(by["worker", "local_train"]),
+            "upload_encode": mean["worker", "encode_update"],
+            "transfer_to_edge": mean["worker", "upload"] - mean["edge", "edge_ingest"],
+            "edge_ingest": mean["edge", "edge_ingest"],
+            "edge_decode": mean["edge", "ingest_decode"], "edge_fold": mean["edge", "ingest_fold"],
+            "uploads": len(by["worker", "upload"]),
+            "partial_ship": mean["edge", "edge_partial_upload"],
+            "root_decode": mean["manager", "ingest_decode"],
+            "root_fold": mean["manager", "ingest_fold"], "merge": mean["manager", "aggregate"],
+            "partials": len(by["manager", "ingest_fold"])}
+
+
 def mean_split(splits):
     """The per-key mean of several rounds' splits."""
     return {k: float(np.mean([s[k] for s in splits])) for k in splits[0]}
@@ -1794,11 +1872,12 @@ def recording_trainer(trainer, seen):
 
 
 async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
-                          manager_kw=None, worker_kw=None, heartbeat_time=30.0):
+                          manager_kw=None, worker_kw=None, heartbeat_time=30.0, edges=0):
     """A Manager (built with ``manager_kw``) and one ExperimentWorker (built
     with ``worker_kw``) per dataset on loopback, all on the card;
     ``rounds(fed)`` runs the rounds. ``fed.exp`` is the current manager's
-    experiment and ``fed.workers`` the workers; ``await fed.drive()``
+    experiment, ``fed.url`` its base URL and ``fed.workers`` the workers;
+    ``await fed.drive()``
     starts a round and returns its seconds from ``start_round`` until
     ``rounds.n_rounds`` advances; ``await fed.start()`` only starts one
     (returning its start time) and ``await fed.wait_round(n0, t0)`` waits
@@ -1807,8 +1886,16 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
     new one on the same port, waiting until every worker has registered
     again; ``fed.meter`` lists ``(kind, bytes)`` of every upload and blob
     download the managers served, and ``fed.bodies`` the upload bodies
-    they received. Returns what ``rounds`` returns, with those bodies and
-    the devices the trainers were handed."""
+    they received. With ``edges`` > 0 that many ``EdgeAggregator``s stand
+    between the manager and the workers (each ships its partial
+    ``EDGE_SETTLE_S`` after its last worker reported, and ships part of its
+    cohort only after ``ROUND_LIMIT_S``, so a slow warm-up ships whole), worker
+    ``i`` behind edge ``i * edges // len(datasets)``: ``fed.edges`` are
+    they, ``fed.edge_urls`` their experiment bases, ``fed.edge_meter``
+    lists ``(edge, kind, bytes)`` of every upload and blob download they
+    served, and ``fed.edge_bodies`` ``(edge, body)`` of the uploads they
+    received. Returns what ``rounds`` returns, with those bodies and the
+    devices the trainers were handed."""
     import asyncio
     import socket
     import types
@@ -1817,6 +1904,7 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
     from aiohttp import web
 
     from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.server.edge import EdgeAggregator
     from baton_tpu_torch.server.http_manager import Manager
     from baton_tpu_torch.server.http_worker import ExperimentWorker
 
@@ -1832,19 +1920,23 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
         await web.SockSite(runner, sock).start()
         return runner
 
-    bodies, seen, meter = [], [], []
+    bodies, seen, meter, edge_meter, edge_bodies = [], [], [], [], []
     # the timer waits on the manager's end of a round, not on a busy poll
     # of the event loop that the manager and every worker share
     round_ended, loop = asyncio.Event(), asyncio.get_running_loop()
 
-    @web.middleware
-    async def metering(request, handler):
-        resp = await handler(request)
-        if request.path.endswith("/update"):
-            meter.append(("upload", request.content_length or 0))
-        elif "/round_blob/" in request.path and resp.status == 200:
-            meter.append(("blob", resp.content_length or 0))
-        return resp
+    def metering_into(note):
+        @web.middleware
+        async def metering(request, handler):
+            resp = await handler(request)
+            if request.path.endswith("/update"):
+                note("upload", request.content_length or 0)
+            elif "/round_blob/" in request.path and resp.status == 200:
+                note("blob", resp.content_length or 0)
+            return resp
+        return metering
+
+    metering = metering_into(lambda kind, n: meter.append((kind, n)))
 
     def build_manager(kw):
         app = web.Application(middlewares=[metering])
@@ -1874,28 +1966,52 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
         exp._end_round_secure = end_secure_and_signal
         return app, exp
 
+    def recording_edge(edge, i):
+        ingest = edge._ingest_cohort_update
+
+        async def recording_ingest(client_id, body, content_type):
+            edge_bodies.append((i, bytes(body)))
+            return await ingest(client_id, body, content_type)
+
+        edge._ingest_cohort_update = recording_ingest
+        return edge
+
     async def wait_registered():
+        # each edge registers at the manager too
+        want = len(fed.workers) + len(fed.edges)
         for _ in range(3000):
-            if len(fed.exp.registry) == len(fed.workers):
+            if len(fed.exp.registry) == want:
                 break
             await asyncio.sleep(0.01)
-        check(len(fed.exp.registry) == len(fed.workers),
-              f"{len(fed.exp.registry)} of {len(fed.workers)} registered")
+        check(len(fed.exp.registry) == want, f"{len(fed.exp.registry)} of {want} registered")
 
     sock, mport = listen()
     app, exp = build_manager(manager_kw or {})
-    fed = types.SimpleNamespace(exp=exp, workers=[], meter=meter, bodies=bodies,
+    fed = types.SimpleNamespace(exp=exp, url=f"http://127.0.0.1:{mport}/httpround", workers=[],
+                                meter=meter, bodies=bodies, edges=[],
+                                edge_urls=[], edge_meter=edge_meter, edge_bodies=edge_bodies,
                                 runner=await serve(app, sock))
-    runners = []
-    for d, seed in zip(datasets, seeds):
+    runners, edge_runners, edge_addrs = [], [], []
+    for i in range(edges):
+        esock, eport = listen()
+        eapp = web.Application(middlewares=[metering_into(
+            lambda kind, n, i=i: edge_meter.append((i, kind, n)))])
+        fed.edges.append(recording_edge(EdgeAggregator(
+            eapp, f"127.0.0.1:{mport}", name="httpround", port=eport, edge_name=f"e{i}",
+            ship_settle_s=EDGE_SETTLE_S, flush_after_s=ROUND_LIMIT_S), i))
+        edge_addrs.append(f"127.0.0.1:{eport}")
+        fed.edge_urls.append(f"http://127.0.0.1:{eport}/httpround")
+        edge_runners.append(await serve(eapp, esock))
+    for j, (d, seed) in enumerate(zip(datasets, seeds)):
         wsock, wport = listen()
         wapp = web.Application()
         trainer = recording_trainer(make_local_trainer(model, batch_size=batch,
                                                        learning_rate=lr), seen)
+        edge = edge_addrs[j * edges // len(datasets)] if edges else None
         fed.workers.append(ExperimentWorker(
             wapp, model, f"127.0.0.1:{mport}", name="httpround", port=wport,
             heartbeat_time=heartbeat_time, rng_seed=seed, trainer=trainer,
-            get_data=lambda d=d: (d, d["x"].shape[0]), **(worker_kw or {})))
+            get_data=lambda d=d: (d, d["x"].shape[0]), edge=edge, **(worker_kw or {})))
         runners.append(await serve(wapp, wsock))
     await wait_registered()
     session = aiohttp.ClientSession()
@@ -1910,7 +2026,9 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
         round_ended.clear()
         t0 = time.perf_counter()
         acks = await get("start_round?n_epoch=1")
-        check(len(acks) == len(fed.workers) and all(acks.values()), f"acks {acks}")
+        # an edge declines its own invitation: it aggregates, it trains nothing
+        check(len(acks) == len(fed.workers) + len(fed.edges)
+              and sum(map(bool, acks.values())) == len(fed.workers), f"acks {acks}")
         return t0
 
     async def wait_round(n0, t0):
@@ -1947,7 +2065,7 @@ async def http_federation(model, datasets, *, seeds, lr, batch, log_dir, rounds,
                 await w._ship_task
     finally:
         await session.close()
-        for r in runners + [fed.runner]:
+        for r in runners + edge_runners + [fed.runner]:
             await r.cleanup()
     return out, bodies, seen
 
@@ -2136,6 +2254,400 @@ def http_replay_phase():
         readings.append({"gap": gap, "moved": moved})
     return readings
 
+
+# phase 24: the operations planes on the card (the edge tier, the ops
+# console and the loadgen), with phase 11's federation and helpers.
+
+EDGES = 2  # 24a: edges under the root, phase 11's 8 workers 4 an edge
+EDGE_TIMED_ROUNDS = 2  # 24a: after a warm-up
+CONSOLE_LIMIT_S = 120.0  # 24b: the console's subprocess, its import of torch included
+# 24c: benchmarks/scenarios/edge_cohort.json's values, its baseline (the JAX
+# package's numbers) left out: 8 workers of a linear model (dim 10, batch
+# 32) behind 2 edges, steady / edge_loss (edge 1 killed) / recovery
+EDGE_COHORT = {
+    "name": "edge_cohort", "seed": 11, "model": {"dim": 10},
+    "workers": {"count": 8, "heartbeat_time": 0.5, "batch_size": 32, "min_batches": 2,
+                "max_batches": 2, "learning_rate": 0.02},
+    "edges": {"count": 2, "flush_after_s": 3.0, "heartbeat_time": 1.0, "retry_s": 60.0},
+    "manager": {"round_timeout": 5.0, "client_ttl": 6.0, "cohort_fraction": 1.0,
+                "min_cohort": 1, "ingest_workers": 2},
+    "rounds": {"n_epoch": 1, "interval_s": 2.0, "max_rounds": 10, "warmup": 1},
+    "phases": [
+        {"name": "steady", "duration_s": 8, "availability": {"kind": "step", "level": 1.0}},
+        {"name": "edge_loss", "duration_s": 8, "availability": {"kind": "step", "level": 1.0},
+         "kill_edges": [1]},
+        {"name": "recovery", "duration_s": 6, "availability": {"kind": "step", "level": 1.0}},
+    ],
+    "slo": {"assertions": [
+        {"metric": "rounds.total", "op": ">=", "value": 8},
+        {"metric": "rounds.completion_rate", "op": ">=", "value": 0.7},
+        {"metric": "loadgen:scenario_rounds_forced_end", "op": "==", "value": 0},
+        {"metric": "rounds.participants_mean", "op": ">=", "value": 5},
+        {"metric": "counter:updates_received_edge_partial", "op": ">=", "value": 1},
+        {"metric": "edge:counter:edge_partials_shipped", "op": ">=", "value": 1},
+        {"metric": "loadgen:scenario_edges_killed", "op": "==", "value": 1},
+        {"metric": "counter:updates_refused_edge_secure", "op": "==", "value": 0},
+        {"metric": "loadgen:scenario_start_round_errors", "op": "==", "value": 0},
+        {"metric": "history:samples", "op": ">=", "value": 2},
+        {"metric": "history:rate:updates_received", "op": ">", "value": 0.0},
+    ]},
+}
+
+
+def edge_fold_terms(per_edge: int, n_edges: int, fold_shards: int) -> int:
+    """The fp32 roundings an upload meets on its way into the root's params
+    through an edge: the edge's product w·x, its ``per_edge`` additions
+    (``StreamingMean``) and its division by the cohort's weight; the root's
+    product of that mean by the weight, its ``n_edges`` additions, the
+    merge of its ``fold_shards`` partial sums and its division by the whole
+    weight."""
+    return 1 + per_edge + 1 + 1 + n_edges + fold_shards + 1
+
+
+def hold_edge_fold(params, uploads, per_edge, n_edges, fold_shards) -> dict:
+    """The root's params (fp32 arrays) against the float64 fold of the
+    uploads the workers sent (BTW1 bodies), ``Σ w·x / Σ w``: at every
+    element within ``γ(edge_fold_terms) · Σ w·|x| / Σ w``, the worst case
+    of the two-level fp32 fold (the weights are sample counts, exact in
+    fp32). Returns the largest gap, its largest share of the bound, the
+    count of terms and γ."""
+    sums, mags, total = upload_sums(uploads)
+    terms = edge_fold_terms(per_edge, n_edges, fold_shards)
+    g = gamma(terms)
+    check(set(params) == set(sums),
+          f"params and uploads name different tensors: {sorted(set(params) ^ set(sums))}")
+    worst, share = 0.0, 0.0
+    for k in params:
+        gap = np.abs(np.asarray(params[k], np.float64) - sums[k] / total)
+        bound = g * mags[k] / total
+        over = gap > bound
+        check(not over.any(), f"{k}: the root's params differ from the float64 fold of the "
+              f"uploads by {float(gap.max()):.3e}, beyond gamma({terms}) = {g:.3e} of "
+              f"sum w|x| / sum w at {int(over.sum())} elements")
+        worst = max(worst, float(gap.max()))
+        share = max(share, float(np.max(gap / np.maximum(bound, np.finfo(np.float64).tiny))))
+    return {"max_gap": worst, "max_share_of_bound": share, "terms": terms, "gamma": g}
+
+
+def check_edge_round(label, got, n_workers, n_edges) -> None:
+    """Phase 24a's counts of one round (``edge_rounds``): the root served
+    the round blob once an edge and the edges once a worker; the root
+    received one ``edge_partial`` update an edge, no direct update, and
+    the partials credit every worker once; each edge shipped one partial
+    and received its workers' uploads."""
+    check(got["root_blobs"] == n_edges,
+          f"{label}: the root served the blob {got['root_blobs']} times, not once an edge")
+    check(got["edge_blobs"] == n_workers,
+          f"{label}: the edges served the blob {got['edge_blobs']} times, not once a worker")
+    check(got["partials"] == n_edges and got["direct"] == 0,
+          f"{label}: the root received {got['partials']} edge partials and {got['direct']} "
+          f"direct updates")
+    check(got["root_uploads"] == n_edges, f"{label}: {got['root_uploads']} uploads to the root")
+    check(got["partials_shipped"] == n_edges,
+          f"{label}: edge_partials_shipped rose by {got['partials_shipped']}")
+    check(len(got["credited"]) == n_workers and len(set(got["credited"])) == n_workers,
+          f"{label}: the partials credit {got['credited']}")
+    check(len(got["uploads"]) == n_workers,
+          f"{label}: the edges received {len(got['uploads'])} uploads")
+
+
+def tier_of(span) -> str:
+    """The tier of a span's service: ``manager``, ``edge``, ``worker`` or,
+    for any other, the service itself."""
+    service = span.get("service", "")
+    return next((t for t in ("manager", "edge", "worker") if service.startswith(t)), service)
+
+
+def trace_tiers(spans) -> dict:
+    """The spans of one trace by tier: the manager's, the edges' and the
+    workers' services."""
+    return dict(collections.Counter(tier_of(s) for s in spans))
+
+
+async def edge_rounds(fed, n_timed) -> list:
+    """Phase 24a's rounds: a warm-up and ``n_timed`` rounds through the
+    edges of ``fed`` (``http_federation(edges=...)``). For each round, its
+    seconds and what crossed the tiers: blob downloads and uploads the
+    root and the edges served, the bodies the root received (edge
+    partials or direct), the workers each partial credits, the edges'
+    fold and blob-fetch seconds from the partials' meta, the uploads the
+    edges received, and the root's params after it."""
+    import asyncio
+
+    from baton_tpu_torch.server import wire
+    from baton_tpu_torch.server.state import params_to_state_dict
+
+    def shipped():
+        return sum(e.metrics.snapshot()["counters"].get("edge_partials_shipped", 0)
+                   for e in fed.edges)
+
+    out = []
+    for _ in range(n_timed + 1):
+        at = (len(fed.meter), len(fed.edge_meter), len(fed.bodies), len(fed.edge_bodies),
+              shipped())
+        seconds = await fed.drive()
+        # the root ends the round on the last partial's fold, before that
+        # edge has its answer
+        t0 = time.perf_counter()
+        while (shipped() - at[4] < len(fed.edges)
+               and time.perf_counter() - t0 < EDGE_SHIP_LIMIT_S):
+            await asyncio.sleep(0.01)
+        metas = [wire.decode(b)[1] for b in fed.bodies[at[2]:]]
+        partials = [m["edge_partial"] for m in metas if m.get("edge_partial")]
+        root_kinds = collections.Counter(kind for kind, _ in fed.meter[at[0]:])
+        edge_kinds = collections.Counter(kind for _, kind, _ in fed.edge_meter[at[1]:])
+        out.append({
+            "s": seconds, "round": metas[0]["update_name"] if metas else None,
+            "root_blobs": root_kinds["blob"], "root_uploads": root_kinds["upload"],
+            "edge_blobs": edge_kinds["blob"], "partials": len(partials),
+            "direct": len(metas) - len(partials), "partials_shipped": shipped() - at[4],
+            "credited": [c for p in partials for c in p["contributors"]],
+            "edge_fold_s": [p["phase_s"]["fold"] for p in partials],
+            "edge_blob_fetch_s": [p["phase_s"]["blob_fetch"] for p in partials],
+            "uploads": [b for _, b in fed.edge_bodies[at[3]:]],
+            "params": params_to_state_dict(fed.exp.params)})
+    return out
+
+
+async def console_probe(root_url, edge_urls, rounds_path):
+    """``python -m baton_tpu_torch.ops --once --json`` against a root and
+    its edges, in a subprocess under ``CONSOLE_LIMIT_S``, killed if it
+    outlives it: ``(exit code, the poll state, stderr)``."""
+    import asyncio
+
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "baton_tpu_torch.ops", "--once", "--json", "--root", root_url,
+        "--edges", ",".join(edge_urls), "--rounds", str(rounds_path), cwd=str(ROOT),
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), CONSOLE_LIMIT_S)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    state = json.loads(out) if out.strip() else None
+    return proc.returncode, state, err.decode(errors="replace")
+
+
+def check_console(rc, state, err) -> None:
+    """Phase 24b: the console exited 0, every node it polled answered and
+    no ``page`` alert fires anywhere in the fleet."""
+    from baton_tpu_torch.ops.console import firing_alerts
+
+    check(state is not None, f"the console printed no state (exit {rc}): {err[-2000:]}")
+    down = [n["url"] for n in [state["root"], *state["edges"]] if not n["up"]]
+    check(not down, f"the console found these nodes down: {down}")
+    pages = firing_alerts(state, severity="page")
+    check(not pages, f"page alerts fire: {[(p.get('node'), p.get('name')) for p in pages]}")
+    check(rc == 0, f"the console exited {rc}: {err[-2000:]}")
+
+
+def edge_tier_phase(fa, flat):
+    """Phase 24a-b: phase 11's federation (ResNet-18 as ``bench.py``, bf16
+    compute, 8 workers x 48 samples drawn as phase 6 draws them, batch 32,
+    lr 0.05, all on the card in this process) behind ``EDGES`` edge
+    aggregators of 4 workers each under one root Manager: a warm-up and
+    ``EDGE_TIMED_ROUNDS`` timed rounds, each held by ``check_edge_round``
+    and ``hold_edge_fold``, one round's trace across the three tiers, and
+    the ops console run against the root and the edges while they are up.
+    ``flat`` is phase 11's stats (same workers, no edges)."""
+    import asyncio
+    import tempfile
+
+    from baton_tpu_torch.models.resnet import resnet18_cifar_model
+    from baton_tpu_torch.obs.compute import validate_record
+    from baton_tpu_torch.ops.console import _compute_line
+    from baton_tpu_torch.server import wire
+    from baton_tpu_torch.utils import tracing
+
+    n_workers, per_worker, batch, lr = 8, 48, 32, 0.05
+    rng = np.random.default_rng(0)  # drawn as phase 6 draws its clients
+    datasets = [{"x": rng.normal(size=(per_worker, 32, 32, 3)).astype(np.float32),
+                 "y": rng.integers(0, 10, size=(per_worker,)).astype(np.int32)}
+                for _ in range(n_workers)]
+    model = resnet18_cifar_model(compute_dtype=torch.bfloat16, conv_impl="direct")
+    print(f"phase 24a: phase 11's federation behind {EDGES} EdgeAggregators of "
+          f"{n_workers // EDGES} workers each under one root Manager, all on the card: "
+          f"ResNet-18 (bf16 compute), {per_worker} samples a worker, batch {batch}, lr {lr}; "
+          f"a warm-up and {EDGE_TIMED_ROUNDS} timed rounds; edges ship "
+          f"{EDGE_SETTLE_S} s after their last worker")
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        rounds_path = Path(log_dir) / "rounds.jsonl"
+
+        async def rounds(fed):
+            got = await edge_rounds(fed, EDGE_TIMED_ROUNDS)
+            # 24b: the console while the root and the edges are up
+            console = await console_probe(fed.url, fed.edge_urls, rounds_path)
+            trace = {r["round"]: fed.exp.tracer.spans_for(
+                tracing.make_trace_id(fed.exp.name, r["round"])) for r in got}
+            return got, console, trace, fed.exp.fold_shards
+
+        (got, console, trace, fold_shards), _, seen = asyncio.run(http_federation(
+            model, datasets, seeds=range(n_workers), lr=lr, batch=batch, log_dir=log_dir,
+            rounds=rounds, edges=EDGES))
+    check(all(devs == ["cuda"] for devs in seen), f"a trainer was handed CPU tensors: {seen}")
+    name = torch.cuda.get_device_name(0)
+    folds = []
+    for i, r in enumerate(got):
+        label = f"round {i}" + (" (warm-up)" if i == 0 else "")
+        check_edge_round(label, r, n_workers, EDGES)
+        folds.append(hold_edge_fold(r["params"], r["uploads"], n_workers // EDGES, EDGES,
+                                    fold_shards))
+        computes = [wire.decode(b)[1].get("compute") or {} for b in r["uploads"]]
+        check(all(c.get("device_kind") == name and validate_record(c) == [] for c in computes),
+              f"{label}: a worker's compute record does not name the card or is invalid")
+        check(all(np.isfinite(v).all() for v in r["params"].values()), f"{label}: non-finite")
+    timed = got[1:]
+    tiers = trace_tiers(trace[timed[0]["round"]])
+    check(all(tiers.get(t) for t in ("manager", "edge", "worker")),
+          f"the trace of {timed[0]['round']} lacks a tier: {tiers}")
+    rc, state, err = console
+    check_console(rc, state, err)
+    pane = _compute_line(state["root"], "root")
+    tail = (state["rounds_tail"] or [{}])[-1].get("compute") or {}
+    check(pane is not None and tail.get("peak_hbm_gb_source") == "torch.cuda.max_memory_allocated",
+          f"the console's compute pane shows no card's numbers: {pane}; rounds tail {tail}")
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched in phase 24a: {flash}")
+    times = [r["s"] for r in timed]
+    s_mean = float(np.mean(times))
+    split = mean_split([edge_round_split(trace[r["round"]]) for r in timed])
+    stats = {"round_s": times, "s_per_round": s_mean, "warm_up_s": got[0]["s"],
+             "samples_per_s": n_workers * per_worker / s_mean,
+             "flat_s_per_round": flat.get("s_per_round"),
+             "edge_fold_s": [r["edge_fold_s"] for r in timed],
+             "edge_blob_fetch_s": [r["edge_blob_fetch_s"] for r in timed],
+             "blob_fetches_at_root": [r["root_blobs"] for r in timed],
+             "blob_fetches_saved_at_root": [n_workers - r["root_blobs"] for r in timed],
+             "fold": folds, "trace_tiers": tiers, "split": split,
+             "console": {"rc": rc, "nodes_up": 1 + len(state["edges"]), "compute_pane": pane,
+                         "peak_hbm_gb_source": tail.get("peak_hbm_gb_source")}}
+    print(f"  s/round mean {s_mean:.4f} (rounds 1-{len(times)}: "
+          f"{', '.join(f'{t:.4f}' for t in times)}; warm-up {got[0]['s']:.4f}); phase 11's "
+          f"flat round with the same workers {flat.get('s_per_round')}")
+    print("  edges' fold s a round (edge 0, edge 1): " + "; ".join(
+        ", ".join(f"{x:.4f}" for x in r["edge_fold_s"]) for r in timed)
+        + "; their blob fetch from the root: " + "; ".join(
+        ", ".join(f"{x:.4f}" for x in r["edge_blob_fetch_s"]) for r in timed))
+    print(f"  each round: the root served the blob {EDGES} times (flat: {n_workers}), the "
+          f"edges {n_workers}; the root received {EDGES} edge partials crediting all "
+          f"{n_workers} workers and no direct update")
+    print("  root params against the float64 fold of the uploads: " + "; ".join(
+        f"max |diff| {f['max_gap']:.3e}, {f['max_share_of_bound']:.3f} of the bound "
+        f"gamma({f['terms']}) = {f['gamma']:.3e} of sum w|x| / sum w" for f in folds))
+    print(f"  trace of {timed[0]['round']}: spans by tier {tiers}")
+    print("  split of a round (mean of the timed rounds, s; workers to edges): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items() if k not in EDGE_SPLIT_ROOT))
+    print("  the root's partial folds (mean of the timed rounds, s): " + ", ".join(
+        f"{k} {split[k]:.4f}" for k in EDGE_SPLIT_ROOT))
+    print(f"phase 24b: python -m baton_tpu_torch.ops --once --json: exit {rc}, "
+          f"{1 + len(state['edges'])} nodes up, no page alert;\n  {pane.strip()}; rounds "
+          f"tail peak HBM from {tail.get('peak_hbm_gb_source')}")
+    return stats
+
+
+def scenario_cli(scenario: dict, work, device: str) -> dict:
+    """``python -m baton_tpu_torch.loadgen <scenario.json> --device <device>
+    --artifacts <work>/artifacts``, run in this process through the CLI's
+    ``main`` with ``scenario`` written to ``<work>/<name>.json``: its exit
+    code, seconds, ``slo_report.json``, round records and the loadgen's and
+    the workers' counters."""
+    from baton_tpu_torch.loadgen.__main__ import main
+    from baton_tpu_torch.utils.slog import read_rounds_jsonl
+
+    work = Path(work)
+    path, art = work / f"{scenario['name']}.json", work / "artifacts"
+    path.write_text(json.dumps(scenario))
+    t0 = time.perf_counter()
+    rc = main([str(path), "--device", device, "--artifacts", str(art)])
+    run_s = time.perf_counter() - t0
+    report = art / "slo_report.json"
+    counters = lambda name: json.loads((art / name).read_text())["counters"]  # noqa: E731
+    return {"rc": rc, "run_s": run_s,
+            "report": json.loads(report.read_text()) if report.exists() else None,
+            "records": read_rounds_jsonl(str(art / "rounds.jsonl"))[0],
+            "loadgen": counters("loadgen_metrics.json"),
+            "fleet": counters("worker_metrics.json")}
+
+
+def scenario_peak_sources(records) -> set:
+    """Where the workers' compute records of a scenario's completed rounds
+    took their peak memory from (``peak_hbm_gb_source``; where it is null,
+    the reason)."""
+    return {(r.get("compute") or {}).get("peak_hbm_gb_source")
+            or (r.get("compute") or {}).get("peak_hbm_gb_reason")
+            for r in records if r.get("outcome") == "completed"}
+
+
+def check_scenario_run(run) -> None:
+    """Phase 24c (``scenario_cli``'s result): the CLI exited 0, every SLO
+    assertion passes, every recorded round reached a terminal outcome and
+    none was forced to end, and the killed edge's workers fell back to the
+    root directly."""
+    report, records = run["report"], run["records"]
+    check(report is not None, f"the CLI wrote no slo_report.json (exit {run['rc']})")
+    failed = [(a["metric"], a["op"], a["value"], a["observed"])
+              for a in report["assertions"] if a["status"] != "pass"]
+    check(not failed and report["pass"], f"SLO assertions failed: {failed}")
+    check(run["rc"] == 0, f"the CLI exited {run['rc']}")
+    stuck = [r.get("round") for r in records
+             if not (r.get("outcome") == "completed" or str(r.get("outcome")).startswith("aborted:"))]
+    check(records and not stuck, f"rounds without a terminal outcome: {stuck}")
+    check(run["loadgen"].get("scenario_rounds_forced_end", 0) == 0,
+          "the drain forced a round to end")
+    check(run["fleet"].get("edge_route_fallbacks", 0) > 0,
+          "no worker fell back from the killed edge to the root")
+
+
+def loadgen_phase():
+    """Phase 24c: the reference's ``edge_cohort`` scenario (``EDGE_COHORT``)
+    through the port's loadgen CLI on the card (``scenario_cli`` with
+    ``--device cuda``), its SLO block through the port's ``evaluate_slo``."""
+    import tempfile
+
+    from baton_tpu_torch.loadgen.scenario import parse_scenario
+
+    scn = parse_scenario(EDGE_COHORT)
+    check(len(scn.slo.assertions) == 11 and scn.slo.baseline is None,
+          "edge_cohort's SLO block is not its 11 assertions without a baseline")
+    print(f"phase 24c: python -m baton_tpu_torch.loadgen {scn.name}.json --device cuda: "
+          f"{scn.workers.count} workers (linear, dim {scn.model_dim}, batch "
+          f"{scn.workers.batch_size}) behind {scn.edges.count} edges, phases " + ", ".join(
+              f"{p.name} {p.duration_s:g} s" for p in scn.phases))
+    with tempfile.TemporaryDirectory() as work:
+        run = scenario_cli(EDGE_COHORT, work, "cuda")
+    check_scenario_run(run)
+    report, fleet = run["report"], run["fleet"]
+    peaks = scenario_peak_sources(run["records"])
+    check(peaks == {"torch.cuda.max_memory_allocated"},
+          f"the workers' compute records of the completed rounds take their peak memory from "
+          f"{peaks}, not the card's allocator")
+    stats = {"run_s": run["run_s"], "rc": run["rc"], "rounds": report["rounds_evaluated"],
+             "warmup_rounds": report["rounds_excluded_warmup"],
+             "assertions": [{k: a[k] for k in ("metric", "op", "value", "observed", "status")}
+                            for a in report["assertions"]],
+             "edge_route_fallbacks": fleet.get("edge_route_fallbacks"),
+             "peak_hbm_gb_source": sorted(peaks)}
+    print(f"  exit {run['rc']}; {report['rounds_evaluated']} rounds "
+          f"(+{report['rounds_excluded_warmup']} warm-up) in {run['run_s']:.1f} s; "
+          f"{len(report['assertions'])} of {len(report['assertions'])} SLO assertions pass: "
+          + "; ".join(f"{a['metric']} {a['op']} {a['value']} ({a['observed']})"
+                      for a in report["assertions"]))
+    print(f"  edge_route_fallbacks {fleet.get('edge_route_fallbacks')}; the workers' peak "
+          f"memory from {sorted(peaks)}")
+    return stats
+
+
+def operations_phase(fa, flat):
+    """Phase 24: the edge tier and the console (24a-b), then the loadgen
+    (24c); no flash kernel launches in it."""
+    fa.reset_launches()
+    out = {"edge_tier": timed_phase("24a-b", edge_tier_phase, fa, flat),
+           "loadgen": timed_phase("24c", loadgen_phase)}
+    flash = fa.launches()
+    check(all(n == 0 for n in flash.values()), f"flash kernels launched in phase 24: {flash}")
+    return out
 
 # phases 12-14: the HTTP round's remaining options (compressed uploads,
 # quantised and delta broadcasts, a manager restart resumed from its
@@ -5082,6 +5594,7 @@ def main() -> int:
     http = time.perf_counter()
     http_stats = http_round_phase(fa)
     print(f"phase 11 took {time.perf_counter() - http:.1f} s")
+    operations_stats = timed_phase("24", operations_phase, fa, http_stats)
     second = time.perf_counter()
     fa.reset_launches()
     bandwidth_stats = timed_phase("12", bandwidth_phase, fa)
@@ -5155,7 +5668,8 @@ def main() -> int:
                       "config1": config1_stats, "variants": variants_stats, "zoo": zoo_stats,
                       "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
                       "examples": examples_stats, "sequence_parallel": ring_stats,
-                      "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats}))
+                      "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats,
+                      "operations_planes": operations_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

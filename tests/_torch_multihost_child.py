@@ -6,7 +6,8 @@ Each process holds 4 CPU shards and joins one gloo process group;
 ``clients(4, across the processes) x model(2)``, and the port's FedAvg
 psum (``ops/aggregation.py:psum_weighted_mean``) runs with the clients
 axis crossing the process boundary. Then a FedSim round on a clients mesh
-of 8 shards over both processes against the same round without a mesh.
+of 8 shards over both processes against the same round without a mesh,
+and that round's compute record (``n_chips`` counts the two processes).
 Prints one JSON line; the process group is destroyed on every exit."""
 
 import json
@@ -48,8 +49,9 @@ def fedavg_psum(n_proc: int) -> dict:
     return dict(mesh.shape)
 
 
-def fedsim_round() -> float:
-    """A round on 8 shards over both processes against the meshless round."""
+def fedsim_round() -> tuple:
+    """A round on 8 shards over both processes against the meshless round;
+    returns the gap and both rounds' compute records."""
     mesh = make_hybrid_mesh([], dcn_axis="clients", devices=CPU4)
     rng = np.random.default_rng(1)
     data = {"x": torch.from_numpy(rng.normal(size=(6, 4, 3)).astype(np.float32)),
@@ -61,13 +63,13 @@ def fedsim_round() -> float:
     model = linear_regression_model(3)
     params = model.init(torch.Generator().manual_seed(0))
     kw = dict(batch_size=2, learning_rate=0.05)
-    plain = FedSim(model, device="cpu", **kw).run_round(params, data, n, n_epochs=2,
-                                                        perms=perms)
-    meshed = FedSim(model, mesh=mesh, **kw).run_round(params, data, n, n_epochs=2, perms=perms)
+    plain_sim, meshed_sim = FedSim(model, device="cpu", **kw), FedSim(model, mesh=mesh, **kw)
+    plain = plain_sim.run_round(params, data, n, n_epochs=2, perms=perms)
+    meshed = meshed_sim.run_round(params, data, n, n_epochs=2, perms=perms)
     torch.testing.assert_close(meshed.client_losses, plain.client_losses, rtol=1e-6, atol=1e-6)
     gap = max((meshed.params[k] - plain.params[k]).abs().max().item() for k in params)
     assert gap <= 1e-5, gap
-    return gap
+    return gap, {"plain": plain_sim.last_compute, "meshed": meshed_sim.last_compute}
 
 
 def hybrid_round() -> dict:
@@ -113,10 +115,11 @@ def main() -> None:
         assert initialize_multihost(coord, n_proc, rank, backend="gloo", timeout_s=60) == rank
         assert dist.get_world_size() == n_proc and dist.get_backend() == "gloo"
         shape = fedavg_psum(n_proc)
-        gap = fedsim_round()
+        gap, compute = fedsim_round()
         hybrid = hybrid_round()
         print(json.dumps({"rank": rank, "world": dist.get_world_size(), "mesh": shape,
-                          "round_gap": gap, "hybrid": hybrid, "ok": True}), flush=True)
+                          "round_gap": gap, "compute": compute, "hybrid": hybrid,
+                          "ok": True}), flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

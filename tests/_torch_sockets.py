@@ -11,12 +11,14 @@
   port is closed and re-bound, so parallel test processes cannot race
   for it. :func:`reserve_port` and :func:`tcp_site` do the same for the
   reference's socket cases run against the port, in place of their
-  ``free_port()`` and ``web.TCPSite`` (``_torch_carried_cases`` seams).
+  ``free_port()`` and ``web.TCPSite`` (``_torch_carried_cases`` seams),
+  and :func:`engine_sockets` in place of the loadgen engine's own.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import faulthandler
 import random
 import socket
@@ -119,3 +121,30 @@ def tcp_site(runner: web.AppRunner, host: str, port: int) -> web.SockSite:
 
 # the seams that put these in place of a reference case's own
 SOCKET_SEAMS = (("= free_port()", "= reserve_port()"), ("web.TCPSite(", "tcp_site("))
+
+
+class _EngineWeb:
+    """``aiohttp.web`` as the loadgen engine sees it under
+    :func:`engine_sockets`: ``TCPSite`` serves the socket that
+    :func:`reserve_port` bound."""
+
+    TCPSite = staticmethod(tcp_site)
+
+    def __getattr__(self, name):
+        return getattr(web, name)
+
+
+@contextlib.contextmanager
+def engine_sockets():
+    """Within this block the loadgen engine (``baton_tpu_torch.loadgen.
+    engine``) binds its servers' ports with :func:`reserve_port` and serves
+    them with :func:`tcp_site`, in place of its close-and-rebind
+    ``_free_port`` and ``web.TCPSite``."""
+    from baton_tpu_torch.loadgen import engine
+
+    free_port, web_ = engine._free_port, engine.web
+    engine._free_port, engine.web = reserve_port, _EngineWeb()
+    try:
+        yield
+    finally:
+        engine._free_port, engine.web = free_port, web_

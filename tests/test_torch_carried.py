@@ -38,13 +38,121 @@ CARRIED = [
     "obs/alerts.py",
     "obs/forensics.py",
     "obs/runbooks.py",
+    "server/edge.py",
+    "ops/console.py",
+    "ops/__main__.py",
+    "loadgen/__init__.py",
+    "loadgen/scenario.py",
+    "loadgen/slo.py",
+    "loadgen/engine.py",
+    "loadgen/__main__.py",
 ]
+
+# The loadgen driver's one seam is the device: the root managers and the
+# workers it builds hold their params on ``device`` (``run_scenario`` and
+# ``ScenarioRunner``, the card by default; ``--device`` of the CLI, which
+# took ``--platform`` for ``JAX_PLATFORMS``), and the comments that said the
+# warm-up rounds compile XLA say what they warm on the card. The trainer
+# takes no device: it trains where the worker's params live.
+_ENGINE = [(
+    re.escape("Warm-up rounds (XLA compile) run before the scenario clock starts with\n"
+              "everything available and no faults;"),
+    "Warm-up rounds (CUDA context, cuDNN/cuBLAS plans, first blob fetch) run\n"
+    "before the scenario clock starts with everything available and no faults;",
+), (
+    re.escape("from baton_tpu_torch.core.training import make_local_trainer\n"),
+    "from baton_tpu_torch import resolve_device\n"
+    "from baton_tpu_torch.core.training import make_local_trainer\n",
+), (
+    re.escape('''    dict (also written to ``scenario_summary.json``)."""
+
+    def __init__(self, scenario: Scenario, artifacts_dir: str,
+                 tick_s: float = 0.1) -> None:
+        self.scenario = scenario
+'''),
+    '''    dict (also written to ``scenario_summary.json``). The root managers
+    and the workers hold their params on ``device``, the card unless the
+    caller asks for the CPU."""
+
+    def __init__(self, scenario: Scenario, artifacts_dir: str,
+                 tick_s: float = 0.1, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.scenario = scenario
+''',
+), (
+    re.escape("        exp = Manager(sapp).register_experiment(\n"
+              "            self._model, name=scn.name,\n"),
+    "        exp = Manager(sapp).register_experiment(\n"
+    "            self._model, name=scn.name, device=self.device,\n",
+), (
+    re.escape("            name=scn.name, port=_free_port(),\n"),
+    "            name=scn.name, port=_free_port(), device=self.device,\n",
+), (
+    re.escape("        self._exp = Manager(mapp).register_experiment(\n"
+              "            self._model, name=scn.name,\n"),
+    "        self._exp = Manager(mapp).register_experiment(\n"
+    "            self._model, name=scn.name, device=self.device,\n",
+), (
+    re.escape("        # warm-up: compile + first blob fetch outside the scenario clock\n"),
+    "        # warm-up: CUDA context, cuDNN/cuBLAS plans and first blob fetch\n"
+    "        # outside the scenario clock\n",
+), (
+    re.escape("(compile time is a harness\n"),
+    "(first-call set-up is a harness\n",
+), (
+    re.escape('''                       tick_s: float = 0.1) -> dict:
+    return await ScenarioRunner(scenario, artifacts_dir, tick_s=tick_s).run()'''),
+    '''                       tick_s: float = 0.1, device="cuda") -> dict:
+    return await ScenarioRunner(scenario, artifacts_dir, tick_s=tick_s,
+                                device=device).run()''',
+)]
+
+_LOADGEN_MAIN = [(
+    re.escape('''The harness measures the serving path, not the accelerator: training is
+tiny linear models, so JAX is pinned to CPU by default
+(``--platform keep`` preserves the environment's choice).
+'''),
+    '''The managers and workers hold their params on ``--device``: the card by
+default, the CPU only when asked for with ``--device cpu``. Without a GPU
+and without that flag the run raises; it never falls back.
+''',
+), (
+    re.escape('''    ap.add_argument("--platform", default="cpu",
+                    help="JAX_PLATFORMS for the run; 'keep' leaves the "
+                         "environment alone (default: cpu)")
+'''),
+    '''    ap.add_argument("--device", default="cuda",
+                    help="where the managers and workers hold their params "
+                         "(default: cuda)")
+''',
+), (
+    re.escape('''    if args.platform != "keep":
+        os.environ["JAX_PLATFORMS"] = args.platform
+
+    # import after the platform pin: these pull in jax
+'''),
+    "    # imported here: these pull in torch\n",
+), (
+    re.escape("summary = asyncio.run(run_scenario(scenario, artifacts, tick_s=args.tick))"),
+    "summary = asyncio.run(run_scenario(scenario, artifacts, tick_s=args.tick,\n"
+    "                                       device=args.device))",
+)]
+
+# The loadgen package's docstring no longer names the change request that
+# made the telemetry it reads.
+_LOADGEN_INIT = [(
+    re.escape("telemetry PR 6 records (``rounds.jsonl``"),
+    "telemetry the manager records (``rounds.jsonl``",
+)]
 
 # A worker's app cleanup waited for its heartbeat tick, which retries a
 # stopped manager forever: ``stop(cancel=True)`` cancels the tick instead
 # (tests/test_torch_http_worker.py shows the hang it removes). And two
 # comments no longer name the change requests that introduced the code.
 DIFFERENCES = {
+    "loadgen/__init__.py": _LOADGEN_INIT,
+    "loadgen/engine.py": _ENGINE,
+    "loadgen/__main__.py": _LOADGEN_MAIN,
     "server/ingest.py": [(
         r"The v2 data plane \([^)\n]*\) made",
         "The v2 data plane made",

@@ -30,15 +30,22 @@ fp32 summation explains; phase 22's checks at a tiny size on the CPU (the
 band, the mesh round held against meshless, which fails a round that drops
 a shard from its psum though the band alone passes it, the psum fold
 against float64, each failing a broken input; the four
-variants on 2 shards against 8; the two processes over gloo); and ``main``
-with every phase, the card and nvidia-smi stubbed: it runs phases 2-22 in
-order and ends with the card's name and power limit, the kernels line
+variants on 2 shards against 8; the two processes over gloo); phase 24's
+checks (a tiny edge-tier federation on the CPU through them and the ops
+console; the fold against float64 failing an edge partial folded twice
+or dropped while the round's loss still looks right; the round's counts,
+the console's and the scenario run's checks each failing a broken input;
+the loadgen scenario and its SLO reader on a short run on the CPU); and
+``main`` with every phase, the card and nvidia-smi stubbed: it runs
+phases 2-24 in order and ends with the card's name and power limit, the kernels line
 (with its config-4, ring and mesh launches, the ring's counted a step)
 and the ok/device line; a failing phase from 6 on fails it before any
 result line."""
 
+import asyncio
 import dataclasses
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -210,7 +217,7 @@ def test_a_faulty_vmapped_trainer_fails_the_reference_check(monkeypatch, fault):
 PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase",
           "llama_timing_phase", "resnet_round_phase", "vision_parity_phase",
           "fedprox_bert_phase", "resnet_optimizer_phase", "options_parity_phase",
-          "http_round_phase", "bandwidth_phase", "secure_phase", "config1_phase",
+          "http_round_phase", "operations_phase", "bandwidth_phase", "secure_phase", "config1_phase",
           "variants_phase", "config4_phase", "hybrid_config4_phase", "remat_phase", "vit_phase",
           "lstm_phase", "zoo_parity_phase", "crossover_phase", "config5_phase",
           "config5_timing_phase", "auto_wave_phase", "fused_phase", "examples_phase",
@@ -354,6 +361,7 @@ def test_kernels_line_has_a_row_per_launch_key():
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
                                      "fedprox_bert_phase", "resnet_optimizer_phase",
                                      "options_parity_phase", "http_round_phase",
+                                     "operations_phase",
                                      "bandwidth_phase", "secure_phase", "config1_phase",
                                      "variants_phase", "config4_phase", "remat_phase",
                                      "vit_phase", "lstm_phase", "zoo_parity_phase",
@@ -1244,3 +1252,289 @@ def test_hybrid_peak_and_placement_checks():
         chip_smoke.check_placed_base("23a", params, "wq", "wo")
     with pytest.raises(RuntimeError, match="want PartitionSpec"):
         chip_smoke.check_placed_base("23a", shard_params_tp(params, _cpu_grid(1, 2)), "wo", "wq")
+
+
+# ----------------------------------------------------------------------
+# phase 24: the operations planes
+
+
+def _edge_tier_on_the_cpu(tmp_path, n_timed=1):
+    """Phase 24a-b's federation at a tiny size on the CPU (a linear model,
+    4 workers behind 2 edges): its rounds (``edge_rounds``), the console's
+    poll of the root and the edges while they are up, each round's trace,
+    the root's fold shards and the trainers' devices."""
+    from _torch_sockets import run_bounded
+    from baton_tpu_torch.models.linear import linear_regression_model
+    from baton_tpu_torch.utils import tracing
+
+    model = linear_regression_model(6)
+    rng = np.random.default_rng(0)
+    datasets = [{"x": rng.normal(size=(16, 6)).astype(np.float32),
+                 "y": rng.normal(size=(16, 1)).astype(np.float32)} for _ in range(4)]
+    rounds_path = tmp_path / "rounds.jsonl"
+
+    async def rounds(fed):
+        got = await chip_smoke.edge_rounds(fed, n_timed)
+        console = await chip_smoke.console_probe(fed.url, fed.edge_urls, rounds_path)
+        trace = {r["round"]: fed.exp.tracer.spans_for(
+            tracing.make_trace_id(fed.exp.name, r["round"])) for r in got}
+        return got, console, trace, fed.exp.fold_shards
+
+    (got, console, trace, fold_shards), _, seen = run_bounded(lambda: chip_smoke.http_federation(
+        model, datasets, seeds=range(4), lr=0.05, batch=8, log_dir=str(tmp_path), rounds=rounds,
+        edges=2, manager_kw={"device": "cpu"}, worker_kw={"device": "cpu"}), limit_s=120.0)
+    return got, console, trace, fold_shards, seen
+
+
+def test_edge_tier_checks_pass_a_tiny_federation_on_the_cpu(tmp_path):
+    """Phase 24a-b's checks on the CPU: each round's counts across the
+    tiers, the root's params against the float64 fold of the uploads, a
+    trace with spans of all three tiers and the console's probe."""
+    got, (rc, state, err), trace, fold_shards, seen = _edge_tier_on_the_cpu(tmp_path)
+    assert seen and all(devs == ["cpu"] for devs in seen)
+    assert len(got) == 2
+    for i, r in enumerate(got):
+        chip_smoke.check_edge_round(f"round {i}", r, 4, 2)
+        held = chip_smoke.hold_edge_fold(r["params"], r["uploads"], 2, 2, fold_shards)
+        assert held["terms"] == 1 + 2 + 1 + 1 + 2 + fold_shards + 1
+        assert held["max_share_of_bound"] <= 1.0
+        assert len(r["edge_fold_s"]) == 2
+    tiers = chip_smoke.trace_tiers(trace[got[1]["round"]])
+    assert all(tiers.get(t) for t in ("manager", "edge", "worker")), tiers
+    chip_smoke.check_console(rc, state, err)
+    assert len(state["edges"]) == 2 and state["rounds_tail"]
+    split = chip_smoke.edge_round_split(trace[got[1]["round"]])
+    assert split["uploads"] == 4 and split["partials"] == 2
+
+
+def _trained_linear_uploads(n_workers=8):
+    """Linear workers trained one epoch from one start, as the workers of a
+    round train: their BTW1 uploads (48 samples each), their state dicts,
+    their data pooled and the start."""
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.models.linear import linear_regression_model
+    from baton_tpu_torch.server import wire
+
+    model = linear_regression_model(10)
+    trainer = make_local_trainer(model, batch_size=16, learning_rate=0.05)
+    start = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    coef = rng.normal(size=(10, 1)).astype(np.float32)
+    bodies, sds, pooled = [], [], []
+    for i in range(n_workers):
+        x = rng.normal(size=(48, 10)).astype(np.float32)
+        data = {"x": torch.as_tensor(x), "y": torch.as_tensor(x @ coef)}
+        trained = trainer.train(start, data, 48, 1, generator=torch.Generator().manual_seed(i))[0]
+        sd = {k: v.numpy() for k, v in trained.items()}
+        sds.append(sd)
+        bodies.append(wire.encode(sd, {"update_name": "u", "n_samples": 48.0,
+                                       "loss_history": [0.0]}))
+        pooled.append(data)
+    data = {k: torch.cat([d[k] for d in pooled]) for k in pooled[0]}
+    return model, bodies, sds, data, start
+
+
+def _two_level_fold(sds, per_edge, fault=None):
+    """The root's params as the edges and the root fold them in fp32
+    (``StreamingMean`` at each edge, then the root's weighted merge of the
+    partials), with an edge's partial folded twice or dropped."""
+    from baton_tpu_torch.ops.aggregation import StreamingMean
+
+    partials = []
+    for e in range(len(sds) // per_edge):
+        acc = StreamingMean()
+        for sd in sds[e * per_edge:(e + 1) * per_edge]:
+            acc.add(sd, 48.0)
+        partials.append((acc.mean(), acc.total_weight))
+    if fault == "twice":
+        partials.append(partials[0])
+    elif fault == "dropped":
+        partials.pop()
+    root = StreamingMean()
+    for mean, weight in partials:
+        root.add(mean, weight)
+    return root.mean()
+
+
+@pytest.mark.parametrize("fault", [None, "twice", "dropped"])
+def test_edge_fold_check_fails_a_partial_folded_twice_or_dropped(fault):
+    """The float64 check passes the two-level fp32 fold and fails one in
+    which an edge's partial was folded twice or dropped, though that
+    round's loss on the workers' data still looks right (below the start's,
+    within 5% of the right round's): the loss alone would not show the
+    fault."""
+    model, bodies, sds, data, start = _trained_linear_uploads()
+    right = _two_level_fold(sds, 4)
+    got = _two_level_fold(sds, 4, fault)
+
+    def loss(params):
+        p = {k: torch.as_tensor(v) for k, v in params.items()}
+        return float(model.per_example_loss(p, data).mean())
+
+    if fault is None:
+        held = chip_smoke.hold_edge_fold(got, bodies, 4, 2, 1)
+        assert held["max_share_of_bound"] <= 1.0
+    else:
+        assert loss(got) < loss(start)
+        assert abs(loss(got) - loss(right)) <= 5e-2 * loss(right)
+        with pytest.raises(RuntimeError, match="float64 fold of the uploads"):
+            chip_smoke.hold_edge_fold(got, bodies, 4, 2, 1)
+
+
+def _edge_round(**over):
+    round_ = {"root_blobs": 2, "edge_blobs": 8, "partials": 2, "direct": 0, "root_uploads": 2,
+              "partials_shipped": 2, "credited": [f"w{i}" for i in range(8)],
+              "uploads": [b""] * 8}
+    round_.update(over)
+    return round_
+
+
+@pytest.mark.parametrize("over,match", [
+    ({}, None),
+    ({"root_blobs": 8}, "served the blob 8 times"),
+    ({"edge_blobs": 6}, "edges served the blob 6"),
+    ({"partials": 1, "direct": 4}, "1 edge partials and 4 direct"),
+    ({"partials_shipped": 1}, "edge_partials_shipped rose by 1"),
+    ({"credited": [f"w{i}" for i in range(7)] + ["w0"]}, "the partials credit"),
+    ({"uploads": [b""] * 7}, "received 7 uploads"),
+])
+def test_edge_round_counts_check(over, match):
+    if match is None:
+        chip_smoke.check_edge_round("r", _edge_round(), 8, 2)
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.check_edge_round("r", _edge_round(**over), 8, 2)
+
+
+def test_edge_round_split_holds_each_tier_against_its_own():
+    """Behind edges the worker's upload is split against the edge's ingest
+    of it, and the root's folds of the partials stand on their own: an
+    edge's ingest_fold is not mixed with the root's."""
+    spans = [_span("round_setup", 0.0, 0.5), _span("round", 0.0, 4.0),
+             _span("local_train", 0.5, 1.5, "worker:a"), _span("local_train", 0.5, 2.5, "worker:b"),
+             _span("encode_update", 1.5, 1.6, "worker:a"),
+             _span("encode_update", 2.5, 2.8, "worker:b"),
+             _span("upload", 1.6, 2.0, "worker:a"), _span("upload", 2.8, 3.4, "worker:b"),
+             _span("edge_ingest", 1.7, 1.9, "edge:e0"), _span("edge_ingest", 2.9, 3.3, "edge:e1"),
+             _span("ingest_decode", 1.7, 1.8, "edge:e0"),
+             _span("ingest_decode", 2.9, 3.0, "edge:e1"),
+             _span("ingest_fold", 1.8, 1.9, "edge:e0"), _span("ingest_fold", 3.0, 3.3, "edge:e1"),
+             _span("edge_partial_upload", 3.4, 3.6, "edge:e0"),
+             _span("edge_partial_upload", 3.4, 3.8, "edge:e1"),
+             _span("ingest_decode", 3.5, 3.55), _span("ingest_decode", 3.5, 3.65),
+             _span("ingest_fold", 3.55, 3.6), _span("ingest_fold", 3.65, 3.8),
+             _span("aggregate", 3.8, 3.9)]
+    split = chip_smoke.edge_round_split(spans)
+    want = {"setup": 0.5, "local_train": 1.5, "local_train_max": 2.0, "upload_encode": 0.2,
+            "transfer_to_edge": 0.5 - 0.3, "edge_ingest": 0.3, "edge_decode": 0.1,
+            "edge_fold": 0.2, "uploads": 2, "partial_ship": 0.3, "root_decode": 0.1,
+            "root_fold": 0.1, "merge": 0.1, "partials": 2}
+    assert split.keys() == want.keys()
+    for k, v in want.items():
+        assert split[k] == pytest.approx(v), k
+    assert set(chip_smoke.EDGE_SPLIT_ROOT) <= split.keys()
+    with pytest.raises(RuntimeError, match="'edge', 'edge_ingest'"):
+        chip_smoke.edge_round_split([s for s in spans if s["name"] != "edge_ingest"])
+    with pytest.raises(RuntimeError, match="'manager', 'ingest_fold'"):
+        chip_smoke.edge_round_split([s for s in spans if not (
+            s["name"] == "ingest_fold" and s["service"].startswith("manager"))])
+
+
+def test_trace_tiers_by_service():
+    spans = [_span("round", 0, 1, "manager#ab12"), _span("edge_relay", 0, 1, "edge:e0"),
+             _span("edge_ingest", 0, 1, "edge:e1"), _span("local_train", 0, 1, "worker:c1")]
+    assert chip_smoke.trace_tiers(spans) == {"manager": 1, "edge": 2, "worker": 1}
+
+
+def _console_state(up=(True, True, True), page=False):
+    rules = [{"name": "straggler_rate", "state": "firing" if page else "ok",
+              "severity": "page"}]
+    nodes = [{"url": f"http://n{i}", "up": u, "alerts": {"rules": rules if i == 0 else []}}
+             for i, u in enumerate(up)]
+    return {"root": nodes[0], "edges": nodes[1:], "rounds_tail": []}
+
+
+@pytest.mark.parametrize("rc,state,match", [
+    (0, _console_state(), None),
+    (1, None, "printed no state"),
+    (1, _console_state(up=(True, False, True)), "nodes down"),
+    (1, _console_state(page=True), "page alerts fire"),
+    (1, _console_state(), "exited 1"),
+])
+def test_console_check(rc, state, match):
+    if match is None:
+        chip_smoke.check_console(rc, state, "")
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.check_console(rc, state, "")
+
+
+def _scenario_run(rc=0, failing=False, stuck=False, forced=0, fallbacks=3, no_report=False):
+    report = {"pass": not failing, "assertions": [
+        {"metric": "rounds.total", "op": ">=", "value": 8, "observed": 9,
+         "status": "fail" if failing else "pass"}]}
+    records = [{"round": "r0", "outcome": "completed"},
+               {"round": "r1", "outcome": "in_progress" if stuck else "aborted:timeout"}]
+    return {"rc": rc, "report": None if no_report else report, "records": records,
+            "loadgen": {"scenario_rounds_forced_end": forced},
+            "fleet": {"edge_route_fallbacks": fallbacks}}
+
+
+@pytest.mark.parametrize("fault,match", [
+    ({}, None),
+    ({"rc": 2, "no_report": True}, "wrote no slo_report.json"),
+    ({"failing": True, "rc": 1}, "SLO assertions failed"),
+    ({"rc": 1}, "the CLI exited 1"),
+    ({"stuck": True}, "without a terminal outcome"),
+    ({"forced": 1}, "forced a round to end"),
+    ({"fallbacks": 0}, "fell back"),
+])
+def test_scenario_run_check(fault, match):
+    if match is None:
+        chip_smoke.check_scenario_run(_scenario_run())
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.check_scenario_run(_scenario_run(**fault))
+
+
+def test_edge_cohort_is_the_references_scenario_without_its_baseline():
+    """Phase 24c's scenario: edge_cohort's 8 workers behind 2 edges, steady
+    / edge_loss (edge 1 killed) / recovery of 8 / 8 / 6 s, its 11 SLO
+    assertions, no baseline."""
+    from baton_tpu_torch.loadgen.scenario import parse_scenario
+
+    scn = parse_scenario(chip_smoke.EDGE_COHORT)
+    assert (scn.workers.count, scn.edges.count, scn.model_dim, scn.workers.batch_size) == \
+        (8, 2, 10, 32)
+    assert [(p.name, p.duration_s) for p in scn.phases] == \
+        [("steady", 8), ("edge_loss", 8), ("recovery", 6)]
+    assert list(scn.phases[1].kill_edges) == [1]
+    assert len(scn.slo.assertions) == 11 and scn.slo.baseline is None
+
+
+def test_scenario_cli_runs_an_edge_scenario_on_the_cpu(tmp_path):
+    """Phase 24c's run of the loadgen CLI (``scenario_cli``) and its check
+    over a short edge scenario on the CPU: 4 workers behind 2 edges, edge 1
+    killed mid-run; the workers' compute records say they ran on the CPU."""
+    from _torch_sockets import engine_sockets, run_bounded
+
+    scenario = {
+        **chip_smoke.EDGE_COHORT, "name": "edge_cohort_t", "model": {"dim": 6},
+        "workers": {"count": 4, "heartbeat_time": 0.3, "batch_size": 16, "min_batches": 1,
+                    "max_batches": 1},
+        "edges": {"count": 2, "flush_after_s": 2.0, "heartbeat_time": 0.5, "retry_s": 60.0},
+        "manager": {"round_timeout": 3.0, "client_ttl": 6.0},
+        "rounds": {"interval_s": 0.8, "warmup": 1},
+        "phases": [{"name": "steady", "duration_s": 2.5},
+                   {"name": "edge_loss", "duration_s": 3.0, "kill_edges": [1]}],
+        "slo": {"assertions": [
+            {"metric": "loadgen:scenario_edges_killed", "op": "==", "value": 1},
+            {"metric": "counter:updates_received_edge_partial", "op": ">=", "value": 1}]}}
+    with engine_sockets():
+        run = run_bounded(lambda: asyncio.to_thread(
+            chip_smoke.scenario_cli, scenario, tmp_path, "cpu"), limit_s=120.0)
+    chip_smoke.check_scenario_run(run)
+    assert [a["status"] for a in run["report"]["assertions"]] == ["pass", "pass"]
+    assert (tmp_path / "artifacts" / "slo_report.json").exists()
+    assert chip_smoke.scenario_peak_sources(run["records"]) == \
+        {"no allocator statistics on the cpu device"}

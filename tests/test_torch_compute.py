@@ -1,8 +1,8 @@
 """The port's compute probe: records keep the null-with-reason invariant,
 MFU divides by the card's peak looked up by its CUDA name (no TPU entry,
 none for the CPU), warm-up calls are marked by first-seen shape
-signatures, and ``summarize_round`` folds records as the JAX package's
-does."""
+signatures, the per-chip rate divides by the chips a round ran on, and
+``summarize_round`` folds records as the JAX package's does."""
 
 import pytest
 import torch
@@ -22,6 +22,21 @@ def test_h100_mfu_from_a_fixed_train_s():
     assert rec["flops_per_sample"] == pytest.approx(3.33e9)
     assert rec["mfu"] == pytest.approx(1536 / 0.25 * 3.33e9 / 989e12, rel=1e-5)
     assert rec["peak_hbm_gb"] == 12.5 and rec["steps"] == 64
+
+
+@pytest.mark.parametrize("n_chips", [1, 2, 4])
+def test_per_chip_rate_and_mfu_divide_by_the_chips_as_the_references_do(n_chips):
+    """A round over ``n_chips`` chips: the per-chip rate and the MFU are the
+    round's over ``n_chips``, as in the JAX package's record."""
+    kw = dict(train_s=0.25, n_samples=1536, steps=64, device_kind=H100_SXM,
+              model_family="resnet18_cifar", n_chips=n_chips)
+    rec = compute.build_record(**kw)
+    ref = jcompute.build_record(**kw)
+    assert rec["n_chips"] == ref["n_chips"] == n_chips
+    assert rec["samples_per_sec"] == pytest.approx(1536 / 0.25)
+    assert rec["samples_per_sec_per_chip"] == ref["samples_per_sec_per_chip"] == \
+        pytest.approx(1536 / 0.25 / n_chips)
+    assert rec["mfu"] == pytest.approx(1536 / 0.25 / n_chips * 3.33e9 / 989e12, abs=1e-6)
 
 
 @pytest.mark.parametrize("name,flops,bandwidth", [

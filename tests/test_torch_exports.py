@@ -32,6 +32,28 @@ def test_top_level_names_are_the_references():
         assert getattr(baton_tpu_torch, name).__name__ == name
 
 
+def test_core_exports_the_references_names():
+    """``baton_tpu_torch.core`` re-exports what ``baton_tpu.core`` does
+    (it once exported nothing)."""
+    import baton_tpu.core
+    import baton_tpu_torch.core
+    from baton_tpu_torch.core import (  # noqa: F401
+        FedModel,
+        LocalTrainer,
+        ParamPartition,
+        fedprox,
+        make_local_trainer,
+        make_partition,
+    )
+
+    want = set(baton_tpu.core.__all__)
+    assert want == {"FedModel", "LocalTrainer", "make_local_trainer", "ParamPartition",
+                    "make_partition", "fedprox"}
+    assert set(baton_tpu_torch.core.__all__) == want
+    for name in want:
+        assert getattr(baton_tpu_torch.core, name).__name__ == name
+
+
 def test_utils_exports_the_checkpointer():
     assert set(baton_tpu.utils.__all__) <= set(baton_tpu_torch.utils.__all__)
     from baton_tpu_torch.utils.checkpoint import Checkpointer, RestoredState

@@ -7,7 +7,9 @@ crossing the process boundary, against numpy at rtol 1e-5; then a FedSim
 round on 8 shards over both processes against the meshless round (1e-5),
 and a LoRA round on that hybrid mesh (the model axis inside each
 process, the base placed over it) against meshless (1e-5) with the one
-all-reduce a round of the clients axis.
+all-reduce a round of the clients axis. The meshed round's compute record
+counts both processes' devices: ``n_chips`` 2, so the per-chip rate is
+half the round's (the record once counted the whole mesh as one chip).
 Every child runs under a hard timeout and is killed in ``finally``; the
 children destroy their process group on exit. Also: one process needs no
 process group, a bad coordinator address raises, and the defaults give
@@ -39,7 +41,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_fedavg_over_gloo():
+@pytest.fixture(scope="module")
+def children():
+    """The two children's JSON lines, in rank order."""
     n_proc = 2
     coord = f"127.0.0.1:{free_port()}"
     child = os.path.join(os.path.dirname(__file__), "_torch_multihost_child.py")
@@ -60,12 +64,28 @@ def test_two_process_fedavg_over_gloo():
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return outs
+
+
+def test_two_process_fedavg_over_gloo(children):
+    outs = children
     assert [o["rank"] for o in outs] == [0, 1]
     for o in outs:
         assert o["ok"] and o["world"] == 2
         assert o["mesh"] == {"clients": 4, "model": 2}
         assert o["round_gap"] <= 1e-5
         assert o["hybrid"]["gap"] <= 1e-5 and o["hybrid"]["all_reduces"] == 1
+
+
+def test_two_process_compute_record_counts_both_processes(children):
+    for o in children:
+        plain, meshed = o["compute"]["plain"], o["compute"]["meshed"]
+        assert plain["n_chips"] == 1
+        assert plain["samples_per_sec_per_chip"] == plain["samples_per_sec"]
+        assert meshed["n_chips"] == 2
+        # both rates are rounded to 3 decimals in the record
+        assert meshed["samples_per_sec_per_chip"] == pytest.approx(
+            meshed["samples_per_sec"] / 2, abs=1e-3)
 
 
 def test_one_process_needs_no_process_group():

@@ -1,6 +1,7 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its entry
 points (``FedSim``, the HTTP ``Manager`` and ``ExperimentWorker``, the
-demo, the examples, and FedSim over each model of the zoo) refuse to run
+demo, the examples, FedSim over each model of the zoo, and the loadgen's
+``run_scenario`` and CLI) refuse to run
 without a GPU unless asked for the CPU, every option builds (a clients
 mesh and a hybrid clients x model mesh among them), no
 ``NotImplementedError`` in the port's source names a next slice or an
@@ -82,6 +83,11 @@ def test_the_import_scan_covers_the_federation_variants():
             ("partition", "mesh", "multihost")} <= names
     assert {f"baton_tpu_torch/examples/{m}.py" for m in
             ("bert_fedprox", "long_context_ring")} <= names
+    # the operations planes: the edge tier, the ops console and the loadgen
+    assert {"baton_tpu_torch/server/edge.py", "baton_tpu_torch/ops/console.py",
+            "baton_tpu_torch/ops/__main__.py"} <= names
+    assert {f"baton_tpu_torch/loadgen/{m}.py" for m in
+            ("__init__", "__main__", "engine", "scenario", "slo")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -109,6 +115,31 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
     assert make_mesh(8, ("seq",), devices=["cpu"] * 8).shape == {"seq": 8}
+
+
+def test_loadgen_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """``run_scenario``/``ScenarioRunner`` and ``python -m
+    baton_tpu_torch.loadgen`` hold their managers' and workers' params on
+    the card unless given ``device="cpu"`` / ``--device cpu``; without a GPU
+    they raise before they start a server, and never fall back."""
+    from baton_tpu_torch.loadgen.engine import ScenarioRunner, run_scenario
+    from baton_tpu_torch.loadgen.scenario import parse_scenario
+
+    scn = parse_scenario({"name": "t", "phases": [{"duration_s": 1.0}]})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScenarioRunner(scn, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(run_scenario(scn, str(tmp_path)))
+    assert ScenarioRunner(scn, str(tmp_path), device="cpu").device.type == "cpu"
+    path = tmp_path / "t.json"
+    path.write_text('{"name": "t", "phases": [{"duration_s": 1.0}]}')
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "baton_tpu_torch.loadgen", str(path),
+                          "--artifacts", str(tmp_path / "a")], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    assert not (tmp_path / "a" / "rounds.jsonl").exists()
 
 
 def _zoo():
