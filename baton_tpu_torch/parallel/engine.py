@@ -386,7 +386,9 @@ class FedSim:
                                                              n_epochs=n_epochs)
         return self._auto_wave_cache[key]
 
-    def _trial_wave(self, params, data, n_samples, wave_size: int):
+    # live: utils/profiling.py calls it through an untyped ``sim``, which the
+    # call graph cannot resolve
+    def _trial_wave(self, params, data, n_samples, wave_size: int):  # batonlint: allow[BTL007]
         """One epoch of one wave of the first ``wave_size`` clients
         (phantoms past the cohort), trained and folded as ``run_round``
         does, on throwaway shuffles and noise: what

@@ -105,10 +105,15 @@ class Mesh:
         shard ``j`` of a tensor split over that axis lives on the ``j``-th."""
         return self._along(self.devices, axis_name)
 
+    def axis_process_ids(self, axis_name: str) -> List[int]:
+        """The rank of the process that holds each shard along
+        ``axis_name`` (at index 0 of every other axis), in shard order."""
+        return [int(p) for p in self._along(self.process_ids, axis_name)]
+
     def local_shards(self, axis_name: str = CLIENT_AXIS) -> List[Tuple[int, torch.device]]:
         """``(j, device)`` of the shards along ``axis_name`` that this
         process holds, in shard order."""
-        owners = self._along(self.process_ids, axis_name)
+        owners = self.axis_process_ids(axis_name)
         return [(j, d) for j, (d, p) in enumerate(zip(self.axis_devices(axis_name), owners))
                 if p == self.process_index]
 

@@ -8,8 +8,13 @@ inside one (ICI). The port joins processes with
 Mesh` whose ``dcn_axis`` spans the processes and whose other axes span
 each process's local devices. The ``clients`` axis communicates once a
 round (the FedAvg psum of one model-sized tree), so it is the one that
-crosses processes; its transport is one ``all_reduce``
-(``ops/aggregation.py:_all_reduce``).
+crosses processes in a federation; its transport is one ``all_reduce``
+(``ops/aggregation.py:_all_reduce``). A ``seq`` axis crosses them the same
+way, ``make_hybrid_mesh([], dcn_axis="seq", devices=...)``: each process
+holds a contiguous run of the sequence's shards and the ring's blocks, the
+seams' gathers and Ulysses' re-shard cross the boundary by
+``torch.distributed`` point-to-point and collective calls
+(``parallel/ring_attention.py``).
 
 The backend follows the tensors: a process's shards live on its
 ``devices`` (by default one GPU a process, ``cuda:(rank % local GPUs)``

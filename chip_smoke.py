@@ -287,6 +287,26 @@ exits non-zero:
    edge's workers fall back to the root (``edge_route_fallbacks``), and
    the params of the root and the workers live on the card. No flash
    kernel launches in phase 24.
+25. the ring across processes, at the end: (a) two processes on the one
+   card joined over gloo (NCCL refuses two ranks on one device; gloo's
+   transport goes through host memory), each holding 4 shards of a seq
+   axis of 8 that crosses the process boundary (``make_hybrid_mesh([],
+   dcn_axis="seq")``), run example 06's ``--scale full`` model with phase
+   21a's params and tokens: step 0's loss and every gradient within 1e-5
+   of 21a's one-process ring (relative to each tensor's largest value),
+   then 2 steps of the example's trainer with finite losses and the two
+   processes' params within 1e-6 of each other; each process's launches a
+   step those of its own shards (``ring_step_launches`` for shards 0-3 and
+   4-7, on tf32x3); s/step against 21a's, the bytes each process sent
+   across the boundary a step, its transport's seconds a step and its
+   peak memory. (b) In the same processes, the dense ring and the striped
+   fn over the 8 shards, Ulysses over 4 and ring x flash in bf16 (the mma
+   kernels, launches counted) at B 2, 8/4 heads, L 4,096, D 64, causal,
+   shards 5-7 all padding, forward and the q, k, v and bias gradients,
+   each within 1e-5 of the same fn over as many shards in one process.
+   Both children run under a hard timeout and are killed in ``finally``.
+   (c) ``python -m baton_tpu_torch.analysis baton_tpu_torch`` in a
+   process of its own exits 0 with no finding and never imports JAX.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
 21's fp32 times at the ring block (the forward and the backward pair): the
@@ -298,7 +318,8 @@ kernel, by its launch key (``fwd_mma``, ``bwd_dkv_mma``, ``bwd_dq_mma`` on
 the main path, phase 3's BERT-base round; ``fwd_tf32x3``, ``bwd_dkv_tf32x3``,
 ``bwd_dq_tf32x3`` on example 06's ring x flash, phase 21a), each with its
 launches on its path, its error in phase 2, and its times and bounds at
-that path's shape. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+that path's shape; the fp32 rows add each process's launches a step in
+25a, the bf16 rows each process's launches in 25b's bf16 ring. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -4463,19 +4484,22 @@ TF32_PEAK = 495e12  # FLOP/s in TF32 on the tensor cores, dense (the same data s
 RING_TOL = 1e-4  # (a)-(b): loss and each gradient against the flash model, relative
 
 
-def ring_block_calls(n: int, causal: bool = True) -> int:
-    """Flash block calls of one ring pass over ``n`` shards: each shard's
-    diagonal block, then (causal) only the blocks from its past, so
-    ``n + n(n-1)/2``; not causal ``n²``."""
-    return n + n * (n - 1) // 2 if causal else n * n
+def ring_block_calls(n: int, causal: bool = True, shards=None) -> int:
+    """Flash block calls of one ring pass over ``n`` shards, made for the
+    ``shards`` given (default all): each shard's diagonal block, then
+    (causal) only the blocks from its past, so shard ``j`` makes ``j + 1``
+    and all ``n + n(n-1)/2``; not causal ``n`` a shard, ``n²`` in all."""
+    shards = range(n) if shards is None else shards
+    return sum(j + 1 if causal else n for j in shards)
 
 
-def ring_step_launches(n: int, n_layers: int, remat: bool) -> dict:
+def ring_step_launches(n: int, n_layers: int, remat: bool, shards=None) -> dict:
     """Kernel launches of one training step of a causal decoder whose
-    attention is a ring × flash of ``n`` shards: a pass's block calls a
-    layer, the forward once more under remat (the backward recomputes each
-    block), each backward kernel once a block."""
-    calls = ring_block_calls(n) * n_layers
+    attention is a ring × flash of ``n`` shards, made for the ``shards``
+    given (default all): a pass's block calls a layer, the forward once
+    more under remat (the backward recomputes each block), each backward
+    kernel once a block."""
+    calls = ring_block_calls(n, shards=shards) * n_layers
     return {"fwd": calls * (2 if remat else 1), "bwd_dkv": calls, "bwd_dq": calls}
 
 
@@ -4494,15 +4518,25 @@ def check_shards(name, got, want, n, tol, dim=2) -> float:
     return max(errs)
 
 
-def check_model_grads(name, got, want, tol=RING_TOL) -> float:
-    """Every param's gradient within ``tol`` of the reference's at its own
-    scale (max |got - want| over max |want|); returns the largest gap."""
+def model_grad_gap(got, want) -> tuple:
+    """(name, gap) of the param whose gradient lies farthest from the
+    reference's at its own scale (max |got - want| over max |want|); gap
+    inf when the two name different params."""
+    if set(got) != set(want):
+        return "names", math.inf
     gaps = {k: ((got[k].float() - w.float()).abs().max()
                 / w.float().abs().max().clamp_min(1e-30)).item() for k, w in want.items()}
     worst = max(gaps, key=gaps.get)
-    check(set(got) == set(want) and gaps[worst] <= tol,
-          f"{name}: gradient of {worst} off by {gaps[worst]:.3e} of its largest value (tol {tol})")
-    return gaps[worst]
+    return worst, gaps[worst]
+
+
+def check_model_grads(name, got, want, tol=RING_TOL) -> float:
+    """Every param's gradient within ``tol`` of the reference's at its own
+    scale (``model_grad_gap``); returns the largest gap."""
+    worst, gap = model_grad_gap(got, want)
+    check(gap <= tol, f"{name}: gradient of {worst} off by {gap:.3e} of its largest value "
+          f"(tol {tol})")
+    return gap
 
 
 def ring_inputs(seed, b, hq, hkv, l, d, dtype, valid=None):
@@ -4540,7 +4574,10 @@ def hold_attention(name, fn, ref, inputs, n, tol, causal=True) -> dict:
 
 def long_context_phase(fa):
     """Phase 21a: example 06's full preset as written, 5 steps of ring ×
-    flash over 8 shards of the card; step 0 held against the flash model."""
+    flash over 8 shards of the card; step 0 held against the flash model.
+    Returns (launches by pass, each step's launches, the one-process ring's
+    step 0 for phase 25a: its config, params, tokens, loss and gradients on
+    the host, and the median s/step; stats)."""
     from baton_tpu_torch.examples import long_context_ring as ex
     from baton_tpu_torch.models.llama import llama_lm_model
     from baton_tpu_torch.ops.flash_attention import make_flash_attention_fn
@@ -4571,6 +4608,11 @@ def long_context_phase(fa):
     check(loss_gap <= RING_TOL, f"21a: step 0 loss {ring_loss} against the flash model's "
           f"{flash_loss} (relative {loss_gap:.3e}, tol {RING_TOL})")
     grad_gap = check_model_grads("21a", ring_grads, flash_grads)
+    # phase 25a holds the ring across processes against this one-process ring
+    reference = {"config": dataclasses.asdict(cfg), "n": n, "batch": batch,
+                 "params": {k: v.cpu() for k, v in params.items()},
+                 "tokens": toks.cpu(), "loss": ring_loss,
+                 "grads": {k: v.cpu() for k, v in ring_grads.items()}}
     del ring_grads, flash_grads
     torch.cuda.empty_cache()
     print(f"  step 0 against one flash call over all {cfg.max_len} tokens: loss {ring_loss:.6f} "
@@ -4613,7 +4655,8 @@ def long_context_phase(fa):
           f"{ring_block_calls(n)} block calls a pass and layer), {by_design}")
     _, breakdown = profiled(lambda: ex.run(**dict(full, n_steps=1), device="cuda",
                                            params=params), "one step")
-    return by_pass, measured, {
+    reference["median_s_per_step"] = median_s
+    return by_pass, measured, reference, {
         "s_per_step": step_s, "median_s_per_step": median_s, "tokens_per_s": tokens_s,
         "peak_memory_gb": peak_gb, "losses": losses, "step0_loss_gap": loss_gap,
         "step0_grad_gap": grad_gap, "launches_by_design": by_design,
@@ -4749,16 +4792,16 @@ def ring_seams_phase():
 def sequence_parallel_phase(fa, name):
     """Phase 21: (a)-(d) above; returns (launches of (a) by pass, each of
     its steps' launches as counted, ring-block rows by kernel and dtype,
-    stats)."""
+    stats, (a)'s one-process ring for phase 25a)."""
     torch.cuda.empty_cache()
-    launches, per_step, stats = long_context_phase(fa)
+    launches, per_step, reference, stats = long_context_phase(fa)
     torch.cuda.empty_cache()
     stats = {"long_context": stats, "striped": striped_phase(fa)}
     torch.cuda.empty_cache()
     stats["ring_flash_alone"] = ring_flash_alone_phase(fa)
     block_rows, stats["ring_block_bwd_pair_fp32"] = ring_block_times(fa, name)
     stats["seams"] = ring_seams_phase()
-    return launches, per_step, block_rows, stats
+    return launches, per_step, block_rows, stats, reference
 
 
 def ring_block_times(fa, name, dtypes=(torch.float32, torch.bfloat16)):
@@ -5525,6 +5568,329 @@ def hybrid_phase(fa):
             "parity": timed_phase("23c", hybrid_parity_phase)}
 
 
+# phase 25: the ring across processes. Two processes on the one card joined
+# over gloo (NCCL refuses two ranks on one device), each holding half the
+# shards of a seq axis that crosses the process boundary
+# (make_hybrid_mesh([], dcn_axis="seq")): example 06 at full width against
+# phase 21a's one-process ring, the other kernels at a small size against
+# themselves in one process, then the port's lint.
+
+RING_PROCESSES = 2
+RING_PROCESS_TOL = 1e-5  # (a): step 0's loss and each gradient against 21a's ring, relative
+RING_PARAM_TOL = 1e-6  # (a): the two processes' params after the steps
+RING_PROCESS_STEPS = 2  # (a)
+RING_SMALL = (2, 8, 4, 4096, 64)  # (b): B, Hq, Hkv, L, D
+RING_SMALL_TOL = 1e-5  # (b): each kernel across processes against itself in one
+RING_CHILD_TIMEOUT_S = 600  # (a)-(b): each child process
+LINT_LIMIT_S = 300  # (c)
+
+
+def ring_module():
+    """``baton_tpu_torch.parallel.ring_attention`` (the package exports a
+    function of the same name)."""
+    import importlib
+
+    return importlib.import_module("baton_tpu_torch.parallel.ring_attention")
+
+
+def allclose_share(got, want, tol) -> float:
+    """The largest |got - want| / (tol + tol·|want|): at most 1 where
+    ``torch.allclose(got, want, rtol=tol, atol=tol)`` holds."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+def ring_processes_long(fa, ctx, dev, mesh) -> dict:
+    """Phase 25a in a child: 21a's model, params and tokens with the ring
+    over ``mesh``; step 0's loss and gradients against 21a's one-process
+    ring, then ``RING_PROCESS_STEPS`` steps of example 06's trainer, each
+    step's launches, transport and time, the peak memory, and the largest
+    gap between the two processes' params."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from baton_tpu_torch.core.training import make_local_trainer
+    from baton_tpu_torch.examples import long_context_ring as ex
+    from baton_tpu_torch.models.llama import LlamaConfig, llama_lm_model
+
+    ra = ring_module()
+    cfg = LlamaConfig(**ctx["config"])
+    model = llama_lm_model(cfg, attention_fn=ex.make_attention_fn(mesh), remat=True)
+    params = {k: v.to(dev) for k, v in ctx["params"].items()}
+    toks = ctx["tokens"].to(dev)
+    data = {"x": toks, "y": toks}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grads, loss = torch.func.grad_and_value(
+        lambda p: model.per_example_loss(p, data).mean())(params)
+    loss = loss.item()
+    step0_s = time.perf_counter() - t0
+    worst, grad_gap = model_grad_gap(grads, {k: v.to(dev) for k, v in ctx["grads"].items()})
+    del grads
+    stamps, counts, moved = [], [], []
+
+    def stamp(step, _):
+        sync()
+        stamps.append(time.perf_counter())
+        counts.append(fa.launches())
+        moved.append(dict(ra.transport_counts))
+
+    trainer = make_local_trainer(model, batch_size=ctx["batch"],
+                                 learning_rate=inspect.signature(ex.run).parameters["lr"].default,
+                                 progress_fn=stamp)
+    sync()
+    fa.reset_launches()
+    ra.reset_transport_counts()
+    t0 = time.perf_counter()
+    stepped, _, hist = trainer.train(params, data, ctx["batch"], RING_PROCESS_STEPS,
+                                     generator=torch.Generator().manual_seed(1))
+    by_design = {k: v for k, v in fa.launches_by_design.items() if v}
+    param_gap = 0.0
+    for p in stepped.values():
+        both = p.detach().clone()
+        dist.all_reduce(both)  # the two processes' params added
+        param_gap = max(param_gap, (2 * p.detach() - both).abs().max().item())
+    diffs = [{k: now[k] - (prev[k] if prev else 0) for k in now}
+             for prev, now in zip([None] + counts[:-1], counts)]
+    transport = [{k: now[k] - (prev[k] if prev else 0) for k in now}
+                 for prev, now in zip([None] + moved[:-1], moved)]
+    return {"loss": loss, "loss_gap": abs(loss - ctx["loss"]) / abs(ctx["loss"]),
+            "grad_gap": grad_gap, "grad_worst": worst, "step0_s": step0_s,
+            "losses": [float(x) for x in hist], "s_per_step": np.diff([t0] + stamps).tolist(),
+            "launches_per_step": diffs, "launches_by_design": by_design,
+            "transport_per_step": transport, "param_gap": param_gap,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None)}
+
+
+def ring_processes_small(fa, ctx, dev) -> dict:
+    """Phase 25b in a child: the dense ring and the striped fn over the 8
+    shards across both processes, Ulysses over 4, and ring × flash in bf16
+    over 8, each against the same fn over as many shards in this process
+    alone, forward and the q, k, v and bias gradients, causal with a padding
+    bias (the last shards all padding); the bf16 ring's launches."""
+    from baton_tpu_torch.parallel.mesh import make_mesh
+    from baton_tpu_torch.parallel.multihost import make_hybrid_mesh
+
+    ra = ring_module()
+    b, hq, hkv, l, d = ctx["small"]
+    gen = torch.Generator().manual_seed(25)
+    base = [torch.randn(b, h, l, d, generator=gen) for h in (hq, hkv, hkv, hq)]
+    keep = torch.arange(l) < (5 * l) // 8 - l // 32  # shard 4 in part, 5-7 all padding
+    bias = torch.where(keep, 0.0, -1e30).expand(b, l)[:, None, None, :].contiguous().to(dev)
+    out = {}
+    for label, make, n, dtype in (("dense ring", ra.make_ring_attention_fn, 8, torch.float32),
+                                  ("striped", ra.make_striped_attention_fn, 8, torch.float32),
+                                  ("ulysses", ra.make_ulysses_attention_fn, 4, torch.float32),
+                                  ("flash bf16", ra.make_flash_ring_attention_fn, 8,
+                                   torch.bfloat16)):
+        q, k, v, dout = (x.to(dev, dtype) for x in base)
+        mesh = make_hybrid_mesh([], dcn_axis="seq", devices=[dev] * (n // RING_PROCESSES))
+        across = make(mesh)
+        alone = make(make_mesh(n, ("seq",), devices=[dev] * n))
+        fa.reset_launches()
+        got = attention_vjp(across, q, k, v, dout, bias)
+        launches = fa.launches()
+        by_design = {key: c for key, c in fa.launches_by_design.items() if c}
+        want = attention_vjp(alone, q, k, v, dout, bias)
+        shares = {what: allclose_share(g, w, RING_SMALL_TOL)
+                  for what, g, w in zip(("out", "dq", "dk", "dv", "dbias"),
+                                        (got[0], *got[1]), (want[0], *want[1]))}
+        out[label] = {"n": n, "shares": shares, "launches": launches,
+                      "launches_by_design": by_design,
+                      "local_shards": [j for j, _ in mesh.local_shards("seq")]}
+    return out
+
+
+def ring_child(coordinator: str, rank: int, device: str, work: str) -> int:
+    """Phase 25's child: ``python3 chip_smoke.py --ring-child host:port rank
+    device dir``. Joins a gloo group of 2 processes, each with half the
+    shards of a seq axis of 8 on ``device`` (``cuda:0`` on the card), loads
+    the context the parent wrote to ``dir``, runs 25a and 25b, and prints
+    one JSON line; destroys its process group on every exit."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from baton_tpu_torch.ops import flash_attention as fa
+    from baton_tpu_torch.parallel.multihost import initialize_multihost, make_hybrid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's 21a
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    ctx = torch.load(Path(work) / "ring_ctx.pt")
+    shards = ctx["n"] // RING_PROCESSES
+    try:
+        initialize_multihost(coordinator, RING_PROCESSES, rank, backend="gloo",
+                             devices=[dev] * shards, timeout_s=120)
+        mesh = make_hybrid_mesh([], dcn_axis="seq", devices=[dev] * shards)
+        out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+               "local_shards": [j for j, _ in mesh.local_shards("seq")],
+               "long_context": ring_processes_long(fa, ctx, dev, mesh)}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["small"] = ring_processes_small(fa, ctx, dev)
+        print(json.dumps(out), flush=True)
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def check_ring_processes(outs, reference, kernels=True) -> None:
+    """Phase 25's checks of its two children's lines: each holds its half
+    of the shards; 25a's step 0 within ``RING_PROCESS_TOL`` of the
+    one-process ring's loss and gradients, finite losses, the two
+    processes' params within ``RING_PARAM_TOL``; 25b's kernels within
+    ``RING_SMALL_TOL`` of themselves in one process. With ``kernels`` (on
+    the card), each step's launches and 25b's bf16 ring's are what this
+    process's shards make, on the fp32 and mma designs: a process that
+    ran a shard it does not hold fails here."""
+    n = reference["n"]
+    layers = reference["config"]["n_layers"]
+    half = n // RING_PROCESSES
+    check([o["rank"] for o in outs] == list(range(RING_PROCESSES))
+          and [o["local_shards"] for o in outs] == [list(range(r * half, (r + 1) * half))
+                                                    for r in range(RING_PROCESSES)],
+          f"25: ranks and shards {[(o['rank'], o['local_shards']) for o in outs]}")
+    for o in outs:
+        a, rank = o["long_context"], o["rank"]
+        check(a["loss_gap"] <= RING_PROCESS_TOL,
+              f"25a rank {rank}: step 0 loss {a['loss']} against the one-process ring's "
+              f"{reference['loss']} (relative {a['loss_gap']:.3e}, tol {RING_PROCESS_TOL})")
+        check(a["grad_gap"] <= RING_PROCESS_TOL,
+              f"25a rank {rank}: gradient of {a['grad_worst']} off the one-process ring's by "
+              f"{a['grad_gap']:.3e} of its largest value (tol {RING_PROCESS_TOL})")
+        check(len(a["losses"]) == RING_PROCESS_STEPS
+              and all(math.isfinite(x) for x in a["losses"]), f"25a rank {rank}: losses "
+              f"{a['losses']}")
+        check(a["param_gap"] <= RING_PARAM_TOL,
+              f"25a rank {rank}: the processes' params differ by {a['param_gap']:.3e}")
+        for label, c in o["small"].items():
+            worst = max(c["shares"], key=c["shares"].get)
+            check(c["shares"][worst] <= 1.0,
+                  f"25b rank {rank} {label}: {worst} off the one-process fn at "
+                  f"{c['shares'][worst]:.3e} of rtol = atol = {RING_SMALL_TOL}")
+        if not kernels:
+            continue
+        want = ring_step_launches(n, layers, remat=True, shards=o["local_shards"])
+        check(a["launches_per_step"] == [want] * RING_PROCESS_STEPS
+              and set(a["launches_by_design"]) == {f"{k}_tf32x3" for k in want},
+              f"25a rank {rank}: launches a step {a['launches_per_step']} "
+              f"{a['launches_by_design']}, want {want} (shards {o['local_shards']}) on tf32x3")
+        flash = o["small"]["flash bf16"]
+        calls = ring_block_calls(flash["n"], shards=flash["local_shards"])
+        check(flash["launches"] == {"fwd": calls, "bwd_dkv": calls, "bwd_dq": calls}
+              and set(flash["launches_by_design"]) == {f"{k}_mma" for k in want},
+              f"25b rank {rank}: bf16 ring launches {flash['launches']} "
+              f"{flash['launches_by_design']}, want {calls} each on mma")
+
+
+def ring_processes_phase(fa, reference, device="cuda") -> dict:
+    """Phase 25a-b: two children over gloo, each under a hard timeout and
+    killed in ``finally``; their lines checked (``check_ring_processes``,
+    the launches on the card only) and printed beside 21a's one-process
+    s/step. The kernels are built (phase 1) before the children start,
+    which load them."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    n = reference["n"]
+    print(f"phase 25a-b: two processes on the one card over gloo ({coordinator}), {n // 2} "
+          f"shards of {device} each of a seq axis of {n}: example 06 --scale full against 21a's "
+          f"one-process ring; the dense ring, striped, Ulysses and bf16 ring x flash at B, Hq, "
+          f"Hkv, L, D = {RING_SMALL}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(dict(reference, small=RING_SMALL), Path(work) / "ring_ctx.pt")
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--ring-child",
+                                   coordinator, str(rank), device, work],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for rank in range(RING_PROCESSES)]
+        done = []
+        try:
+            done = [p.communicate(timeout=RING_CHILD_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    check(all(p.returncode == 0 for p in procs), "25: the children exited "
+          f"{[p.returncode for p in procs]}:\n" + "\n".join(
+              f"rank {rank}:\n{err[-3000:]}" for rank, (_, err) in enumerate(done)))
+    outs = [json.loads(out.strip().splitlines()[-1]) for out, _ in done]
+    check_ring_processes(outs, reference, kernels=device == "cuda")
+    for o in outs:
+        a = o["long_context"]
+        moved = a["transport_per_step"]
+        print(f"  rank {o['rank']} (shards {o['local_shards']}): step 0 loss {a['loss']:.6f} "
+              f"against {reference['loss']:.6f} (relative {a['loss_gap']:.2e}), gradients within "
+              f"{a['grad_gap']:.2e} ({a['step0_s']:.1f} s); {RING_PROCESS_STEPS} steps: s/step "
+              f"{[round(x, 4) for x in a['s_per_step']]} against the one-process ring's median "
+              f"{reference['median_s_per_step']:.4f}, losses {[round(x, 4) for x in a['losses']]}"
+              f"; sent across the boundary a step {[m['bytes'] for m in moved]} B in "
+              f"{[m['exchanges'] for m in moved]} exchanges, transport "
+              f"{[round(m['seconds'], 4) for m in moved]} s a step; peak "
+              f"{a['peak_memory_gb'] or 0:.2f} GB; params {a['param_gap']:.1e} from the other "
+              f"process's; launches a step {a['launches_per_step'][0]}")
+        for label, c in o["small"].items():
+            print(f"  rank {o['rank']} 25b {label} over {c['n']} shards: " + " ".join(
+                f"{k}={v:.2e}" for k, v in c["shares"].items())
+                + f" of rtol = atol = {RING_SMALL_TOL}; launches {c['launches']}")
+    print(f"  the two processes took {time.perf_counter() - t0:.1f} s, start to exit")
+    return {"ranks": outs}
+
+
+def check_lint(rc: int, report: dict) -> None:
+    """Phase 25c: the port's lint exits 0 with no finding over more than
+    100 files, in a process that never imported JAX or the JAX package."""
+    check(rc == 0 and report.get("rc") == 0 and report.get("findings") == 0
+          and report.get("files", 0) > 100,
+          f"25c: batonlint over baton_tpu_torch exited {rc}: {report}")
+    check(not report.get("jax") and not report.get("baton_tpu"),
+          f"25c: the lint's process imported JAX or the JAX package: {report}")
+
+
+LINT_CODE = """\
+import contextlib, io, json, re, runpy, sys
+sys.argv = ["batonlint", "baton_tpu_torch"]
+text = io.StringIO()
+with contextlib.redirect_stdout(text):
+    try:
+        runpy.run_module("baton_tpu_torch.analysis", run_name="__main__")
+        rc = 0
+    except SystemExit as e:
+        rc = e.code or 0
+summary = re.search(r"(\\d+) finding\\(s\\), (\\d+) suppressed, (\\d+) file\\(s\\)", text.getvalue())
+print(text.getvalue().strip())
+print(json.dumps({"rc": rc, "findings": int(summary[1]) if summary else None,
+                  "suppressed": int(summary[2]) if summary else None,
+                  "files": int(summary[3]) if summary else 0,
+                  "jax": "jax" in sys.modules, "baton_tpu": "baton_tpu" in sys.modules}))
+sys.exit(rc)
+"""
+
+
+def lint_phase() -> dict:
+    """Phase 25c: ``python -m baton_tpu_torch.analysis baton_tpu_torch`` in
+    a process of its own (under a time limit), which must exit 0 without
+    importing JAX."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", LINT_CODE], cwd=ROOT, capture_output=True,
+                          text=True, timeout=LINT_LIMIT_S)
+    lines = done.stdout.strip().splitlines()
+    try:
+        report = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        report = {"stdout": done.stdout[-2000:], "stderr": done.stderr[-2000:]}
+    check_lint(done.returncode, report)
+    seconds = time.perf_counter() - t0
+    print(f"phase 25c: batonlint over baton_tpu_torch: {report['findings']} findings, "
+          f"{report['suppressed']} suppressed, {report['files']} files, exit 0, JAX not "
+          f"imported, {seconds:.1f} s")
+    return dict(report, seconds=seconds)
+
+
 def timed_phase(label, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``label``."""
     t0 = time.perf_counter()
@@ -5628,7 +5994,8 @@ def main() -> int:
     examples_stats = timed_phase("20", examples_phase)
     print(f"phases 17-20 took {time.perf_counter() - slice10:.1f} s")
     slice11 = time.perf_counter()
-    ring_launches, ring_per_step, ring_rows, ring_stats = sequence_parallel_phase(fa, name)
+    ring_launches, ring_per_step, ring_rows, ring_stats, ring_reference = \
+        sequence_parallel_phase(fa, name)
     print(f"phase 21 took {time.perf_counter() - slice11:.1f} s")
     slice12 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_phase(fa)
@@ -5636,6 +6003,13 @@ def main() -> int:
     slice13 = time.perf_counter()
     hybrid_stats.update(hybrid_phase(fa))
     print(f"phases 23b-c took {time.perf_counter() - slice13:.1f} s")
+    slice17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    processes_stats = {"ring": timed_phase("25a-b", ring_processes_phase, fa, ring_reference)}
+    del ring_reference
+    processes_stats["lint"] = timed_phase("25c", lint_phase)
+    print(f"phase 25 took {time.perf_counter() - slice17:.1f} s")
+    ranks = processes_stats["ring"]["ranks"]
     for row in rows:  # the bf16 (mma) kernels' other paths
         counter = row["pass"]
         row["launches_config3"] = config3_launches[counter]
@@ -5659,7 +6033,13 @@ def main() -> int:
             "launches_per_round"][counter]
         row["launches_per_round_hybrid_bert"] = hybrid_stats["bert"]["hybrid"]["launches"][
             counter]
+        row["launches_ring_processes_bf16"] = [o["small"]["flash bf16"]["launches"][counter]
+                                               for o in ranks]
     rows += fp32_rows(fa, ring_rows, errs["ring_block_float32"], ring_launches, ring_per_step)
+    for row in rows[-3:]:  # the fp32 (tf32x3) kernels across processes, 25a
+        row["launches_per_step_ring_processes"] = [
+            [step[row["pass"]] for step in o["long_context"]["launches_per_step"]]
+            for o in ranks]
 
     print(json.dumps({"round": round_stats, "resnet_round": resnet_stats, "extra": extra,
                       "config3_round": config3_stats, "resnet_optimizers": optimizer_stats,
@@ -5669,7 +6049,8 @@ def main() -> int:
                       "config5": config5_stats, "auto_wave": auto_stats, "fused": fused_stats,
                       "examples": examples_stats, "sequence_parallel": ring_stats,
                       "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats,
-                      "operations_planes": operations_stats}))
+                      "operations_planes": operations_stats,
+                      "across_processes": processes_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -5681,4 +6062,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--psum-child"]:
         sys.exit(psum_child(*sys.argv[2:3], int(sys.argv[3]), *sys.argv[4:5]))
+    if sys.argv[1:2] == ["--ring-child"]:
+        sys.exit(ring_child(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

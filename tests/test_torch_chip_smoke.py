@@ -35,9 +35,11 @@ checks (a tiny edge-tier federation on the CPU through them and the ops
 console; the fold against float64 failing an edge partial folded twice
 or dropped while the round's loss still looks right; the round's counts,
 the console's and the scenario run's checks each failing a broken input;
-the loadgen scenario and its SLO reader on a short run on the CPU); and
-``main`` with every phase, the card and nvidia-smi stubbed: it runs
-phases 2-24 in order and ends with the card's name and power limit, the kernels line
+the loadgen scenario and its SLO reader on a short run on the CPU); phase
+25's (its two children over gloo at a tiny size on the CPU; its checks
+failing a doubled gradient, a process that ran a shard it does not hold
+and a lint that exits 1 or imports JAX); and ``main`` with every phase, the card and nvidia-smi stubbed: it runs
+phases 2-25 in order and ends with the card's name and power limit, the kernels line
 (with its config-4, ring and mesh launches, the ring's counted a step)
 and the ok/device line; a failing phase from 6 on fails it before any
 result line."""
@@ -221,7 +223,8 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "variants_phase", "config4_phase", "hybrid_config4_phase", "remat_phase", "vit_phase",
           "lstm_phase", "zoo_parity_phase", "crossover_phase", "config5_phase",
           "config5_timing_phase", "auto_wave_phase", "fused_phase", "examples_phase",
-          "sequence_parallel_phase", "mesh_phase", "hybrid_phase")
+          "sequence_parallel_phase", "mesh_phase", "hybrid_phase", "ring_processes_phase",
+          "lint_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -247,6 +250,14 @@ MESHLESS_COUNTS = {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}
 # encoder on 2 x 2, 12 layers x 4 steps x 4 shards, forward only
 HYBRID_COUNTS = {"fwd": 1024, "bwd_dkv": 512, "bwd_dq": 512}
 HYBRID_BERT_COUNTS = {"fwd": 192, "bwd_dkv": 0, "bwd_dq": 0}
+# phase 25a: example 06's 8 layers with remat, shards 0-3 and 4-7 of 8, 2
+# steps; 25b: the bf16 ring over the same shards
+PROCESS_PER_STEP = [{"fwd": 160, "bwd_dkv": 80, "bwd_dq": 80},
+                    {"fwd": 416, "bwd_dkv": 208, "bwd_dq": 208}]
+PROCESS_BF16 = [{"fwd": 10, "bwd_dkv": 10, "bwd_dq": 10}, {"fwd": 26, "bwd_dkv": 26, "bwd_dq": 26}]
+PROCESS_RANKS = [{"long_context": {"launches_per_step": [per_step] * 2},
+                  "small": {"flash bf16": {"launches": bf16}}}
+                 for per_step, bf16 in zip(PROCESS_PER_STEP, PROCESS_BF16)]
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -285,7 +296,8 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                                     "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
                     "examples_phase": {},
                     "sequence_parallel_phase": (RING_COUNTS, [RING_PER_STEP] * 5,
-                                                dict.fromkeys(RING_ERRS, RING_ROW), {}),
+                                                dict.fromkeys(RING_ERRS, RING_ROW), {}, {}),
+                    "ring_processes_phase": {"ranks": PROCESS_RANKS}, "lint_phase": {},
                     "mesh_phase": (MESH_COUNTS,
                                    {"bert": {"meshless": {"launches": MESHLESS_COUNTS}}}),
                     }.get(phase)
@@ -327,7 +339,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "max_abs_err": RING_ERRS[f"flash_{counter}"], "tol": 1e-4, **RING_ROW["float32"],
         "library_call": ("scaled_dot_product_attention forward" if counter == "fwd"
                          else "scaled_dot_product_attention backward (dq, dk, dv)"),
-        "shape": "the ring block: B 1, 8/4 heads, L 4,096, D 64, not causal, fp32"}
+        "shape": "the ring block: B 1, 8/4 heads, L 4,096, D 64, not causal, fp32",
+        "launches_per_step_ring_processes": [[step[counter]] * 2 for step in PROCESS_PER_STEP]}
         for counter, design, source in (("fwd", "tf32x3", "flash_attention_tf32.cu"),
                                         ("bwd_dkv", "tf32x3", "flash_attention_tf32.cu"),
                                         ("bwd_dq", "tf32x3", "flash_attention_tf32.cu"))]
@@ -341,7 +354,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
         "ring_block_shape": RING_ROW["bfloat16"], "launches_per_round_mesh_bert": 48,
         "launches_per_round_meshless_bert": 12, "launches_per_round_hybrid_config4": 1024,
-        "launches_per_round_hybrid_bert": 192}, *fp32_rows]}
+        "launches_per_round_hybrid_bert": 192, "launches_ring_processes_bf16": [10, 26]},
+        *fp32_rows]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -368,7 +382,8 @@ def test_kernels_line_has_a_row_per_launch_key():
                                      "crossover_phase", "config5_phase", "auto_wave_phase",
                                      "fused_phase", "examples_phase",
                                      "sequence_parallel_phase", "mesh_phase",
-                                     "hybrid_config4_phase", "hybrid_phase"])
+                                     "hybrid_config4_phase", "hybrid_phase",
+                                     "ring_processes_phase", "lint_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -1538,3 +1553,125 @@ def test_scenario_cli_runs_an_edge_scenario_on_the_cpu(tmp_path):
     assert (tmp_path / "artifacts" / "slo_report.json").exists()
     assert chip_smoke.scenario_peak_sources(run["records"]) == \
         {"no allocator statistics on the cpu device"}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the ring across processes
+
+
+@pytest.fixture(scope="module")
+def tiny_ring_reference():
+    """21a's one-process reference at a tiny size on the CPU: a 2-layer
+    decoder over 8 shards, its params, tokens, loss and gradients."""
+    import dataclasses
+
+    from baton_tpu_torch.examples import long_context_ring as ex
+    from baton_tpu_torch.models.llama import LlamaConfig, llama_lm_model
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = LlamaConfig.tiny(max_len=64, n_heads=4, n_kv_heads=2, n_layers=2)
+    mesh = make_mesh(8, ("seq",), devices=[torch.device("cpu")] * 8)
+    model = llama_lm_model(cfg, attention_fn=ex.make_attention_fn(mesh), remat=True)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(ex.make_tokens(cfg, 1, 0))
+    grads, loss = torch.func.grad_and_value(
+        lambda p: model.per_example_loss(p, {"x": toks, "y": toks}).mean())(params)
+    return {"config": dataclasses.asdict(cfg), "n": 8, "batch": 1, "params": params,
+            "tokens": toks, "loss": loss.item(), "grads": grads, "median_s_per_step": 1.0}
+
+
+@pytest.fixture(scope="module")
+def ring_processes_on_the_cpu(tiny_ring_reference):
+    """Phase 25a-b with its children's shards on the CPU at a tiny size
+    (no kernel launches there, so its launch checks are the card's)."""
+    real = chip_smoke.RING_SMALL
+    chip_smoke.RING_SMALL = (2, 8, 4, 64, 8)
+    try:
+        return chip_smoke.ring_processes_phase(fa, tiny_ring_reference, device="cpu")["ranks"]
+    finally:
+        chip_smoke.RING_SMALL = real
+
+
+def test_ring_processes_on_the_cpu(ring_processes_on_the_cpu, tiny_ring_reference):
+    outs = ring_processes_on_the_cpu
+    assert [o["local_shards"] for o in outs] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    for o in outs:
+        a = o["long_context"]
+        assert a["loss_gap"] <= 1e-6 and a["grad_gap"] <= 1e-6 and a["param_gap"] == 0.0
+        assert all(m["bytes"] > 0 for m in a["transport_per_step"])
+        assert set(o["small"]) == {"dense ring", "striped", "ulysses", "flash bf16"}
+
+
+def test_ring_process_launch_counts():
+    """The launches phase 25 holds each process to: the ring's block calls
+    for the shards it holds (10 and 26 of 36 at N = 8), a step of the full
+    preset's 8 layers with remat."""
+    assert chip_smoke.ring_block_calls(8, shards=range(4)) == 10
+    assert chip_smoke.ring_block_calls(8, shards=range(4, 8)) == 26
+    assert chip_smoke.ring_block_calls(8, causal=False, shards=[0, 1]) == 16
+    for want, shards in zip(PROCESS_PER_STEP, (range(4), range(4, 8))):
+        assert chip_smoke.ring_step_launches(8, 8, remat=True, shards=shards) == want
+
+
+def _card_lines(outs):
+    """``outs`` as the card's children would report them: each step's
+    launches and 25b's bf16 ring's what the process's shards make."""
+    import copy
+
+    outs = copy.deepcopy(outs)
+    for o, per_step, bf16 in zip(outs, PROCESS_PER_STEP, PROCESS_BF16):
+        a = o["long_context"]
+        a["launches_per_step"] = [dict(per_step) for _ in a["launches_per_step"]]
+        a["launches_by_design"] = {f"{k}_tf32x3": 2 * c for k, c in per_step.items()}
+        flash = o["small"]["flash bf16"]
+        flash["launches"] = dict(bf16)
+        flash["launches_by_design"] = {f"{k}_mma": c for k, c in bf16.items()}
+    return outs
+
+
+def _card_reference(reference):
+    return dict(reference, config=dict(reference["config"], n_layers=8))
+
+
+def test_ring_process_checks_pass_the_cards_lines(ring_processes_on_the_cpu,
+                                                  tiny_ring_reference):
+    chip_smoke.check_ring_processes(_card_lines(ring_processes_on_the_cpu),
+                                    _card_reference(tiny_ring_reference))
+
+
+def test_a_doubled_gradient_fails_phase_25(ring_processes_on_the_cpu, tiny_ring_reference):
+    """A gather whose backward summed over the two processes would double
+    every gradient: the gap from the one-process ring is then 1."""
+    ref = tiny_ring_reference["grads"]
+    _, gap = chip_smoke.model_grad_gap({k: 2 * g for k, g in ref.items()}, ref)
+    assert gap == pytest.approx(1.0)
+    outs = _card_lines(ring_processes_on_the_cpu)
+    outs[1]["long_context"]["grad_gap"] = gap
+    with pytest.raises(RuntimeError, match="25a rank 1: gradient"):
+        chip_smoke.check_ring_processes(outs, _card_reference(tiny_ring_reference))
+
+
+@pytest.mark.parametrize("where", ["long_context", "small"])
+def test_a_process_that_ran_a_foreign_shard_fails_phase_25(ring_processes_on_the_cpu,
+                                                           tiny_ring_reference, where):
+    """Rank 0 launching the whole ring's blocks (every shard's, 36 a pass
+    and layer) instead of its own 10."""
+    outs = _card_lines(ring_processes_on_the_cpu)
+    whole = chip_smoke.ring_step_launches(8, 8, remat=True)
+    if where == "long_context":
+        outs[0]["long_context"]["launches_per_step"] = [dict(whole), dict(whole)]
+    else:
+        outs[0]["small"]["flash bf16"]["launches"] = dict.fromkeys(whole, 36)
+    with pytest.raises(RuntimeError, match="rank 0"):
+        chip_smoke.check_ring_processes(outs, _card_reference(tiny_ring_reference))
+
+
+def test_lint_check():
+    clean = {"rc": 0, "findings": 0, "suppressed": 11, "files": 114, "jax": False,
+             "baton_tpu": False}
+    chip_smoke.check_lint(0, clean)
+    for rc, report in ((1, dict(clean, rc=1, findings=1)), (0, dict(clean, files=0)),
+                       (0, dict(clean, jax=True)), (0, dict(clean, baton_tpu=True))):
+        with pytest.raises(RuntimeError, match="25c"):
+            chip_smoke.check_lint(rc, report)
+

@@ -88,6 +88,9 @@ def test_the_import_scan_covers_the_federation_variants():
             "baton_tpu_torch/ops/__main__.py"} <= names
     assert {f"baton_tpu_torch/loadgen/{m}.py" for m in
             ("__init__", "__main__", "engine", "scenario", "slo")} <= names
+    # batonlint's carried copy
+    assert {f"baton_tpu_torch/analysis/{m}.py" for m in
+            ("__init__", "__main__", "engine", "summaries", "checkers/tracer")} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
