@@ -20,6 +20,10 @@ What differs from the JAX package:
   still pays one-time work (cuDNN and cuBLAS plan selection, the caching
   allocator's growth, lazy CUDA initialisation): :class:`CompileTracker`
   marks it, and ``compile_s`` is that warm-up call's wall time.
+
+As in the JAX package, :func:`register_model_flops` adds a model family's
+analytic training FLOPs per sample, so that rounds of that family get a
+measured MFU; a probe resolves its model's family when it is built.
 """
 
 from __future__ import annotations
@@ -48,10 +52,23 @@ MODEL_FAMILY_FLOPS: Dict[str, float] = {
     "resnet18_cifar": TRAIN_FLOPS_PER_IMG,
 }
 
-# model-name prefix -> family key in MODEL_FAMILY_FLOPS
-_FAMILY_PREFIXES: Tuple[Tuple[str, str], ...] = (
+# model-name prefix -> family key in MODEL_FAMILY_FLOPS, first match wins
+_FAMILY_PREFIXES: List[Tuple[str, str]] = [
     ("resnet18", "resnet18_cifar"),
-)
+]
+
+
+def register_model_flops(family: str, train_flops_per_sample: float,
+                         name_prefixes: Sequence[str] = ()) -> None:
+    """Register a model family's analytic training FLOPs per sample, so
+    that rounds of that family get a measured MFU; ``name_prefixes`` map
+    ``FedModel.name`` values to the family (appended: earlier prefixes
+    match first)."""
+    if not (train_flops_per_sample > 0):
+        raise ValueError("train_flops_per_sample must be > 0")
+    MODEL_FAMILY_FLOPS[family] = float(train_flops_per_sample)
+    for p in name_prefixes:
+        _FAMILY_PREFIXES.append((str(p), family))
 
 
 def card_peaks(device_kind: str) -> Optional[Tuple[float, float]]:
@@ -119,7 +136,10 @@ class CompileTracker:
     for ``key`` is a warm-up call (a miss); repeated misses within a short
     window are a storm of shape churn."""
 
-    def __init__(self) -> None:
+    def __init__(self, storm_window: int = RECOMPILE_STORM_WINDOW,
+                 storm_threshold: int = RECOMPILE_STORM_THRESHOLD) -> None:
+        self.storm_window = max(2, int(storm_window))
+        self.storm_threshold = max(2, int(storm_threshold))
         self._sigs: Dict[Any, set] = {}
         self._recent: Dict[Any, deque] = {}
 
@@ -130,12 +150,12 @@ class CompileTracker:
         miss = signature not in sigs
         if miss:
             sigs.add(signature)
-        recent = self._recent.setdefault(key, deque(maxlen=RECOMPILE_STORM_WINDOW))
+        recent = self._recent.setdefault(key, deque(maxlen=self.storm_window))
         recent.append(miss)
         out: dict = {
             "cache_hit": not miss,
             "recompiles": max(0, len(sigs) - 1),
-            "recompile_storm": sum(recent) >= RECOMPILE_STORM_THRESHOLD,
+            "recompile_storm": sum(recent) >= self.storm_threshold,
         }
         if not miss:
             out["compile_s"] = 0.0
@@ -252,11 +272,20 @@ def peak_memory_gb(device: torch.device) -> Tuple[Optional[float], Optional[str]
 class ComputeProbe:
     """One training call site's probe: :meth:`record_round` is called once
     per round with its wall time and shape signature and returns the
-    round's compute record."""
+    round's compute record. An explicit ``model_family`` wins over the
+    model's name; the family is resolved when the probe is built."""
 
-    def __init__(self, model: Any) -> None:
-        self.model_family, self.model_family_reason = model_family_of(model)
-        self.tracker = CompileTracker()
+    def __init__(self, model: Any = None, model_family: Optional[str] = None,
+                 storm_window: int = RECOMPILE_STORM_WINDOW,
+                 storm_threshold: int = RECOMPILE_STORM_THRESHOLD) -> None:
+        if model_family is not None:
+            self.model_family: Optional[str] = model_family
+            self.model_family_reason: Optional[str] = None
+        elif model is not None:
+            self.model_family, self.model_family_reason = model_family_of(model)
+        else:
+            self.model_family, self.model_family_reason = None, "no model attached to probe"
+        self.tracker = CompileTracker(storm_window, storm_threshold)
 
     def record_round(self, *, key: Any, signature: Any, train_s: float, n_samples: float,
                      device: torch.device, n_epochs: int = 1,

@@ -18,7 +18,8 @@ seams' gathers and Ulysses' re-shard cross the boundary by
 
 The backend follows the tensors: a process's shards live on its
 ``devices`` (by default one GPU a process, ``cuda:(rank % local GPUs)``
-with ranks laid out node by node, else the CPU), and the backend is nccl
+with ranks laid out node by node; without a GPU the caller must pass
+``devices=["cpu"]``: nothing falls back to the CPU), and the backend is nccl
 for CUDA devices, with the process's current device set to its first,
 and gloo for the CPU. ``backend=`` overrides it: two processes that
 share one GPU need gloo (NCCL refuses two ranks on one device; gloo's
@@ -47,13 +48,15 @@ from baton_tpu_torch.parallel.mesh import Mesh, _object_array
 
 def process_devices(process_id: int, devices: Optional[Sequence] = None) -> list:
     """The devices a process's shards live on: ``devices``, else one GPU a
-    process (``cuda:(process_id % device_count)``) where CUDA is
-    available, else the CPU."""
+    process (``cuda:(process_id % device_count)``). Without a GPU and
+    without ``devices`` it raises: a process runs on the CPU only when
+    asked, with ``devices=["cpu"]``."""
     if devices is not None:
         return [torch.device(d) for d in devices]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", process_id % torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass devices=["cpu"] to run this '
+                           "process's shards on the CPU")
+    return [torch.device("cuda", process_id % torch.cuda.device_count())]
 
 
 def default_backend(devices: Sequence[torch.device]) -> str:
@@ -72,7 +75,8 @@ def initialize_multihost(
     """Join the process group of ``num_processes`` processes over the TCP
     coordinator ``host:port`` and return this process's rank; a no-op
     returning 0 for one process. ``devices`` are the devices this
-    process's shards will live on (:func:`process_devices`); ``backend``
+    process's shards will live on (:func:`process_devices`: without a GPU
+    they must be given); ``backend``
     defaults from them (:func:`default_backend`), and where they are GPUs
     the current CUDA device becomes the first. A bad address or a
     coordinator that does not answer within ``timeout_s`` raises; nothing

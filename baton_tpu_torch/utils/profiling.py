@@ -161,9 +161,9 @@ GIB = float(1 << 30)
 DEVICE_HEADROOM = 0.10
 
 
-def is_oom_error(exc: BaseException) -> bool:
+def is_oom_error(e: BaseException) -> bool:
     """True for the caching allocator's out-of-memory error."""
-    return isinstance(exc, torch.cuda.OutOfMemoryError)
+    return isinstance(e, torch.cuda.OutOfMemoryError)
 
 
 def device_budget_gb(device) -> float:

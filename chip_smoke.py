@@ -455,33 +455,46 @@ def kernel_kind(name: str) -> str:
     return "elementwise and other"
 
 
+def event_totals(prof, device_type=torch.autograd.DeviceType.CUDA):
+    """``{name: [count, µs]}`` of a profiled block's events on
+    ``device_type`` (on a card: its kernels, copies and sets), summed from
+    the profiler's raw events: ``key_averages`` first builds a Python tree
+    of every event, which took 25 s for 23a's hybrid round. User
+    annotations span other events and are left out."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == device_type and not e.is_user_annotation():
+            t = totals.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += e.duration_ns() / 1e3
+    return totals
+
+
 def device_breakdown(prof, wall_s):
     """Device time of a profiled round, by kind and by kernel, and the
     device's busy share of the round's wall time (one stream, so kernel
     times do not overlap). None when the profiler saw no device time."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = [(name, count, us) for name, (count, us) in event_totals(prof).items() if us > 0]
+    total_ms = sum(us for _, _, us in kernels) / 1e3
     if total_ms == 0:
         print("  profiler saw no device time: breakdown not measured")
         return None
     kinds, kind_counts = {}, {}
-    for e in kernels:
-        kind = kernel_kind(e.key)
-        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
-        kind_counts[kind] = kind_counts.get(kind, 0) + e.count
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    for name, count, us in kernels:
+        kind = kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        kind_counts[kind] = kind_counts.get(kind, 0) + count
+    top = sorted(kernels, key=lambda k: -k[2])[:12]
     busy = total_ms / (wall_s * 1e3)
     print(f"  profiled round: wall {wall_s * 1e3:.1f} ms, device busy {total_ms:.1f} ms "
           f"({100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%)")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"    {kind:28s} {ms:9.2f} ms  {100 * ms / total_ms:5.1f}% of device time")
-    for e in top:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} {e.key[:110]}")
+    for name, count, us in top:
+        print(f"    {us / 1e3:9.2f} ms x{count:<5d} {name[:110]}")
     return {"wall_ms": wall_s * 1e3, "device_ms": total_ms, "busy_share": busy,
             "by_kind_ms": kinds, "by_kind_count": kind_counts,
-            "top": [[e.key[:110], e.count, e.self_device_time_total / 1e3] for e in top]}
+            "top": [[name[:110], count, us / 1e3] for name, count, us in top]}
 
 
 def attention_inputs(seed, b, hq, hkv, l, d, dtype, bias_kind, device="cuda"):
@@ -1575,8 +1588,7 @@ def update_step_costs(label, params, n_clients):
         with torch.profiler.profile(activities=activities) as prof:
             step()
             torch.cuda.synchronize()
-        launches = sum(e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        launches = sum(count for count, _ in event_totals(prof).values())
         out[name] = {"ms": ms, "launches": launches}
         del state
     print(f"  {label}: one optimizer step of {n_clients} clients x {len(params)} tensors "
@@ -2105,7 +2117,7 @@ def http_round_phase(fa):
     from baton_tpu_torch.utils import tracing
     from baton_tpu_torch.utils.slog import read_rounds_jsonl
 
-    n_workers, per_worker, batch, lr, n_timed = 8, 48, 32, 0.05, 3
+    n_workers, per_worker, batch, lr, n_timed = 8, 48, 32, 0.05, 2  # n_timed cut from 3
     rng = np.random.default_rng(0)  # drawn as phase 6 draws its clients
     datasets = [{"x": rng.normal(size=(per_worker, 32, 32, 3)).astype(np.float32),
                  "y": rng.integers(0, 10, size=(per_worker,)).astype(np.int32)}
@@ -2280,7 +2292,7 @@ def http_replay_phase():
 # console and the loadgen), with phase 11's federation and helpers.
 
 EDGES = 2  # 24a: edges under the root, phase 11's 8 workers 4 an edge
-EDGE_TIMED_ROUNDS = 2  # 24a: after a warm-up
+EDGE_TIMED_ROUNDS = 1  # 24a: after a warm-up (cut from 2, PERF.md §4)
 CONSOLE_LIMIT_S = 120.0  # 24b: the console's subprocess, its import of torch included
 # 24c: benchmarks/scenarios/edge_cohort.json's values, its baseline (the JAX
 # package's numbers) left out: 8 workers of a linear model (dim 10, batch
@@ -2680,6 +2692,7 @@ SECURE_QUANTUM = 2.0 ** -16  # the fixed point of DEFAULT_SCALE_BITS = 16
 SECURE_TOL = SECURE_QUANTUM + HTTP_REPLAY_TOL  # a secure round against its fp32 replay
 RESUME_TOL = 1e-6  # config 1 stopped after 2 rounds and resumed, against 4 rounds in one go
 CONFIG1_FULL_ROUNDS = 1  # of the full preset's 20: the smoke's time limit
+BANDWIDTH_ROUNDS = 2  # phase 12 (a), before the restart: cut from 3 (PERF.md §4)
 
 
 def fold_of_compressed_uploads(bodies, anchor):
@@ -2808,7 +2821,7 @@ def bandwidth_phase(fa):
         efs = [track_error_feedback(w.compressor) for w in fed.workers]
         dense = len(wire.encode(params_to_state_dict(fed.exp.params), {}))
         out = {"dense_bytes": dense, "rounds": []}
-        for r in range(3):
+        for r in range(BANDWIDTH_ROUNDS):
             out["rounds"].append(await one_round(fed, f"(a) round {r}"))
         saved = params_to_state_dict(fed.exp.params)
         n_rounds, losses = fed.exp.rounds.n_rounds, list(fed.exp.rounds.loss_history)
@@ -2816,7 +2829,8 @@ def bandwidth_phase(fa):
         await fed.restart(broadcast_delta=COMPRESS, checkpoint_dir=ckdir)
         out["restart_s"] = time.perf_counter() - t0
         exp = fed.exp
-        check(exp.rounds.n_rounds == n_rounds == 3, f"resumed at round {exp.rounds.n_rounds}")
+        check(exp.rounds.n_rounds == n_rounds == BANDWIDTH_ROUNDS,
+              f"resumed at round {exp.rounds.n_rounds}")
         check([float(x) for x in exp.rounds.loss_history] == [float(x) for x in losses],
               "the resumed loss history differs")
         restored = params_to_state_dict(exp.params)
@@ -2825,13 +2839,14 @@ def bandwidth_phase(fa):
         check(all(np.array_equal(restored[k], v) for k, v in saved.items()),
               "the resumed params differ from the checkpointed ones")
         fetched = counters(fed.workers, "blob_fetch_delta")
-        for r in range(2):
+        for r in range(2):  # a full blob pull, then a delta
             out["rounds"].append(await one_round(fed, f"(b) round {r}"))
         delta_pulls = counters(fed.workers, "blob_fetch_delta") - fetched
         mismatches = counters(fed.workers, "blob_delta_digest_mismatch")
         check(delta_pulls == n_workers, f"{delta_pulls} delta pulls, not {n_workers}")
         check(mismatches == 0, f"{mismatches} delta reconstructions missed the blob's digest")
-        full, delta = out["rounds"][3]["blob_bytes"], out["rounds"][4]["blob_bytes"]
+        full, delta = (out["rounds"][BANDWIDTH_ROUNDS]["blob_bytes"],
+                       out["rounds"][BANDWIDTH_ROUNDS + 1]["blob_bytes"])
         check(len(full) == len(delta) == n_workers and min(full) >= 0.99 * dense
               and max(delta) < 0.5 * dense, f"blob pulls after the restart: {full}, then {delta}")
         out["ef_gaps"] = [error_feedback_gap(ef, w.compressor.residual)
@@ -2863,10 +2878,12 @@ def bandwidth_phase(fa):
               f"max |diff| {r['fold_gap']:.3e} (tol {HTTP_FOLD_TOL})")
         print("    split (s, from the spans): " + ", ".join(f"{k} {v:.4f}"
                                                        for k, v in r["split"].items()))
-    print(f"  restart: the new manager resumed round 3, its loss history and params to the bit, "
+    print(f"  restart: the new manager resumed round {BANDWIDTH_ROUNDS}, its loss history and "
+          f"params to the bit, "
           f"{out['restart_s']:.2f} s until every worker registered again; delta pulls "
           f"{out['delta_pulls']:.0f}, digest mismatches {out['digest_mismatches']:.0f}")
-    print(f"  error feedback (sent + residual against the true deltas, relative, 5 rounds): "
+    print(f"  error feedback (sent + residual against the true deltas, relative, "
+          f"{len(out['rounds'])} rounds): "
           f"worst {worst_ef:.3e} (tol {EF_TOL}); peak memory {peak_gb:.2f} GB; flash launches "
           f"{flash}")
     out.update(peak_memory_gb=peak_gb, ef_worst=worst_ef)
@@ -3528,6 +3545,48 @@ SWEEP_TOKENS = 8192  # batch x L of every sweep point: Llama's batch 8 at L 1024
 LLAMA_ATTENTION = (8, 32, 8, 1024, 128)  # B, Hq, Hkv, L, D of Llama-3-8B at batch 8
 
 
+RECORD_MFU_TOL = 1e-3  # 16a: the compute record's MFU against 4·P·tokens over its train_s
+LLAMA_FAMILY = "llama_lm"  # 16a registers it by the model's name prefix
+
+
+@contextlib.contextmanager
+def registered_flops(family: str, flops_per_sample: float, name_prefixes):
+    """``register_model_flops`` as a user calls it, for the block; the FLOPs
+    tables as they were after it, so later phases see the same tables."""
+    from baton_tpu_torch.obs import compute
+
+    flops, prefixes = dict(compute.MODEL_FAMILY_FLOPS), list(compute._FAMILY_PREFIXES)
+    compute.register_model_flops(family, flops_per_sample, name_prefixes=name_prefixes)
+    try:
+        yield
+    finally:
+        compute.MODEL_FAMILY_FLOPS.clear()
+        compute.MODEL_FAMILY_FLOPS.update(flops)
+        compute._FAMILY_PREFIXES[:] = prefixes
+
+
+def check_unregistered_record(label, rec, model_name) -> None:
+    """A round's compute record before its family is registered: no family
+    and no MFU, each null with its reason."""
+    check(rec is not None and rec["model_family"] is None
+          and model_name in rec.get("model_family_reason", "")
+          and rec["mfu"] is None and bool(rec.get("mfu_reason")),
+          f"{label}: before registration the record's family and MFU must be null with a "
+          f"reason: {rec}")
+
+
+def check_record_mfu(label, rec, flops_per_round, peak_flops) -> tuple:
+    """A round's compute record against the smoke's own 4·P·tokens MFU over
+    the record's train_s, within ``RECORD_MFU_TOL`` relative. Returns
+    (the record's MFU, the smoke's)."""
+    want = flops_per_round / rec["train_s"] / peak_flops
+    got = rec.get("mfu")
+    check(got is not None and abs(got - want) <= RECORD_MFU_TOL * want,
+          f"{label}: the record's MFU {got} ({rec.get('mfu_reason')}) against 4·P·tokens "
+          f"over its train_s {want:.6f} (tol {RECORD_MFU_TOL} relative)")
+    return got, want
+
+
 def lora_train_flops(n_params: int, tokens: int) -> float:
     """Adapters-only LoRA training FLOPs (``benchmarks/tpu_suite.py``'s
     model FLOPs): the forward 2·P·N plus the activation backward through
@@ -3570,22 +3629,46 @@ def config4_wave(cfg, batch, rank, n_clients, device_bytes) -> int:
 def check_frozen_bit_equal(params, host_copy) -> int:
     """Every frozen tensor against its host copy, one at a time (no second
     copy of the base on the card; a tensor placed over a model axis is
-    gathered first). Returns the number compared."""
+    gathered first). A card's tensor comes to the host through one pinned
+    buffer reused for every tensor: a fresh pageable copy of each took 18 s
+    for the 8B base. Returns the number compared."""
     from baton_tpu_torch.parallel.tensor_parallel import gather_params
 
+    staging = None
     for name, before in host_copy.items():
-        check(torch.equal(gather_params(params[name]).to("cpu"), before),
-              f"frozen tensor {name} changed")
+        now = gather_params(params[name])
+        check(now.dtype == before.dtype and now.shape == before.shape,
+              f"frozen tensor {name} changed its dtype or shape")
+        if now.device.type == "cuda":
+            if staging is None:
+                staging = torch.empty(max(v.numel() * v.element_size()
+                                          for v in host_copy.values()),
+                                      dtype=torch.uint8, pin_memory=True)
+            host = staging[:before.numel() * before.element_size()].view(before.dtype)
+            now = host.view(before.shape).copy_(now)
+        check(torch.equal(now, before), f"frozen tensor {name} changed")
     return len(host_copy)
 
 
 def config4_phase(fa, name):
     """Phase 16a: BASELINE config 4 at Llama-3-8B width and depth, bf16,
     remat, 4 clients x 16 samples (2 steps each), one wave of what fits;
-    a warm-up, the timed rounds and a profiled one. Returns the launches,
-    a round's launches, the stats and the context phase 23a continues from
-    (the params on the card and the frozen base's host copy: 23a checks the
-    base bit-equal after 16a's rounds and its own)."""
+    a warm-up, the timed rounds and a profiled one. The warm-up runs before
+    the Llama family is registered (its record: MFU null with a reason);
+    then ``register_model_flops`` gives the family 4·P·L FLOPs a sequence,
+    a sim is built as a user would build it, and every later round's record
+    carries the MFU, held against the smoke's own; the registration is
+    undone when the phase ends. Returns the launches, a round's launches,
+    the stats and the context phase 23a continues from (the params on the
+    card and the frozen base's host copy: 23a checks the base bit-equal
+    after 16a's rounds and its own)."""
+    with contextlib.ExitStack() as registration:
+        return config4_rounds(fa, name, registration)
+
+
+def config4_rounds(fa, name, registration):
+    """Phase 16a's rounds; ``registration`` holds the family's registration
+    until the phase ends."""
     from baton_tpu_torch.examples import llama_lora
     from baton_tpu_torch.models.lora import lora_trainable
     from baton_tpu_torch.obs.compute import card_peaks
@@ -3619,11 +3702,18 @@ def config4_phase(fa, name):
     print(f"  init on the card {init_s:.1f} s, host copy of the frozen base {copy_s:.1f} s")
     gen = torch.Generator().manual_seed(1)
     profiled_round = CONFIG4_TIMED_ROUNDS + 1
-    times, losses, breakdown = [], [], None
+    times, losses, breakdown, record_mfu = [], [], None, []
+    flops = lora_train_flops(n_params, tokens)
+    bw, peak_flops = card_peaks(name)
     start = params
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     for r in range(profiled_round + 1):
+        if r == 1:  # a user registers the family, then builds the sim
+            registration.enter_context(registered_flops(
+                LLAMA_FAMILY, lora_train_flops(n_params, cfg.max_len), (LLAMA_FAMILY,)))
+            sim, model = llama_lora.make_sim(cfg, rank, batch, "cuda",
+                                             compute_dtype=torch.bfloat16, remat=True)
         before = launch_counts(fa)
         # the device's kernels only: the host's ops make the trace slow to reduce
         activities = [torch.profiler.ProfilerActivity.CUDA]
@@ -3644,6 +3734,20 @@ def config4_phase(fa, name):
         wave_steps = n_waves * steps
         check_step_launches(f"config 4 round {r}", delta, by_design, cfg.n_layers, wave_steps,
                             fwd_extra=wave_steps)
+        rec = sim.last_compute
+        if r == 0:
+            check_unregistered_record("config 4 round 0", rec, model.name)
+            print(f"  round 0's record before registration: model_family None "
+                  f"({rec['model_family_reason']}), mfu None ({rec['mfu_reason']})")
+        else:
+            got, want = check_record_mfu(f"config 4 round {r}", rec, flops, peak_flops)
+            record_mfu.append({"round": r, "record_mfu": got, "smoke_mfu": want,
+                               "train_s": rec["train_s"], "family": rec["model_family"],
+                               "flops_per_sample": rec["flops_per_sample"]})
+            print(f"  round {r}'s record: family {rec['model_family']}, "
+                  f"{rec['flops_per_sample']:.4e} FLOP a sample, train_s {rec['train_s']}, "
+                  f"mfu {got} against 4·P·tokens over train_s {want:.6f} "
+                  f"({abs(got - want) / want:.2e} relative, tol {RECORD_MFU_TOL})")
         if r == profiled_round:
             breakdown = device_breakdown(prof, dt)
         elif r > 0:
@@ -3655,8 +3759,6 @@ def config4_phase(fa, name):
                 if lora_trainable(k, params[k]))
     check(moved > 0, "config 4: the adapters did not move")
     s_median = float(np.median(times))
-    flops = lora_train_flops(n_params, tokens)
-    bw, peak_flops = card_peaks(name)
     mfu = flops / s_median / peak_flops
     print(f"  adapters moved by up to {moved:.3e} (the frozen base is checked after phase 23a)")
     print(f"  s/round median {s_median:.3f} ({', '.join(f'{t:.3f}' for t in times)}); "
@@ -3677,7 +3779,8 @@ def config4_phase(fa, name):
         "steps_per_round": n_waves * steps, "round_s": times, "s_per_round_median": s_median,
         "tokens_per_s": tokens / s_median, "mfu": mfu, "flops_per_round": flops,
         "peak_memory_gb": peak / 1e9, "estimate_gb": estimate["total"] / 1e9,
-        "losses": losses, "init_s": init_s, "breakdown": breakdown}, ctx
+        "record_mfu": record_mfu, "losses": losses, "init_s": init_s,
+        "breakdown": breakdown}, ctx
 
 
 def remat_grads(model, params, batch):
@@ -4038,7 +4141,7 @@ def llama_timing_phase(fa, name):
 # and 09 on the card.
 
 CONFIG5_CLIENTS, CONFIG5_PER_CLIENT = 4, 128  # cut from 16 x 4,096 (PERF.md §4)
-CONFIG5_TIMED_ROUNDS = 2  # cut from 20: a warm-up, 2 timed rounds and a profiled one
+CONFIG5_TIMED_ROUNDS = 1  # cut from 20: a warm-up, 1 timed round and a profiled one
 CONFIG5_BATCH, CONFIG5_CLIP, CONFIG5_SIGMA, CONFIG5_DELTA = 64, 1.0, 0.5, 1e-5
 NOISE_REPLAY_TOL = 1e-5  # relative: noised minus quiet gradients against sigma·clip·N/64
 FUSED_TOL = 1e-5  # fused rounds against run_rounds, params and losses
@@ -5578,7 +5681,7 @@ def hybrid_phase(fa):
 RING_PROCESSES = 2
 RING_PROCESS_TOL = 1e-5  # (a): step 0's loss and each gradient against 21a's ring, relative
 RING_PARAM_TOL = 1e-6  # (a): the two processes' params after the steps
-RING_PROCESS_STEPS = 2  # (a)
+RING_PROCESS_STEPS = 1  # (a): cut from 2 (PERF.md §4)
 RING_SMALL = (2, 8, 4, 4096, 64)  # (b): B, Hq, Hkv, L, D
 RING_SMALL_TOL = 1e-5  # (b): each kernel across processes against itself in one
 RING_CHILD_TIMEOUT_S = 600  # (a)-(b): each child process

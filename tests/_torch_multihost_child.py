@@ -112,7 +112,8 @@ def main() -> None:
     coord, n_proc, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     torch.set_num_threads(1)
     try:
-        assert initialize_multihost(coord, n_proc, rank, backend="gloo", timeout_s=60) == rank
+        assert initialize_multihost(coord, n_proc, rank, backend="gloo", devices=["cpu"],
+                                    timeout_s=60) == rank
         assert dist.get_world_size() == n_proc and dist.get_backend() == "gloo"
         shape = fedavg_psum(n_proc)
         gap, compute = fedsim_round()

@@ -189,7 +189,8 @@ def main() -> None:
     coord, n_proc, rank, out_dir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     torch.set_num_threads(1)
     try:
-        assert initialize_multihost(coord, n_proc, rank, backend="gloo", timeout_s=60) == rank
+        assert initialize_multihost(coord, n_proc, rank, backend="gloo", devices=["cpu"],
+                                    timeout_s=60) == rank
         mesh = make_hybrid_mesh([], dcn_axis="seq",
                                 devices=[torch.device("cpu")] * SHARDS_A_PROCESS)
         assert mesh.shape == {"seq": AXIS} and mesh.spans_processes, mesh.shape

@@ -7,7 +7,8 @@ within the bound at every element. An error in p of 3e-4, far below
 bf16's resolution, must not.
 
 Then ``kernel_kind`` on kernel names of cuDNN convolutions, GroupNorm,
-cuBLAS and the port; phase 6's check of the vmapped round against every
+cuBLAS and the port, and ``event_totals`` (the breakdown's sums of the
+profiler's raw events) against ``key_averages``; phase 6's check of the vmapped round against every
 client trained alone, on a tiny ResNet, passing and failing a trainer
 that mixes the clients up; phases 8-10's checks at a tiny size (FedProx's
 drift, the frozen tensors of a partitioned round, the card-against-CPU
@@ -19,7 +20,8 @@ error-feedback ledger, each passing and failing a broken input; phase
 launches per step, each passing and failing a broken input, and its
 card-against-CPU runs of the four variants at a tiny size; phase 16's
 host-side helpers (the 4·P·tokens count, the memory estimate and the wave
-it picks, the frozen-base check, the sweep artifact's writer and what
+it picks, the frozen-base check, 16a's registration of the Llama family
+and its checks of the compute records' MFU, the sweep artifact's writer and what
 ``configure_attention_dispatch`` reads from it); phase 21's checks (the
 ring's launch count against a counted CPU step of example 06, the shard
 by shard comparator and the model-gradient check, each failing a broken
@@ -792,6 +794,73 @@ def test_frozen_bit_equal_check():
     params["base/w"] = torch.nextafter(params["base/w"], torch.tensor(2.0))
     with pytest.raises(RuntimeError, match="frozen tensor base/w changed"):
         chip_smoke.check_frozen_bit_equal(params, host)
+
+
+def test_registered_flops_last_for_the_block_and_the_tables_come_back():
+    """16a registers the Llama family as a user would; its registration
+    ends with the phase, on an error too."""
+    from baton_tpu_torch.obs import compute
+
+    tables = dict(compute.MODEL_FAMILY_FLOPS), list(compute._FAMILY_PREFIXES)
+    name = "llama_lm_lora16"
+    assert compute.model_family_of(name)[0] is None
+    with chip_smoke.registered_flops(chip_smoke.LLAMA_FAMILY, 4.0 * 8e9 * 1024,
+                                     (chip_smoke.LLAMA_FAMILY,)):
+        assert compute.model_family_of(name) == (chip_smoke.LLAMA_FAMILY, None)
+        assert compute.model_family_of("resnet18_cifar10")[0] == "resnet18_cifar"
+    assert (dict(compute.MODEL_FAMILY_FLOPS), list(compute._FAMILY_PREFIXES)) == tables
+    with pytest.raises(KeyError):
+        with chip_smoke.registered_flops("x", 1.0, ("x",)):
+            raise KeyError("a phase that fails")
+    assert (dict(compute.MODEL_FAMILY_FLOPS), list(compute._FAMILY_PREFIXES)) == tables
+
+
+def _config4_record(flops_per_sample, train_s=8.4, family=chip_smoke.LLAMA_FAMILY):
+    from baton_tpu_torch.obs import compute
+
+    with chip_smoke.registered_flops(chip_smoke.LLAMA_FAMILY, 4.0 * 8_043_892_736 * 1024,
+                                     (chip_smoke.LLAMA_FAMILY,)):
+        return compute.build_record(train_s=train_s, n_samples=64, device_kind=H100,
+                                    model_family=family if flops_per_sample else None,
+                                    model_family_reason="no FLOPs accounting registered for "
+                                                        "model 'llama_lm_lora16'")
+
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def test_config4_record_mfu_checks():
+    """16a's checks: a registered round's record carries 4·P·tokens over its
+    train_s within 1e-3; an unregistered one is null with its reasons."""
+    flops_round = chip_smoke.lora_train_flops(8_043_892_736, 64 * 1024)
+    rec = _config4_record(True)
+    got, want = chip_smoke.check_record_mfu("r", rec, flops_round, 989e12)
+    assert abs(got - want) <= 1e-5 * want
+    with pytest.raises(RuntimeError, match="record's MFU"):  # FLOPs a sample off by 1%
+        chip_smoke.check_record_mfu("r", rec, flops_round * 1.01, 989e12)
+    bare = _config4_record(False)
+    with pytest.raises(RuntimeError, match="record's MFU None"):
+        chip_smoke.check_record_mfu("r", bare, flops_round, 989e12)
+    chip_smoke.check_unregistered_record("r", bare, "llama_lm_lora16")
+    with pytest.raises(RuntimeError, match="before registration"):
+        chip_smoke.check_unregistered_record("r", rec, "llama_lm_lora16")
+
+
+def test_event_totals_sum_the_raw_events_as_key_averages_does():
+    """The breakdown's sums from the profiler's raw events equal
+    ``key_averages``' (host ops here: no card)."""
+    cpu = torch.autograd.DeviceType.CPU
+    x = torch.randn(32, 32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(50):
+            y = torch.relu(x @ x + 1)
+    want = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()}
+    got = chip_smoke.event_totals(prof, cpu)
+    assert {"aten::mm", "aten::add", "aten::relu"} <= set(got)
+    for name, (count, us) in got.items():
+        assert want[name][0] == count and want[name][1] == pytest.approx(us, rel=1e-6), name
+    assert chip_smoke.event_totals(prof) == {}  # no device events on the CPU
+    assert y.shape == (32, 32)
 
 
 @pytest.mark.parametrize("flash_ms,crossover", [((9.0, 1.5, 1.0), 256), ((9.0, 9.0, 9.0), None),
@@ -1622,7 +1691,8 @@ def _card_lines(outs):
     for o, per_step, bf16 in zip(outs, PROCESS_PER_STEP, PROCESS_BF16):
         a = o["long_context"]
         a["launches_per_step"] = [dict(per_step) for _ in a["launches_per_step"]]
-        a["launches_by_design"] = {f"{k}_tf32x3": 2 * c for k, c in per_step.items()}
+        a["launches_by_design"] = {f"{k}_tf32x3": chip_smoke.RING_PROCESS_STEPS * c
+                                   for k, c in per_step.items()}
         flash = o["small"]["flash bf16"]
         flash["launches"] = dict(bf16)
         flash["launches_by_design"] = {f"{k}_mma": c for k, c in bf16.items()}

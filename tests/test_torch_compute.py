@@ -2,8 +2,15 @@
 MFU divides by the card's peak looked up by its CUDA name (no TPU entry,
 none for the CPU), warm-up calls are marked by first-seen shape
 signatures, the per-chip rate divides by the chips a round ran on, and
-``summarize_round`` folds records as the JAX package's does."""
+``summarize_round`` folds records as the JAX package's does. The FLOPs
+registry (``register_model_flops``), the probe's ``model_family`` and the
+tracker's storm window and threshold behave as the JAX package's on the
+same calls; every test that registers a family restores both packages'
+tables."""
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
@@ -124,3 +131,143 @@ def test_model_family_from_the_port_models():
     family, why = compute.model_family_of(cnn_mnist_model())
     assert family is None and "cnn" in why
     assert compute.model_family_of(object()) == (None, "model has no name attribute")
+
+
+@pytest.fixture
+def fresh_registries(monkeypatch):
+    """Both packages' FLOPs tables as copies, put back after the test."""
+    for mod in (compute, jcompute):
+        monkeypatch.setattr(mod, "MODEL_FAMILY_FLOPS", dict(mod.MODEL_FAMILY_FLOPS))
+        monkeypatch.setattr(mod, "_FAMILY_PREFIXES", list(mod._FAMILY_PREFIXES))
+
+
+def test_register_model_flops_roundtrip_in_both_packages(fresh_registries):
+    """The reference's ``test_register_model_flops_roundtrip``, run against
+    both packages with the same calls."""
+    for mod in (compute, jcompute):
+        mod.register_model_flops("toynet_test", 123.0, name_prefixes=["toynet"])
+        assert mod.model_family_of("toynet_v2") == ("toynet_test", None)
+        assert mod.train_flops_per_sample("toynet_test") == (123.0, None)
+        with pytest.raises(ValueError):
+            mod.register_model_flops("badnet", 0.0)
+    assert compute.MODEL_FAMILY_FLOPS == jcompute.MODEL_FAMILY_FLOPS
+    assert compute._FAMILY_PREFIXES == jcompute._FAMILY_PREFIXES
+
+
+@pytest.mark.parametrize("flops", [0.0, -1.0, float("nan")])
+def test_register_model_flops_refuses_what_the_reference_refuses(fresh_registries, flops):
+    for mod in (compute, jcompute):
+        with pytest.raises(ValueError, match="must be > 0"):
+            mod.register_model_flops("badnet", flops, name_prefixes=["bad"])
+        assert "badnet" not in mod.MODEL_FAMILY_FLOPS
+        assert mod.model_family_of("badnet")[0] is None
+
+
+def test_registered_prefixes_are_appended_so_resnet18_matches_first(fresh_registries):
+    for mod in (compute, jcompute):
+        mod.register_model_flops("catch_all", 7.0, name_prefixes=["res", "llama"])
+        mod.register_model_flops("catch_all", 9.0, name_prefixes=["llama_lm"])
+    for name in ("resnet18_cifar10", "resnet50", "llama_lm_lora16", "other"):
+        assert compute.model_family_of(name) == jcompute.model_family_of(name), name
+    assert compute.model_family_of("resnet18_cifar10")[0] == "resnet18_cifar"
+    assert compute.train_flops_per_sample("catch_all") == (9.0, None)
+
+
+def _h100(monkeypatch):
+    monkeypatch.setattr(compute, "device_kind_of", lambda device: H100_SXM)
+    monkeypatch.setattr(compute, "peak_memory_gb",
+                        lambda device: (12.5, "torch.cuda.max_memory_allocated", None))
+
+
+class _Device:
+    device_kind = H100_SXM
+
+
+@pytest.mark.parametrize("model,family", [(None, "toynet_test"), ("resnet18_x", "toynet_test"),
+                                          ("toynet_v2", None)])
+def test_probe_mfu_of_a_registered_family_on_an_h100(fresh_registries, monkeypatch, model,
+                                                     family):
+    """An explicit ``model_family`` wins over the model's name; the record's
+    MFU is the per-chip rate times the registered FLOPs over the H100's
+    peak, exact to the record's rounding."""
+    _h100(monkeypatch)
+    for mod in (compute, jcompute):
+        mod.register_model_flops("toynet_test", 2.5e9, name_prefixes=["toynet"])
+    kw = dict(key="run_round", signature=("s",), train_s=0.37, n_samples=96, n_epochs=2,
+              n_chips=2)
+    probe = compute.ComputeProbe(model, model_family=family)
+    ref = jcompute.ComputeProbe(model, model_family=family)
+    assert (probe.model_family, probe.model_family_reason) == ("toynet_test", None)
+    assert (ref.model_family, ref.model_family_reason) == ("toynet_test", None)
+    rec = probe.record_round(device=torch.device("cpu"), **kw)
+    want = ref.record_round(device=_Device(), **kw)
+    assert compute.validate_record(rec) == []
+    for key in ("model_family", "flops_per_sample", "samples_per_sec",
+                "samples_per_sec_per_chip", "n_chips", "device_kind"):
+        assert rec[key] == want[key], key
+    assert rec["flops_per_sample"] == 2.5e9
+    assert rec["samples_per_sec_per_chip"] == round(96 * 2 / 0.37 / 2, 3)
+    assert rec["mfu"] == round(rec["samples_per_sec_per_chip"] * 2.5e9 / 989e12, 6)
+    assert want["mfu"] is None and H100_SXM in want["mfu_reason"]  # no TPU peak for it
+
+
+def test_a_probe_without_a_model_says_so_as_the_reference_does():
+    probe, ref = compute.ComputeProbe(), jcompute.ComputeProbe()
+    assert (probe.model_family, probe.model_family_reason) == \
+        (ref.model_family, ref.model_family_reason) == (None, "no model attached to probe")
+    rec = probe.record_round(key="k", signature=1, train_s=0.5, n_samples=8,
+                             device=torch.device("cpu"))
+    assert rec["model_family"] is None and rec["model_family_reason"] == "no model attached to probe"
+    assert rec["mfu"] is None and rec["flops_per_sample_reason"] == "model family unknown"
+    assert compute.validate_record(rec) == []
+
+
+@pytest.mark.parametrize("window,threshold", [(2, 2), (8, 3), (4, 2), (0, 1), (5, 9)])
+def test_compile_tracker_flags_the_references_storms(window, threshold):
+    """The same signatures through both trackers give the same records,
+    storms included (the reasons' wording aside); a window or threshold
+    below 2 is clamped to 2."""
+    ours = compute.CompileTracker(window, threshold)
+    ref = jcompute.CompileTracker(window, threshold)
+    assert (ours.storm_window, ours.storm_threshold) == (ref.storm_window, ref.storm_threshold)
+    assert min(ours.storm_window, ours.storm_threshold) >= 2
+    rng = np.random.default_rng(window * 10 + threshold)
+    storms = 0
+    for i in range(200):
+        key = "train" if i % 3 else "eval"
+        sig = (int(rng.integers(0, 12)) if rng.random() < 0.4 else 0,)
+        wall = None if i % 7 == 0 else float(i) / 10
+        got, want = ours.observe(key, sig, wall_s=wall), ref.observe(key, sig, wall_s=wall)
+        # the one difference is the wording of compile_s_reason (no compiler here)
+        assert set(got) == set(want), (i, got, want)
+        assert ({k: v for k, v in got.items() if not k.endswith("_reason")}
+                == {k: v for k, v in want.items() if not k.endswith("_reason")}), (i, got, want)
+        storms += got["recompile_storm"]
+    # a threshold above the window can never be reached
+    assert (0 < storms < 200) if ours.storm_threshold <= ours.storm_window else storms == 0
+
+
+def test_probe_passes_its_storm_window_to_its_tracker():
+    for mod in (compute, jcompute):
+        probe = mod.ComputeProbe("lineartest", storm_window=3, storm_threshold=2)
+        assert (probe.tracker.storm_window, probe.tracker.storm_threshold) == (3, 2)
+        assert (mod.ComputeProbe().tracker.storm_window,
+                mod.ComputeProbe().tracker.storm_threshold) == (8, 3)
+
+
+def test_fedsim_records_the_flops_of_a_registered_family(fresh_registries):
+    """A family registered before the sim is built reaches every round's
+    record (on the CPU the MFU stays null: no peak for it)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.linear import linear_regression_model
+
+    model = linear_regression_model(3)
+    compute.register_model_flops("linear_test", 6.0 * 4, name_prefixes=[model.name])
+    sim = FedSim(model, batch_size=2, device="cpu")
+    params = sim.init(torch.Generator().manual_seed(0))
+    data = {"x": torch.ones(2, 4, 3), "y": torch.zeros(2, 4)}
+    sim.run_round(params, data, torch.tensor([4, 3]), torch.Generator().manual_seed(1))
+    rec = sim.last_compute
+    assert rec["model_family"] == "linear_test" and rec["flops_per_sample"] == 24.0
+    assert rec["mfu"] is None and "cpu" in rec["mfu_reason"]
+    assert math.isfinite(rec["samples_per_sec"])

@@ -14,7 +14,8 @@ Every child runs under a hard timeout and is killed in ``finally``; the
 children destroy their process group on exit. Also: one process needs no
 process group, a bad coordinator address raises, and the defaults give
 each process its own GPU and take the backend from its devices (nccl for
-GPUs, gloo for the CPU; CUDA stubbed, no group joined)."""
+GPUs, gloo for the CPU; CUDA stubbed, no group joined); without a GPU a
+process must be given ``devices=["cpu"]``, or it raises."""
 
 import json
 import os
@@ -112,14 +113,24 @@ def _stub_cuda(monkeypatch, n_gpus):
 
 
 @pytest.mark.parametrize("n_gpus,rank,devices,want,backend", [
-    (0, 1, None, ["cpu"], "gloo"),
+    (0, 1, None, RuntimeError, None),
     (2, 3, None, ["cuda:1"], "nccl"),
     (8, 3, None, ["cuda:3"], "nccl"),
     (1, 1, ["cuda:0", "cuda:0"], ["cuda:0", "cuda:0"], "nccl"),
     (2, 0, ["cpu"] * 4, ["cpu"] * 4, "gloo"),
 ])
 def test_default_devices_and_backend(monkeypatch, n_gpus, rank, devices, want, backend):
+    """Without a GPU and without ``devices`` a process has no devices: it
+    raises, naming ``devices=["cpu"]``, and never falls back to the CPU."""
     _stub_cuda(monkeypatch, n_gpus)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match=r'devices=\["cpu"\]'):
+            process_devices(rank, devices)
+        with pytest.raises(RuntimeError, match=r'devices=\["cpu"\]'):
+            initialize_multihost("127.0.0.1:29500", 2, rank, backend="gloo")
+        assert not torch.distributed.is_initialized()
+        assert process_devices(rank, ["cpu"]) == [torch.device("cpu")]
+        return
     got = process_devices(rank, devices)
     assert got == [torch.device(d) for d in want]
     assert default_backend(got) == backend

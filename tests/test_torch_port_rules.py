@@ -8,7 +8,11 @@ mesh and a hybrid clients x model mesh among them), no
 option as not ported (what is left of them are JAX's own refusals, such
 as a robust aggregator on a hybrid mesh), the federation variants refuse
 the reference's incompatible sims with its ``ValueError``s, and the chip
-smoke test has no CPU fallback."""
+smoke test has no CPU fallback. And the port is complete name by name:
+every public name of every module of the JAX package, each public method
+of its public classes and each parameter of those functions has its
+counterpart in the same module of the port, or stands in ``EXEMPT`` with
+its reason (both packages read with ``ast``, neither imported)."""
 
 import ast
 import asyncio
@@ -395,3 +399,217 @@ def test_chip_smoke_fails_without_a_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+
+# -- the name-by-name parity guard ------------------------------------------
+
+REF_PACKAGE = ROOT / "baton_tpu"
+PORT_PACKAGE = ROOT / "baton_tpu_torch"
+FUNCTIONS = (ast.FunctionDef, ast.AsyncFunctionDef)
+
+KEY = "a JAX PRNG key: the port draws from an explicit torch.Generator, or takes none"
+PALLAS_TILES = "Pallas tile sizes: each CUDA kernel design fixes its own tiles"
+PALLAS_INTERPRET = "Pallas interpret mode: on the CPU the port's wrapper runs the plain version"
+XLA_PLAN = ("XLA's compile-time memory plan: the port measures the allocator instead "
+            "(utils/profiling.fedsim_wave_footprint_gb, obs/compute.peak_memory_gb)")
+TPU_BUDGET = "TPU memory budgets: the port's budget is the card's own memory (device_budget_gb)"
+BENCH = "owed: bench.py's helper, ported with bench.py in the benchmark PR"
+
+# (module of baton_tpu, name or None for the module, parameter or None) -> reason
+EXEMPT = {
+    ("parallel/compat.py", None, None): "a shard_map shim for JAX 0.4; torch has no shard_map",
+    ("core/model.py", "FedModel.from_flax", None): "Flax is JAX",
+    ("core/model.py", "PRNGKey", None): "JAX's key type: the port passes torch.Generators",
+    ("core/model.py", "FedModel.masked_loss", "rng"): KEY,
+    ("core/model.py", "FedModel.loss_and_count", "rng"): KEY,
+    ("core/losses.py", "mse", "rng"): KEY,
+    ("core/losses.py", "softmax_cross_entropy", "rng"): KEY,
+    ("core/losses.py", "sigmoid_binary_cross_entropy", "rng"): KEY,
+    ("core/partition.py", "path_str", None):
+        "renders a JAX pytree key path: the port's params are flat dicts keyed by the path",
+    ("core/partition.py", "ParamPartition.__init__", "treedef"):
+        "a JAX pytree's treedef: the port's flat dicts need the paths alone",
+    ("core/training.py", "LocalTrainer.train", "rng"): KEY,
+    ("core/training.py", "LocalTrainer.train_with_opt_state", "rng"): KEY,
+    ("models/moe.py", "moe_init", "key"): KEY,
+    ("models/transformer.py", "normal_init", "key"): KEY,
+    ("models/transformer.py", "dense_init", "key"): KEY,
+    ("models/transformer.py", "mha_init", "key"): KEY,
+    ("models/transformer.py", "gelu_mlp_init", "key"): KEY,
+    ("models/transformer.py", "swiglu_init", "key"): KEY,
+    ("models/transformer.py", "prenorm_block_init", "key"): KEY,
+    ("obs/compute.py", "TPU_PEAK_FLOPS", None): "TPU peaks: the port's MFU divides by CUDA_PEAKS",
+    ("ops/aggregation.py", "psum_weighted_mean", "axis_name"):
+        "a shard_map axis name: the port's psum forms take the mesh",
+    ("ops/aggregation.py", "psum_weighted_scalar_mean", "axis_name"):
+        "a shard_map axis name: the port's psum forms take the mesh",
+    ("ops/compression.py", "quantize_stochastic", "rng"): KEY,
+    ("ops/flash_attention.py", "flash_attention", "block_q"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_attention", "block_k"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_attention", "interpret"): PALLAS_INTERPRET,
+    ("ops/flash_attention.py", "flash_block_fwd", "block_q"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_block_fwd", "block_k"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_block_fwd", "interpret"): PALLAS_INTERPRET,
+    ("ops/flash_attention.py", "flash_block_bwd", "block_q"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_block_bwd", "block_k"): PALLAS_TILES,
+    ("ops/flash_attention.py", "flash_block_bwd", "interpret"): PALLAS_INTERPRET,
+    ("ops/flash_attention.py", "make_flash_attention_fn", "block_q"): PALLAS_TILES,
+    ("ops/flash_attention.py", "make_flash_attention_fn", "block_k"): PALLAS_TILES,
+    ("ops/flash_attention.py", "make_flash_attention_fn", "interpret"): PALLAS_INTERPRET,
+    ("ops/privacy.py", "per_example_clipped_grad_sum", "rng"): KEY,
+    ("ops/privacy.py", "gaussian_noise_like", "rng"): KEY,
+    ("ops/privacy.py", "dp_sgd_grads", "rng"): KEY,
+    ("ops/privacy.py", "dp_fedavg", "rng"): KEY,
+    ("ops/secure_agg.py", "Params", None): "a type alias: the port's is Tree",
+    ("ops/secure_agg.py", "net_mask_of", "seed_key"):
+        "a JAX key made from the pair's seed: the port takes the integer seed",
+    ("ops/secure_agg.py", "mask_update", "seed_key"):
+        "a JAX key made from the pair's seed: the port takes the integer seed",
+    ("parallel/clustered.py", "ClusteredFedSim.init_clusters", "rng"): KEY,
+    ("parallel/clustered.py", "ClusteredFedSim.run_round", "rng"): KEY,
+    ("parallel/clustered.py", "ClusteredFedSim.evaluate", "rng"): KEY,
+    ("parallel/engine.py", "client_eval_sums", "r"): KEY,
+    ("parallel/engine.py", "FedSim.init", "rng"): KEY,
+    ("parallel/engine.py", "FedSim.auto_wave_size", "key"): KEY,
+    ("parallel/engine.py", "FedSim.run_round", "rng"): KEY,
+    ("parallel/engine.py", "FedSim.evaluate_round", "rng"): KEY,
+    ("parallel/engine.py", "FedSim.evaluate_clients", "rng"): KEY,
+    ("parallel/engine.py", "FedSim.run_rounds", "rng"): KEY,
+    ("parallel/engine.py", "FedSim.run_rounds_fused", "rng"): KEY,
+    ("parallel/fedbuff.py", "FedBuff.run", "rng"): KEY,
+    ("parallel/personalization.py", "FedPer.run_round", "rng"): KEY,
+    ("parallel/personalization.py", "FedPer.evaluate", "rng"): KEY,
+    ("parallel/stateful.py", "StatefulClients.run_round", "rng"): KEY,
+    ("parallel/ring_attention.py", "flash_ring_attention", "block_q"): PALLAS_TILES,
+    ("parallel/ring_attention.py", "flash_ring_attention", "block_k"): PALLAS_TILES,
+    ("parallel/ring_attention.py", "flash_ring_attention", "interpret"): PALLAS_INTERPRET,
+    ("parallel/ring_attention.py", "make_flash_ring_attention_fn", "block_q"): PALLAS_TILES,
+    ("parallel/ring_attention.py", "make_flash_ring_attention_fn", "block_k"): PALLAS_TILES,
+    ("parallel/ring_attention.py", "make_flash_ring_attention_fn", "interpret"):
+        PALLAS_INTERPRET,
+    ("utils/profiling.py", "plan_breakdown_gb", None): XLA_PLAN,
+    ("utils/profiling.py", "peak_hbm_gb", None): XLA_PLAN,
+    ("utils/profiling.py", "fedsim_wave_plan_gb", None): XLA_PLAN,
+    ("utils/profiling.py", "fedsim_wave_hbm", None): XLA_PLAN,
+    ("utils/profiling.py", "HBM_BUDGET_GB", None): TPU_BUDGET,
+    ("utils/profiling.py", "DEFAULT_HBM_BUDGET_GB", None): TPU_BUDGET,
+    ("utils/profiling.py", "ANCHORED_DIRECT_CONV_BUDGET_GB", None): TPU_BUDGET,
+    ("utils/profiling.py", "hbm_budget_gb", None): TPU_BUDGET,
+    ("utils/profiling.py", "configure_jax_for_bench", None): BENCH,
+    ("utils/profiling.py", "resolve_artifact_path", None): BENCH,
+    ("utils/profiling.py", "conv_kernel_class", None): BENCH,
+    ("utils/profiling.py", "ANCHORED_CONV_KERNEL", None): BENCH,
+    ("utils/profiling.py", "fedsim_fused_donation_plan", None): BENCH,
+}
+
+
+def _params(fn) -> set:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return {n for n in names if n not in ("self", "cls")}
+
+
+def _module_level(stmts):
+    """A module's top-level statements, those under ``if`` and ``try`` too."""
+    for node in stmts:
+        if isinstance(node, (ast.If, ast.Try)):
+            yield from _module_level(node.body + node.orelse + getattr(node, "finalbody", [])
+                                     + [s for h in getattr(node, "handlers", []) for s in h.body])
+        else:
+            yield node
+
+
+def module_surface(path, public_only: bool) -> dict:
+    """``{name: parameters}`` of a module: its functions, classes, each
+    class's methods (``Class.method``) and annotated fields, its assigned
+    names, and the names it imports (only an ``__init__.py``'s are public
+    re-exports). ``public_only`` keeps the names without a leading
+    underscore, and ``__init__``."""
+    def wanted(name):
+        return not public_only or all(not part.startswith("_") or part == "__init__"
+                                      for part in name.split("."))
+
+    out = {}
+    for node in _module_level(ast.parse(path.read_text(), filename=str(path)).body):
+        if isinstance(node, FUNCTIONS):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = set()
+            for sub in node.body:
+                if isinstance(sub, FUNCTIONS):
+                    out[f"{node.name}.{sub.name}"] = _params(sub)
+                elif isinstance(sub, ast.AnnAssign) and isinstance(sub.target, ast.Name):
+                    out[f"{node.name}.{sub.target.id}"] = set()
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                out.update({n.id: set() for n in ast.walk(target) if isinstance(n, ast.Name)})
+        elif (isinstance(node, (ast.Import, ast.ImportFrom))
+              and (path.name == "__init__.py" or not public_only)):
+            out.update({(a.asname or a.name).split(".")[0]: set() for a in node.names})
+    return {k: v for k, v in out.items() if wanted(k)}
+
+
+def parity_gaps(ref_package, port_package, module: str) -> set:
+    """What the port's ``module`` lacks of the JAX package's: ``(module,
+    None, None)`` for the whole module, ``(module, name, None)`` for a
+    name, ``(module, name, parameter)`` for a parameter."""
+    port = port_package / module
+    if not port.exists():
+        return {(module, None, None)}
+    want = module_surface(ref_package / module, public_only=True)
+    have = module_surface(port, public_only=False)
+    gaps = set()
+    for name, params in want.items():
+        if name not in have:
+            gaps.add((module, name, None))
+        else:
+            gaps |= {(module, name, p) for p in params - have[name]}
+    return gaps
+
+
+REF_MODULES = sorted(p.relative_to(REF_PACKAGE).as_posix() for p in REF_PACKAGE.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_public_name_of_the_jax_package_is_in_the_port(module):
+    """Each public name, method and parameter of ``baton_tpu/<module>`` is in
+    ``baton_tpu_torch/<module>``, or exempt with its reason."""
+    missing = parity_gaps(REF_PACKAGE, PORT_PACKAGE, module) - set(EXEMPT)
+    assert not missing, f"not in the port and not exempt: {sorted(missing, key=str)}"
+
+
+def test_every_exemption_has_a_reason_and_is_still_missing():
+    """No stale entry: each exempt name is in the JAX package and still
+    missing from the port, and its reason is one line."""
+    gaps = set().union(*(parity_gaps(REF_PACKAGE, PORT_PACKAGE, m) for m in REF_MODULES))
+    for entry, reason in EXEMPT.items():
+        assert entry[0] in REF_MODULES, entry
+        assert entry in gaps, (f"{entry} is not a gap of the port: ported (take it out of "
+                               "EXEMPT), or its whole name is missing")
+        assert isinstance(reason, str) and reason.strip() and "\n" not in reason, entry
+    assert sum(r.startswith("owed") for r in EXEMPT.values()) == 5
+
+
+def test_the_parity_guard_catches_a_missing_module_name_method_and_parameter(tmp_path):
+    ref, port = tmp_path / "ref", tmp_path / "port"
+    for root in (ref, port):
+        (root / "sub").mkdir(parents=True)
+    (ref / "__init__.py").write_text("from .sub.a import f, C\n")
+    (port / "__init__.py").write_text("from .sub.a import f\n")
+    (ref / "sub" / "a.py").write_text(
+        "import math\nLIMIT = 3\n\ndef f(x, rng, *, scale=1.0):\n    pass\n\n"
+        "def _private(y):\n    pass\n\nclass C:\n    n: int = 0\n\n"
+        "    def __init__(self, model=None, family=None):\n        pass\n\n"
+        "    def run(self, a):\n        pass\n\n    def _helper(self):\n        pass\n")
+    (port / "sub" / "a.py").write_text(
+        "try:\n    LIMIT = 3\nexcept ImportError:\n    pass\n\n"
+        "def f(x, scale=1.0):\n    pass\n\nclass C:\n    def __init__(self, model=None):\n"
+        "        pass\n")
+    (ref / "sub" / "b.py").write_text("def g():\n    pass\n")
+    gaps = set().union(*(parity_gaps(ref, port, m) for m in ("__init__.py", "sub/a.py",
+                                                              "sub/b.py")))
+    assert gaps == {("__init__.py", "C", None), ("sub/a.py", "f", "rng"),
+                    ("sub/a.py", "C.n", None), ("sub/a.py", "C.__init__", "family"),
+                    ("sub/a.py", "C.run", None), ("sub/b.py", None, None)}
