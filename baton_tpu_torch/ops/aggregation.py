@@ -14,10 +14,12 @@ client axis on every leaf.
 
 On a clients mesh (``parallel/mesh.py``) a value is a list of per-shard
 parts, one for each shard this process holds. :func:`psum` is the one
-reduction over the client axis: the parts' fp32 values are added in shard
-order on the first shard's device, added across processes by one
-``torch.distributed.all_reduce`` where the mesh spans them (:func:`_all_reduce`,
-the only transport), and copied back to every shard's device.
+reduction over the client axis, in two parts: :func:`psum_local` adds the
+parts' fp32 values in shard order on the first shard's device into one
+flat fp32 buffer, and :func:`psum_across` adds that buffer across processes
+in place by one ``torch.distributed.all_reduce`` where the mesh spans them
+(:func:`_all_reduce`, the only transport); :func:`psum_views` gives the
+buffer back as the parts' leaves on every shard's device.
 :func:`psum_weighted_mean` and :func:`psum_weighted_scalar_mean` are
 FedAvg's forms of it, :func:`gather_clients` the gather of per-client
 rows that rides on it.
@@ -83,41 +85,82 @@ def _rebuild(like, it):
     return next(it)
 
 
-def _all_reduce(leaves: list, group) -> list:
-    """The sum of fp32 ``leaves`` over the processes of ``group``: the
-    client axis's only transport across processes. The leaves travel as
-    one flat buffer in one ``torch.distributed.all_reduce`` (gloo copies a
-    CUDA buffer through the host)."""
+def _all_reduce(flat: torch.Tensor, group) -> None:
+    """Sum ``flat``, a flat fp32 buffer, in place over the processes of
+    ``group``: the client axis's only transport across processes, one
+    ``torch.distributed.all_reduce`` (gloo copies a CUDA buffer through
+    the host)."""
     import torch.distributed as dist
 
-    flat = torch.cat([t.reshape(-1) for t in leaves])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    out, at = [], 0
-    for t in leaves:
-        out.append(flat[at:at + t.numel()].view(t.shape))
-        at += t.numel()
+
+
+def flat_size(like) -> int:
+    """The elements of :func:`psum_local`'s buffer for parts shaped as
+    ``like`` (a tensor, or nested dict of tensors)."""
+    return sum(t.numel() for t in _leaves(like))
+
+
+def psum_local(parts: Sequence, mesh, axis: str = "clients",
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The local part of :func:`psum`: ``parts`` (one tensor, or nested dict
+    of tensors, for each shard of ``axis`` this process holds, in shard
+    order) added leaf by leaf in shard order, in fp32, on the first shard's
+    device, into one flat fp32 buffer in the order of the leaves: ``out``
+    (``flat_size(parts[0])`` elements on that device, owned by the caller,
+    so that a CUDA graph's capture allocates nothing for it), else a new
+    one. Returns the buffer."""
+    devices = [d for _, d in mesh.local_shards(axis)]
+    if len(parts) != len(devices):
+        raise ValueError(f"{len(parts)} parts for the {len(devices)} shards of {axis!r} "
+                         "this process holds")
+    home = devices[0]
+    if out is None:
+        out = torch.empty(flat_size(parts[0]), dtype=torch.float32, device=home)
+    elif out.numel() != flat_size(parts[0]) or out.dtype != torch.float32:
+        raise ValueError(f"a buffer of {out.numel()} {out.dtype} for parts of "
+                         f"{flat_size(parts[0])} fp32 elements")
+    at = 0
+    for shard_leaves in zip(*[_leaves(p) for p in parts]):
+        n = shard_leaves[0].numel()
+        acc = out[at:at + n].view(shard_leaves[0].shape)
+        acc.copy_(shard_leaves[0], non_blocking=True)
+        for t in shard_leaves[1:]:
+            acc.add_(t.float().to(home, non_blocking=True))
+        at += n
     return out
+
+
+def psum_across(flat: torch.Tensor, mesh) -> torch.Tensor:
+    """The part of :func:`psum` across processes: :func:`psum_local`'s
+    buffer summed in place over the mesh's processes where it spans them
+    (:func:`_all_reduce`), else left as it is. Returns it."""
+    if mesh.spans_processes:
+        _all_reduce(flat, mesh.process_group)
+    return flat
+
+
+def psum_views(flat: torch.Tensor, like, mesh, axis: str = "clients") -> list:
+    """``flat`` read back as the leaves of ``like`` (a tensor, or nested
+    dict of tensors: only their shapes are read), one copy on each shard's
+    device of ``axis`` that this process holds: views of ``flat`` on its
+    own device."""
+    devices = [d for _, d in mesh.local_shards(axis)]
+    views, at = [], 0
+    for t in _leaves(like):
+        views.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return [_rebuild(like, iter([v.to(d, non_blocking=True) for v in views])) for d in devices]
 
 
 def psum(parts: Sequence, mesh, axis: str = "clients") -> list:
     """The sum over every shard of the mesh's ``axis`` of ``parts`` (one
     tensor, or nested dict of tensors, for each shard this process holds,
     in shard order), in fp32: added in shard order on the first shard's
-    device, then across processes (:func:`_all_reduce`), and returned as
-    one copy on each shard's device."""
-    devices = [d for _, d in mesh.local_shards(axis)]
-    if len(parts) != len(devices):
-        raise ValueError(f"{len(parts)} parts for the {len(devices)} shards of {axis!r} "
-                         "this process holds")
-    home = devices[0]
-    total = [t.float().to(home, non_blocking=True) for t in _leaves(parts[0])]
-    for part in parts[1:]:
-        total = [acc + t.float().to(home, non_blocking=True)
-                 for acc, t in zip(total, _leaves(part))]
-    if mesh.spans_processes:
-        total = _all_reduce(total, mesh.process_group)
-    return [_rebuild(parts[0], iter([t.to(d, non_blocking=True) for t in total]))
-            for d in devices]
+    device (:func:`psum_local`), then across processes
+    (:func:`psum_across`), and returned as one copy on each shard's device
+    (:func:`psum_views`)."""
+    return psum_views(psum_across(psum_local(parts, mesh, axis), mesh), parts[0], mesh, axis)
 
 
 def gather_clients(parts: Sequence[torch.Tensor], mesh, axis: str = "clients") -> torch.Tensor:

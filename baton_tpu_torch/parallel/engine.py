@@ -33,7 +33,7 @@ on the card from a device generator seeded from it, one a wave).
 (:meth:`FedSim.auto_wave_size`): trial waves of 1 and 2 clients give a
 line of peak memory against the wave, and the reference's halving search
 runs over that line. ``run_rounds_fused`` captures one round's device
-work as a CUDA graph and replays it (:meth:`FedSim.run_rounds_fused`).
+work as CUDA graphs and replays them (:meth:`FedSim.run_rounds_fused`).
 
 ``mesh=`` a clients mesh (``parallel/mesh.py``; the CPU's
 ``make_mesh(n, devices=[torch.device("cpu")] * n)``, one card's
@@ -47,9 +47,10 @@ globals copied there, every shard's wave is issued before any is read,
 and the per-shard fp32 sums meet in one psum a round
 (``ops/aggregation.py:psum``). Each client keeps the shuffle and the DP
 noise rows it gets in a meshless round of the same wave. Evaluation, the
-robust aggregators, ``run_rounds_fused`` (as a CUDA graph where every
-shard is on one card in this process) and the wave sizer (trial waves of
-one and two clients a shard) run on the mesh too.
+robust aggregators, ``run_rounds_fused`` (as CUDA graphs where every shard
+this process holds is on its one card: one graph, or two around the
+all-reduce where the mesh spans processes) and the wave sizer (trial waves
+of one and two clients a shard) run on the mesh too.
 
 A hybrid ``("clients", "model")`` mesh (:attr:`FedSim.is_hybrid`, the
 ``transformer-tp`` rule table) runs the same rounds with the frozen base
@@ -503,7 +504,7 @@ class FedSim:
 
     def _fold_waves(self, trainable, frozen_shards, anchor, data, n_samples, perms,
                     wave_size: int, n_epochs: int, generators, robust: bool = False,
-                    per_client=None, progress_fn=None):
+                    per_client=None, progress_fn=None, flat: Optional[torch.Tensor] = None):
         """Train the cohort ``wave_size`` clients at a time and fold each
         wave on the clients mesh (``kernel_specs("engine.wave_sums" |
         "engine.wave_params")``; meshless, the one shard of ``device``),
@@ -520,7 +521,14 @@ class FedSim:
         order. ``generators[i]`` is wave ``i``'s generator, or under DP with
         noise a list of the shards' replicas of its noise generator (made
         before a CUDA graph's capture). Host syncs only for
-        ``progress_fn``."""
+        ``progress_fn``.
+
+        With ``flat`` (``agg.flat_size(self._sums_like(trainable,
+        n_epochs))`` fp32 elements on ``device``) the fold stops before the
+        add across processes: the psum's local part writes the shards'
+        sums into ``flat`` (:func:`agg.psum_local`, the layout of
+        :meth:`_sums_like`), which is returned; :meth:`_read_sums` finishes
+        it after :func:`agg.psum_across`."""
         mesh = self._clients_mesh
         n_shards = len(mesh.local_shards(CLIENT_AXIS))
         placed = {name: replicate(tree, mesh) if tree is not None else [None] * n_shards
@@ -566,9 +574,28 @@ class FedSim:
                 if progress_fn is not None:
                     wave_losses.sum().item()  # wait for the wave's device work
                     progress_fn(i + 1, n_waves)
-        total = agg.psum([{"p": sums[s] or {}, "l": lsums[s], "w": wsums[s]}
-                          for s in range(n_shards)], mesh)[0]
+        parts = [{"p": {k: sums[s][k] for k in trainable} if sums[s] else {},
+                  "l": lsums[s], "w": wsums[s]} for s in range(n_shards)]
+        if flat is not None:
+            return agg.psum_local(parts, mesh, out=flat)
+        total = agg.psum(parts, mesh)[0]
         return (stacked_parts if robust else total["p"]), total["l"], total["w"]
+
+    @staticmethod
+    def _sums_like(trainable, n_epochs: int) -> dict:
+        """The shapes of a round's sums, in the order of the psum's flat
+        buffer: the fp32 param sums, the loss sums ``[n_epochs]``, the
+        weight sum."""
+        meta = torch.device("meta")
+        return {"p": {k: torch.empty(v.shape, device=meta) for k, v in trainable.items()},
+                "l": torch.empty(n_epochs, device=meta), "w": torch.empty((), device=meta)}
+
+    def _read_sums(self, flat, like) -> tuple:
+        """``(psum, lsum, wsum)`` of a round from its flat buffer of sums
+        (:meth:`_fold_waves` with ``flat``, added across processes):
+        views of it, in the layout ``like`` of :meth:`_sums_like`."""
+        total = agg.psum_views(flat, like, self._clients_mesh)[0]
+        return total["p"], total["l"], total["w"]
 
     def _shard_noise(self, generator, wave_size: int):
         """DP noise on the clients mesh for one wave of ``wave_size``
@@ -683,27 +710,49 @@ class FedSim:
                          n_rounds: int, n_epochs: int = 1, wave_size=None,
                          server_opt_state=None, return_server_opt_state: bool = False,
                          donate_buffers: bool = True):
-        """``run_rounds`` with one round's device work captured once as a
-        CUDA graph and replayed; returns what ``run_rounds`` returns (no
+        """``run_rounds`` with one round's device work captured once as CUDA
+        graphs and replayed; returns what ``run_rounds`` returns (no
         checkpointer). Robust aggregators are refused (the fused round
         streams weighted sums; use ``run_round``/``run_rounds``).
 
         Round ``i`` draws from ``round_generator(generator, i)`` as
         ``run_rounds`` does, so both get the same shuffles (and DP noise
-        seeds); every draw happens on the host before capture. The round's
-        body (every wave's steps, the weighted fold, the divide and the
-        server optimizer's step) has no host sync. Round 0 runs it eagerly
-        on a side stream, which is also the warm-up in which cuBLAS and
-        cuDNN pick their plans; the body is then captured once into a
-        ``torch.cuda.CUDAGraph`` and replayed for rounds 1..n-1, each
-        round's shuffles copied into the graph's static buffer before its
-        replay. Under DP with noise each wave draws from its own device
-        generator, registered with the graph and seeded before every
-        replay. The losses stay on the device until one sync at the end.
-        A capture that fails raises: nothing falls back to the eager loop.
-        On the CPU the same body runs in a plain loop. ``last_fused``
-        records which ran, the capture's seconds and the replays' span on
-        the device (``replay_s``, from CUDA events).
+        seeds); every draw happens on the host before capture. A round is
+        three steps with no host sync in the first and the last: piece A
+        (every wave's steps and the local fold of the shards' sums into one
+        flat fp32 buffer, ``agg.psum_local``), the add across processes
+        (``agg.psum_across``: the round's one ``all_reduce`` where the mesh
+        spans processes, else nothing) and piece B (the sums read back, the
+        divide, the server optimizer's step). ``run_round`` adds through the
+        same ``psum_local`` in the same order. Round 0 runs the three
+        eagerly on a side stream, which is also the warm-up in which cuBLAS
+        and cuDNN pick their plans. Then, where the mesh does not span
+        processes, A and B are captured as one ``torch.cuda.CUDAGraph`` and
+        replayed for rounds 1..n-1; where it does, A and B are captured as
+        two graphs and each later round replays A, runs the all-reduce
+        eagerly on the buffer (it cannot be captured: gloo copies through
+        the host) and replays B. Each round's shuffles are copied into the
+        graph's static buffer before its replay. Under DP with noise each
+        wave draws from its own device generators (one a shard), registered
+        with the graph of A and seeded before every replay. The losses stay
+        on the device until one sync at the end (across processes the host
+        also waits for A before each all-reduce). A capture that fails
+        raises: nothing falls back to the eager loop. On the CPU the same
+        three steps run in a plain loop.
+
+        A CUDA graph belongs to one card: every shard this process holds
+        must lie on ``device``, with or without other processes (one
+        process a card, as ``multihost.initialize_multihost`` gives); a
+        process whose shards lie on several cards is refused.
+
+        ``last_fused`` records what ran: on the CPU ``{"graph": False,
+        "rounds": n}``; on the card ``"graph": True``, the capture's seconds,
+        the replays and their span on the device (``replay_s``, from CUDA
+        events), and
+        where the mesh spans processes ``"pieces": 2``, the replays of A and
+        of B on the device (``replay_a_s``, ``replay_b_s``, summed over the
+        replays) and each round's ``all_reduce_s`` (host seconds from A's
+        end to the reduced buffer on the card).
 
         ``donate_buffers`` is kept for the reference's signature and
         changes nothing here: the port copies ``params`` (and any
@@ -715,6 +764,15 @@ class FedSim:
                 "the fused rounds stream weighted sums and cannot apply the "
                 f"{self.aggregator[0]!r} aggregator; use run_round/run_rounds for robust "
                 "aggregation")
+        if self.device.type == "cuda":
+            mesh = self.mesh if self.mesh is not None else self._clients_mesh
+            others = sorted({str(d) for d in mesh.local_devices() if d != self.device})
+            if others:
+                raise NotImplementedError(
+                    f"run_rounds_fused captures CUDA graphs on one card, {self.device}, and this "
+                    f"process also holds shards on {others}: one CUDA graph belongs to one "
+                    "card. Run one process a card (multihost.initialize_multihost gives each "
+                    "its own), or run_rounds")
         data, n_samples = self._to_device(data, n_samples)
         if wave_size == "auto":
             wave_size = self._auto_wave(params, data, n_samples, n_epochs)
@@ -740,30 +798,34 @@ class FedSim:
             seeds.append([noise_seed(g) for _ in range(n_waves)] if derive else None)
         if self.server_optimizer is not None and server_opt_state is None:
             server_opt_state = self.server_optimizer.init(trainable)
+        like = self._sums_like(trainable, n_epochs)
 
-        def body(p, sos, pm, wave_gens):
-            """One round on ``p``: (new params, new server state, losses)."""
+        def fold(p, pm, wave_gens, flat):
+            """Piece A on ``p``: the round's waves, folded into ``flat``."""
             anchor = p if self.trainer.regularizer is not None else None
-            psum, lsum, wsum = self._fold_waves(p, frozen_shards, anchor, data, n_samples, pm,
-                                                wave, n_epochs, wave_gens)
+            self._fold_waves(p, frozen_shards, anchor, data, n_samples, pm, wave, n_epochs,
+                             wave_gens, flat=flat)
+
+        def finish(p, sos, flat):
+            """Piece B on ``p``: (new params, new server state, losses) from
+            the round's sums in ``flat``, added across processes."""
+            psum, lsum, wsum = self._read_sums(flat, like)
             new, sos = self._aggregate(p, psum, n_samples, wsum, sos, robust=False)
             return new, sos, lsum / wsum.clamp_min(1e-9)
 
         if self.device.type != "cuda":
             history = []
             p, sos = trainable, server_opt_state
+            flat = torch.empty(agg.flat_size(like), device=self.device)
             for i in range(n_rounds):
-                p, sos, loss = body(p, sos, perms[i].to(self.device), [round_gens[i]] * n_waves)
+                fold(p, perms[i].to(self.device), [round_gens[i]] * n_waves, flat)
+                agg.psum_across(flat, self._clients_mesh)
+                p, sos, loss = finish(p, sos, flat)
                 history.extend(loss.tolist())
             self.last_fused = {"graph": False, "rounds": n_rounds}
         else:
-            mesh = self.mesh if self.mesh is not None else self._clients_mesh
-            if mesh.spans_processes or any(d != self.device for d in mesh.local_devices()):
-                raise NotImplementedError(
-                    "run_rounds_fused captures one CUDA graph on one card: a mesh whose "
-                    "shards lie on more than one device or process cannot be captured here "
-                    "(run_rounds runs it)")
-            p, sos, history = self._rounds_as_graph(body, trainable, server_opt_state, perms,
+            p, sos, history = self._rounds_as_graph(fold, finish, agg.flat_size(like), trainable,
+                                                    server_opt_state, perms,
                                                     seeds if derive else None, n_waves)
         if self.partition is not None:
             p = self.partition.merge(p, frozen_shards[0] if self.is_hybrid else frozen)
@@ -771,27 +833,52 @@ class FedSim:
             return p, history, sos
         return p, history
 
-    def _rounds_as_graph(self, body, trainable, server_opt_state, perms, seeds, n_waves):
+    def _rounds_as_graph(self, fold, finish, flat_size, trainable, server_opt_state, perms,
+                         seeds, n_waves):
         """``run_rounds_fused`` on the card: round 0 eagerly on a side
-        stream, the body captured once, replays for the other rounds.
-        ``seeds[i]`` seeds each wave's noise generator for round ``i``
-        (None: no noise). Returns the final params, server state and the
-        loss history, read back in the run's one sync."""
+        stream, then pieces A (``fold``) and B (``finish``) captured once,
+        as one graph or, where the mesh spans processes, as two around the
+        eager all-reduce, and replayed for the other rounds. ``seeds[i]``
+        seeds each wave's noise generators for round ``i`` (None: no
+        noise). Returns the final params, server state and the loss
+        history, read back in the run's one sync."""
         dev = self.device
+        mesh = self._clients_mesh
         p = {k: v.clone() for k, v in trainable.items()}
         sos = (None if server_opt_state is None
                else optim.tree_map(lambda v: v.clone(), server_opt_state))
         perm_buf = torch.empty_like(perms[0], device=dev)
+        # the round's sums, allocated before any capture: A writes them, the
+        # all-reduce adds them across processes in place, B reads them
+        flat = torch.empty(flat_size, dtype=torch.float32, device=dev)
         # each wave's noise generator, made before the capture: one replica
         # a shard, every replica seeded alike
-        n_shards = len(self._clients_mesh.local_shards(CLIENT_AXIS))
+        n_shards = len(mesh.local_shards(CLIENT_AXIS))
         replicas = [[torch.Generator(device=dev) for _ in range(n_shards)]
                     for _ in range(n_waves)] if seeds else None
         gens = replicas if seeds else [None] * n_waves
         out = {}
+        record = {"graph": True, "rounds": len(perms), "capture_s": None, "replays": 0,
+                  "replay_s": None}
+        pieces = 2 if mesh.spans_processes else 1
+        if pieces == 2:
+            record.update(pieces=2, replay_a_s=None, replay_b_s=None, all_reduce_s=[])
+        stream = torch.cuda.current_stream
 
-        def step():
-            new, new_sos, loss = body(p, sos, perm_buf, gens)
+        def piece_a():
+            fold(p, perm_buf, gens, flat)
+
+        def across():
+            """The eager all-reduce, timed from A's end to the reduced
+            buffer on the card."""
+            stream(dev).synchronize()
+            t0 = time.perf_counter()
+            agg.psum_across(flat, mesh)
+            stream(dev).synchronize()
+            record["all_reduce_s"].append(time.perf_counter() - t0)
+
+        def piece_b():
+            new, new_sos, loss = finish(p, sos, flat)
             for k, v in new.items():
                 p[k].copy_(v)
             if sos is not None:
@@ -807,34 +894,61 @@ class FedSim:
 
         losses = []
         side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        side.wait_stream(stream(dev))
         with torch.cuda.stream(side):
             start_round(0)
-            step()
+            piece_a()
+            if pieces == 2:
+                across()
+            piece_b()
             losses.append(out["loss"].clone())
-        torch.cuda.current_stream(dev).wait_stream(side)
-        record = {"graph": True, "rounds": len(perms), "capture_s": None, "replays": 0,
-                  "replay_s": None}
+        stream(dev).wait_stream(side)
         if len(perms) > 1:
-            graph = torch.cuda.CUDAGraph()
+            graphs = [torch.cuda.CUDAGraph() for _ in range(pieces)]
             for g in (g for wave_replicas in replicas or [] for g in wave_replicas):
-                graph.register_generator_state(g)
+                graphs[0].register_generator_state(g)
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
-                step()
+            if pieces == 1:
+                with torch.cuda.graph(graphs[0]):
+                    piece_a()
+                    piece_b()
+            else:
+                with torch.cuda.graph(graphs[0]):
+                    piece_a()
+                with torch.cuda.graph(graphs[1]):
+                    piece_b()
             record["capture_s"] = time.perf_counter() - t0
-            # the replays' span on the device, read after the sync below
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            # the replays' span on the device, and with two pieces each
+            # piece's replays, read after the sync below
+            event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+            start, end, spans = event(), event(), {"a": [], "b": []}
+
+            def replay(name, graph):
+                """``graph``'s replay, its span on the device kept under ``name``."""
+                pair = (event(), event())
+                pair[0].record()
+                graph.replay()
+                pair[1].record()
+                spans[name].append(pair)
+
             start.record()
             for i in range(1, len(perms)):
                 start_round(i)
-                graph.replay()
+                if pieces == 1:
+                    graphs[0].replay()
+                else:
+                    replay("a", graphs[0])
+                    across()
+                    replay("b", graphs[1])
                 losses.append(out["loss"].clone())
             end.record()
             record["replays"] = len(perms) - 1
         history = torch.stack(losses).reshape(-1).tolist()  # the run's one sync
         if record["replays"]:
             record["replay_s"] = start.elapsed_time(end) / 1e3
+            if pieces == 2:
+                for name, pairs in spans.items():
+                    record[f"replay_{name}_s"] = sum(e0.elapsed_time(e1) for e0, e1 in pairs) / 1e3
         self.last_fused = record
         return p, sos, history
 

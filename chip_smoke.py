@@ -307,6 +307,27 @@ exits non-zero:
    Both children run under a hard timeout and are killed in ``finally``.
    (c) ``python -m baton_tpu_torch.analysis baton_tpu_torch`` in a
    process of its own exits 0 with no finding and never imports JAX.
+26. ``run_rounds_fused`` on meshes, 4 rounds each against ``run_rounds``
+   on the same mesh from the same params and generator, within 1e-5
+   (bit-equality printed), through ``fused_against_loop`` where one
+   process drives the card: (a) phase 22a's BERT-base cohort on 4 shards
+   of the card, one CUDA graph over the shards: its launches a round 4 x
+   12 of each kernel, the fused run's the eager round's plus the captured
+   ones times the replays (the profiler's count too), s/round of both and
+   of the replays, busy shares; (b) 23b's case (BERT-base, the encoder
+   frozen and placed, config 3's head, FedProx mu 0.1, 8 clients x 64, 2
+   epochs) on 2 x 2 shards: forward launches only, the base placed in the
+   result and bit-equal to what went in; (c) two processes on the card
+   over gloo, each holding 2 shards of a clients axis of 4
+   (``make_hybrid_mesh([], dcn_axis="clients")``), (a)'s cohort: a
+   warm-up round, then ``run_rounds`` and ``run_rounds_fused`` as two
+   captured pieces around the round's eager all-reduce (``pieces`` 2,
+   3 replays, 2 x 12 launches a round a process, all mma), the two
+   processes' params equal and within 22a's band of (a)'s fused params;
+   each prints replay A and B seconds a round (CUDA events), the
+   all-reduce's host seconds and bytes a round; then phase 19's DP case
+   (8 clients in waves of 4) on the same processes within 1e-5. Both
+   children run under a hard timeout and are killed in ``finally``.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
 21's fp32 times at the ring block (the forward and the backward pair): the
@@ -319,7 +340,9 @@ the main path, phase 3's BERT-base round; ``fwd_tf32x3``, ``bwd_dkv_tf32x3``,
 ``bwd_dq_tf32x3`` on example 06's ring x flash, phase 21a), each with its
 launches on its path, its error in phase 2, and its times and bounds at
 that path's shape; the fp32 rows add each process's launches a step in
-25a, the bf16 rows each process's launches in 25b's bf16 ring. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+25a, the bf16 rows each process's launches in 25b's bf16 ring and their
+launches in phase 26 (26a's fused run and round, 26b's round, each 26c
+process's round). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -894,15 +917,16 @@ def flip_check(fa, name, args, got, want):
           f"at {over} elements")
 
 
-def bert_base_cohort(n_clients=8, batch=32):
+def bert_base_cohort(n_clients=8, batch=32, cfg=None):
     """Phase 3's BERT-base (bf16 compute) and its clients: ``n_clients`` x
-    ``batch`` samples of random tokens, lengths 16-128, numpy seed 0.
-    Returns ``(cfg, model, data, n_samples)``."""
+    ``batch`` samples of random tokens, lengths 16-128, numpy seed 0
+    (``cfg``: another BERT, as the CPU tests' tiny one, lengths 16 to its
+    ``max_len``). Returns ``(cfg, model, data, n_samples)``."""
     from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
-    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12,
-                     n_heads=12, d_ff=3072, n_classes=4)
+    cfg = cfg or BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12,
+                            n_heads=12, d_ff=3072, n_classes=4)
     seq = cfg.max_len
     rng = np.random.default_rng(0)
     datasets = []
@@ -4424,22 +4448,26 @@ def auto_wave_phase(config5_ctx):
     return out
 
 
-def fused_against_loop(fa, label, sim, params, data, n_samples):
+def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
     """``FedSim.run_rounds_fused`` against ``run_rounds`` for
     ``FUSED_ROUNDS`` rounds from the same params and generator (after a
-    warm-up round): timed, then each profiled; params and losses within
-    ``FUSED_TOL``. The fused run's steady s/round is its replays' span on
-    the device over the replays, and its busy share the profiled device
-    time a round over that. Returns the stats, the flash launches the
-    fused run made (the eager round 0 plus the captured ones times the
-    replays) and the captured launches a round."""
+    warm-up round; ``kw`` to both, such as ``n_epochs``): timed, then each
+    profiled; params (a leaf placed over a model axis gathered) and losses
+    within ``FUSED_TOL``. The fused run's steady s/round is its replays'
+    span on the device over the replays, and its busy share the profiled
+    device time a round over that. Returns the stats, the flash launches
+    the fused run made (the eager round 0 plus the captured ones times the
+    replays), the captured launches a round and the fused run's params."""
+    from baton_tpu_torch.parallel.tensor_parallel import gather_params
+
     gen = torch.Generator().manual_seed(1)
-    timed(lambda: sim.run_rounds(params, data, n_samples, gen, n_rounds=1))  # warm-up
+    timed(lambda: sim.run_rounds(params, data, n_samples, gen, n_rounds=1, **kw))  # warm-up
     (p_loop, h_loop), dt_loop = timed(lambda: sim.run_rounds(params, data, n_samples, gen,
-                                                             n_rounds=FUSED_ROUNDS))
+                                                             n_rounds=FUSED_ROUNDS, **kw))
     before = launch_counts(fa)
     (p_fused, h_fused), dt_fused = timed(lambda: sim.run_rounds_fused(
-        params, data, n_samples, gen, n_rounds=FUSED_ROUNDS))
+        params, data, n_samples, gen, n_rounds=FUSED_ROUNDS, **kw))
+    p_loop, p_whole = gather_params(p_loop), gather_params(p_fused)
     # the Python counters saw the eager round 0 and the capture; each replay
     # re-runs the captured launches without Python
     seen, _ = launches_since(fa, before)
@@ -4448,13 +4476,15 @@ def fused_against_loop(fa, label, sim, params, data, n_samples):
           f"{label}: the fused run did not replay a graph: {record}")
     per_round = {k: n // 2 for k, n in seen.items()}
     launched = {k: per_round[k] * (1 + record["replays"]) for k in per_round}
-    err = max((p_loop[k].float() - p_fused[k].float()).abs().max().item() for k in p_loop)
+    err = max((p_loop[k].float() - p_whole[k].float()).abs().max().item() for k in p_loop)
     loss_err = max(abs(a - b) for a, b in zip(h_loop, h_fused))
-    bit_equal = all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop) and h_loop == h_fused
+    bit_equal = all(torch.equal(p_loop[k], p_whole[k]) for k in p_loop) and h_loop == h_fused
+    del p_loop, p_whole
     _, loop_prof = profiled(lambda: sim.run_rounds(params, data, n_samples, gen,
-                                                   n_rounds=FUSED_ROUNDS), f"{label} run_rounds")
+                                                   n_rounds=FUSED_ROUNDS, **kw),
+                            f"{label} run_rounds")
     _, fused_prof = profiled(lambda: sim.run_rounds_fused(params, data, n_samples, gen,
-                                                          n_rounds=FUSED_ROUNDS),
+                                                          n_rounds=FUSED_ROUNDS, **kw),
                              f"{label} run_rounds_fused")
     # the profiler sees the kernels a graph replays: its flash count must be
     # the eager round's plus the captured launches times the replays
@@ -4482,7 +4512,7 @@ def fused_against_loop(fa, label, sim, params, data, n_samples):
             "busy_loop": loop_prof and loop_prof["busy_share"], "busy_replays": busy_replays,
             "device_ms_loop": loop_prof and loop_prof["device_ms"],
             "device_ms_fused": fused_prof and fused_prof["device_ms"],
-            "flash_launches_traced": traced}, launched, per_round
+            "flash_launches_traced": traced}, launched, per_round, p_fused
 
 
 def fused_phase(fa):
@@ -4497,7 +4527,8 @@ def fused_phase(fa):
     sim = FedSim(model, batch_size=32, learning_rate=0.01)
     params = sim.init(torch.Generator().manual_seed(0))
     data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
-    bert, launched, per_round = fused_against_loop(fa, "BERT-base", sim, params, data, n_samples)
+    bert, launched, per_round, _ = fused_against_loop(fa, "BERT-base", sim, params, data,
+                                                      n_samples)
     check(per_round == {"fwd": cfg.n_layers, "bwd_dkv": cfg.n_layers, "bwd_dq": cfg.n_layers},
           f"fused BERT round launches {per_round}")
     del sim, params, data
@@ -4506,7 +4537,8 @@ def fused_phase(fa):
     sim = FedSim(resnet18_cifar_model(compute_dtype=torch.bfloat16), batch_size=32,
                  learning_rate=0.05)
     params = sim.init(torch.Generator().manual_seed(0))
-    resnet, resnet_launched, _ = fused_against_loop(fa, "ResNet-18", sim, params, data, n_samples)
+    resnet, resnet_launched, _, _ = fused_against_loop(fa, "ResNet-18", sim, params, data,
+                                                       n_samples)
     check(all(n == 0 for n in resnet_launched.values()), "flash kernels in the ResNet rounds")
     del sim, params, data
     dp = fused_dp_round(fa)
@@ -4514,38 +4546,51 @@ def fused_phase(fa):
             "launches_per_round_fused_bert": per_round}
 
 
-def fused_dp_round(fa):
-    """The fused rounds under DP-SGD with noise: a 2-layer ViT (D 64, bf16,
-    flash on mma) on 4 clients x 16 images in waves of 2, each wave's noise
-    from a device generator registered with the graph and seeded before
-    every replay; against ``run_rounds`` within ``FUSED_TOL``."""
-    from baton_tpu_torch.examples import vit_dp_secure as ex
-    from baton_tpu_torch.models.vit import ViTConfig
-    from baton_tpu_torch.ops.padding import stack_client_datasets
+DP_VIT = dict(image_size=64, patch=16, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+              n_classes=10)  # phase 19's DP case (26c's on the card)
 
-    cfg = ViTConfig(image_size=64, patch=16, d_model=128, n_layers=2, n_heads=2, d_ff=256,
-                    n_classes=10)
+
+def fused_dp_round(fa, mesh=None, n_clients=4, wave=2, vit=DP_VIT):
+    """The fused rounds under DP-SGD with noise: a 2-layer ViT (D 64, bf16,
+    flash on mma) on ``n_clients`` clients x 16 images in waves of
+    ``wave``, each wave's noise from device generators registered with the
+    graph (one a shard) and seeded before every replay; against
+    ``run_rounds`` within ``FUSED_TOL``. ``mesh``: a clients mesh (26c's
+    across processes), else meshless; ``vit`` the config (smaller in the
+    CPU tests)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.examples import vit_dp_secure as ex
+    from baton_tpu_torch.models.vit import ViTConfig, vit_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+    from baton_tpu_torch.ops.privacy import DPConfig
+
+    cfg = ViTConfig(**vit)
     rng = np.random.default_rng(7)
-    data, n_samples = stack_client_datasets(ex.make_data(rng, cfg, 4, 16), batch_size=8)
-    sim = ex.make_sim(cfg, 8, CONFIG5_CLIP, CONFIG5_SIGMA, compute_dtype=torch.bfloat16)
+    data, n_samples = stack_client_datasets(ex.make_data(rng, cfg, n_clients, 16), batch_size=8)
+    # ex.make_sim's FedSim, on the mesh
+    sim = FedSim(vit_model(cfg, compute_dtype=torch.bfloat16), batch_size=8,
+                 learning_rate=ex.LEARNING_RATE, mesh=mesh,
+                 dp=DPConfig(clip_norm=CONFIG5_CLIP, noise_multiplier=CONFIG5_SIGMA))
     params = sim.init(torch.Generator().manual_seed(0))
-    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    data = {k: torch.as_tensor(v, device=sim.device) for k, v in data.items()}
     gen = torch.Generator().manual_seed(1)
-    p_loop, h_loop = sim.run_rounds(params, data, n_samples, gen, n_rounds=3, wave_size=2)
+    p_loop, h_loop = sim.run_rounds(params, data, n_samples, gen, n_rounds=3, wave_size=wave)
     p_fused, h_fused = sim.run_rounds_fused(params, data, n_samples, gen, n_rounds=3,
-                                            wave_size=2)
+                                            wave_size=wave)
     record = dict(sim.last_fused)
     err = max((p_loop[k] - p_fused[k]).abs().max().item() for k in p_loop)
     loss_err = max(abs(a - b) for a, b in zip(h_loop, h_fused))
     moved = max((p_loop[k] - params[k]).abs().max().item() for k in p_loop)
     bit_equal = all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop)
-    print(f"  DP-SGD (sigma {CONFIG5_SIGMA}), 2-layer ViT, 4 clients in waves of 2, 3 rounds: max "
-          f"|param diff| {err:.3e}, losses {loss_err:.3e} (tol {FUSED_TOL}; max |param change| "
-          f"{moved:.3e}), bit-equal {bit_equal}; {record}")
-    check(record["graph"] and record["replays"] == 2, f"DP fused run: {record}")
+    print(f"  DP-SGD (sigma {CONFIG5_SIGMA}), 2-layer ViT, {n_clients} clients in waves "
+          f"of {wave}, 3 rounds: max |param diff| {err:.3e}, losses {loss_err:.3e} (tol "
+          f"{FUSED_TOL}; max |param change| {moved:.3e}), bit-equal {bit_equal}; {record}")
+    check(not record["graph"] if sim.device.type == "cpu"
+          else record["graph"] and record["replays"] == 2, f"DP fused run: {record}")
     check(err <= FUSED_TOL and loss_err <= FUSED_TOL,
           f"DP fused and run_rounds differ: params {err:.3e}, losses {loss_err:.3e}")
-    return {"param_err": err, "loss_err": loss_err, "bit_equal": bit_equal, "moved": moved}
+    return {"param_err": err, "loss_err": loss_err, "bit_equal": bit_equal, "moved": moved,
+            "last_fused": record}
 
 
 def examples_phase():
@@ -5508,6 +5553,30 @@ def hybrid_config4_phase(fa, name, ctx):
     return out
 
 
+HYBRID_BERT = (8, 64, 32, 2, 5e-3, 0.1)  # 23b, 26b: clients, per client, batch, epochs, lr, mu
+
+
+def hybrid_bert_cohort():
+    """23b's and 26b's BERT-base (vocab 30,522, bf16) with config 3's
+    trainable head and FedProx, and phase 8's cohort on the card: ``(cfg,
+    model, data, n_samples, FedSim kwargs)``."""
+    from baton_tpu_torch.core.regularizers import fedprox
+    from baton_tpu_torch.examples.bert_fedprox import make_data
+    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
+    from baton_tpu_torch.ops.padding import stack_client_datasets
+
+    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12, n_heads=12,
+                     d_ff=3072, n_classes=4)
+    n_clients, per_client, batch, _, lr, mu = HYBRID_BERT
+    data, n_samples = stack_client_datasets(
+        make_data(np.random.default_rng(0), cfg, n_clients, per_client), batch_size=batch)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    model = bert_classifier_model(cfg, compute_dtype=torch.bfloat16, name="bert_base_config3")
+    kw = dict(batch_size=batch, learning_rate=lr, regularizer=fedprox(mu),
+              trainable=lambda path, leaf: path.startswith(CONFIG3_HEAD))
+    return cfg, model, data, n_samples, kw
+
+
 def hybrid_bert_phase(fa):
     """Phase 23b: BERT-base (vocab 30,522, bf16) with config 3's
     trainable-head variant (the encoder frozen and placed over ``model``:
@@ -5516,23 +5585,12 @@ def hybrid_bert_phase(fa):
     clients x 64 samples, batch 32, 2 epochs, lr 5e-3, FedProx mu 0.1): a
     warm-up, a timed round and a profiled one on each."""
     from baton_tpu_torch import FedSim
-    from baton_tpu_torch.core.regularizers import fedprox
     from baton_tpu_torch.core.training import random_perms
-    from baton_tpu_torch.examples.bert_fedprox import make_data
-    from baton_tpu_torch.models.bert import BertConfig, bert_classifier_model
-    from baton_tpu_torch.ops.padding import stack_client_datasets
     from baton_tpu_torch.parallel.tensor_parallel import describe_tp_sharding, is_sharded
 
-    cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=12, n_heads=12,
-                     d_ff=3072, n_classes=4)
-    n_clients, per_client, batch, n_epochs, lr, mu = 8, 64, 32, 2, 5e-3, 0.1
-    data, n_samples = stack_client_datasets(
-        make_data(np.random.default_rng(0), cfg, n_clients, per_client), batch_size=batch)
-    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
-    model = bert_classifier_model(cfg, compute_dtype=torch.bfloat16, name="bert_base_config3")
+    cfg, model, data, n_samples, kw = hybrid_bert_cohort()
+    n_clients, per_client, batch, n_epochs, _, mu = HYBRID_BERT
     clients, shards = HYBRID_GRID
-    kw = dict(batch_size=batch, learning_rate=lr, regularizer=fedprox(mu),
-              trainable=lambda path, leaf: path.startswith(CONFIG3_HEAD))
     sims = {"meshless": FedSim(model, **kw),
             "hybrid": FedSim(model, mesh=card_grid(clients, shards), **kw)}
     params = sims["meshless"].init(torch.Generator().manual_seed(0))
@@ -5994,6 +6052,257 @@ def lint_phase() -> dict:
     return dict(report, seconds=seconds)
 
 
+# phase 26: run_rounds_fused on meshes of the one card. (a) Phase 22a's
+# BERT-base cohort on 4 shards: one CUDA graph over the shards; (b) 23b's
+# hybrid case on 2 x 2; (c) two processes on the card over gloo, 2 shards
+# each of a clients axis of 4: two captured pieces around the round's
+# all-reduce, and phase 19's DP case on the same processes.
+
+FUSED_PROCESSES = 2  # (c)
+FUSED_CHILD_TIMEOUT_S = 300  # (c): each child process
+DP_MESH_COHORT = (8, 4)  # (c): phase 19's DP case a clients axis of 4 splits: clients, wave
+
+
+def fused_mesh_bert_phase(fa):
+    """Phase 26a: ``run_rounds_fused`` against ``run_rounds`` on phase 22a's
+    BERT-base cohort over 4 shards of the card (``fused_against_loop``):
+    one graph, each kernel 4 x 12 launches a round. Returns the stats, the
+    fused run's launches, a round's and 26c's reference (the start and the
+    fused params on the host, the config)."""
+    from baton_tpu_torch import FedSim
+
+    cfg, model, data, n_samples = bert_base_cohort()
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    sim = FedSim(model, batch_size=32, learning_rate=0.01, mesh=card_mesh(MESH_SHARDS))
+    params = sim.init(torch.Generator().manual_seed(0))
+    print(f"phase 26a: run_rounds_fused as one CUDA graph over a clients mesh of {MESH_SHARDS} "
+          f"shards of the card against run_rounds on it (phase 22a's BERT-base cohort, "
+          f"{len(n_samples)} clients x 32, bf16), {FUSED_ROUNDS} rounds from the same params "
+          "and generator")
+    stats, launched, per_round, p_fused = fused_against_loop(
+        fa, f"26a BERT-base on {MESH_SHARDS} shards", sim, params, data, n_samples)
+    want = {k: MESH_SHARDS * cfg.n_layers for k in PASSES}
+    check(per_round == want and "pieces" not in sim.last_fused,
+          f"26a: captured launches a round {per_round} (want {want}), {sim.last_fused}")
+    reference = {"config": dataclasses.asdict(cfg),
+                 "start": {k: v.cpu() for k, v in params.items()},
+                 "fused": {k: v.cpu() for k, v in p_fused.items()}}
+    return stats, launched, per_round, reference
+
+
+def fused_hybrid_phase(fa):
+    """Phase 26b: ``run_rounds_fused`` against ``run_rounds`` on 23b's case
+    (BERT-base with config 3's head, the encoder frozen and placed over
+    ``model``, FedProx, 8 clients x 64, 2 epochs) on a 2 x 2 hybrid mesh of
+    the card: within ``FUSED_TOL``, the forward launches a round, the base
+    placed in the result and bit-equal to what went in. Returns the stats
+    and a round's launches."""
+    from baton_tpu_torch import FedSim
+
+    cfg, model, data, n_samples, kw = hybrid_bert_cohort()
+    n_clients, per_client, _, n_epochs, _, mu = HYBRID_BERT
+    clients, shards = HYBRID_GRID
+    sim = FedSim(model, mesh=card_grid(clients, shards), **kw)
+    params = sim.init(torch.Generator().manual_seed(0))
+    frozen = {k: v.cpu() for k, v in params.items() if not k.startswith(CONFIG3_HEAD)}
+    print(f"phase 26b: run_rounds_fused on a {clients} x {shards} hybrid mesh of the card against "
+          f"run_rounds on it (23b: BERT-base, the encoder frozen, config 3's head, FedProx mu "
+          f"{mu}, {n_clients} clients x {per_client}, {n_epochs} epochs)")
+    stats, _, per_round, p_fused = fused_against_loop(
+        fa, f"26b hybrid BERT on {clients} x {shards}", sim, params, data, n_samples,
+        n_epochs=n_epochs)
+    steps = sim.trainer.steps_per_round(data["x"].shape[1], n_epochs)
+    want = hybrid_round_launches(cfg.n_layers, steps, clients, shards, backward=False)
+    check(per_round == want, f"26b: captured launches a round {per_round}, want {want}")
+    check_placed_base("26b", p_fused, "blocks/0/mlp/w1", "blocks/0/mlp/w2")
+    stats["frozen_bit_equal"] = check_frozen_bit_equal(p_fused, frozen)
+    print(f"  the frozen base: {stats['frozen_bit_equal']} tensors bit-equal to what went in")
+    return stats, per_round
+
+
+def fused_child(coordinator: str, rank: int, device: str, work: str) -> int:
+    """Phase 26c's child: ``python3 chip_smoke.py --fused-child host:port
+    rank device dir``. Joins a gloo group of 2 processes, each with 2 shards
+    of ``device`` (``cuda:0`` on the card) of a clients axis of 4
+    (``make_hybrid_mesh([], dcn_axis="clients")``), and on 26a's cohort (the
+    BERT config the parent wrote to ``dir``) runs ``run_round`` once (a
+    warm-up), then ``run_rounds`` and ``run_rounds_fused`` for
+    ``FUSED_ROUNDS`` rounds from the same params and generator; writes the
+    fused params to ``dir``, runs phase 19's DP case on the same mesh and
+    prints one JSON line; destroys its process group on every exit."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.bert import BertConfig
+    from baton_tpu_torch.ops import flash_attention as fa
+    from baton_tpu_torch.parallel.multihost import initialize_multihost, make_hybrid_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's 26a
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)  # the two processes' shards share the host's cores
+    ctx = torch.load(Path(work) / "fused_ctx.pt")
+    shards = MESH_SHARDS // FUSED_PROCESSES
+    try:
+        initialize_multihost(coordinator, FUSED_PROCESSES, rank, backend="gloo",
+                             devices=[dev] * shards, timeout_s=120)
+        mesh = make_hybrid_mesh([], dcn_axis="clients", devices=[dev] * shards)
+        cfg, model, data, n_samples = bert_base_cohort(cfg=BertConfig(**ctx["bert"]))
+        data = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        sim = FedSim(model, batch_size=32, learning_rate=0.01, mesh=mesh)
+        params = sim.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        sim.run_round(params, data, n_samples, gen)  # warm-up
+        runs = []  # (result, seconds, launches) of run_rounds, then of run_rounds_fused
+        for run in (sim.run_rounds, sim.run_rounds_fused):
+            before = launch_counts(fa)
+            sync()
+            t0 = time.perf_counter()
+            result = run(params, data, n_samples, gen, n_rounds=FUSED_ROUNDS)
+            sync()
+            runs.append((result, time.perf_counter() - t0, launches_since(fa, before)))
+        ((p_loop, h_loop), loop_s, _), ((p_fused, h_fused), fused_s, (launched, by_design)) = runs
+        record = dict(sim.last_fused)
+        err = max((p_loop[k].float() - p_fused[k].float()).abs().max().item() for k in p_loop)
+        torch.save({k: v.cpu() for k, v in p_fused.items()}, Path(work) / f"fused_rank{rank}.pt")
+        # the round's sums all-reduced as one fp32 buffer: every param, the
+        # loss of its one epoch, the weight
+        n_sums = sum(v.numel() for v in params.values()) + 2
+        out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+               "local_shards": [j for j, _ in mesh.local_shards()], "n_layers": cfg.n_layers,
+               "last_fused": record, "param_err": err,
+               "loss_err": max(abs(a - b) for a, b in zip(h_loop, h_fused)),
+               "bit_equal": all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop)
+               and h_loop == h_fused, "losses": h_fused,
+               "s_per_round_loop": loop_s / FUSED_ROUNDS,
+               "s_per_round_fused": fused_s / FUSED_ROUNDS,
+               "all_reduce_bytes": 4 * n_sums, "launches": launched, "by_design": by_design,
+               "launches_per_round": {k: n // 2 for k, n in launched.items()}}
+        del p_loop, p_fused, runs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["dp"] = fused_dp_round(fa, mesh, *DP_MESH_COHORT, vit=ctx["vit"])
+        print(json.dumps(out), flush=True)
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def check_fused_processes(outs, params, reference, kernels=True) -> dict:
+    """Phase 26c's checks of its two children's lines and fused params:
+    each holds its 2 shards of the 4; its fused rounds within ``FUSED_TOL``
+    of ``run_rounds`` on the same two-process mesh (the DP case too); both
+    ranks' params equal and within 22a's band of 26a's one-process fused
+    params (``reference``). With ``kernels`` (on the card) each ran two
+    captured pieces, replayed ``FUSED_ROUNDS - 1`` times, and launched each
+    kernel 2 x 12 times a round, all on mma. Returns the band."""
+    check([o["rank"] for o in outs] == [0, 1] and all(o["world"] == 2 for o in outs)
+          and [o["local_shards"] for o in outs] == [[0, 1], [2, 3]],
+          f"26c: ranks, worlds or shards {[(o['rank'], o['local_shards']) for o in outs]}")
+    for o in outs:
+        record = o["last_fused"]
+        check(o["param_err"] <= FUSED_TOL and o["loss_err"] <= FUSED_TOL
+              and o["dp"]["param_err"] <= FUSED_TOL and o["dp"]["loss_err"] <= FUSED_TOL,
+              f"26c rank {o['rank']}: fused and run_rounds differ: params {o['param_err']:.3e}, "
+              f"losses {o['loss_err']:.3e}; DP {o['dp']['param_err']:.3e}, "
+              f"{o['dp']['loss_err']:.3e}")
+        if kernels:
+            want = {k: (MESH_SHARDS // FUSED_PROCESSES) * o["n_layers"] for k in PASSES}
+            check(record.get("pieces") == 2 and record["replays"] == FUSED_ROUNDS - 1
+                  and o["dp"]["last_fused"].get("pieces") == 2,
+                  f"26c rank {o['rank']}: not two pieces replayed: {record}, DP "
+                  f"{o['dp']['last_fused']}")
+            check(o["launches_per_round"] == want
+                  and o["by_design"] == {f"{p}_mma": 2 * n for p, n in want.items()},
+                  f"26c rank {o['rank']}: launches {o['launches_per_round']} a round, "
+                  f"{o['by_design']} in the fused run; want {want} a round, all mma")
+    check(sorted(params[0]) == sorted(params[1])
+          and all(torch.equal(params[0][k], params[1][k]) for k in params[0]),
+          "26c: the two processes' fused params differ")
+    band = within_band(params[0], reference["fused"], reference["start"])
+    check(band["inside"], f"26c: the two processes' fused params are outside 22a's band of "
+          f"26a's one-process fused params: {band}")
+    return band
+
+
+def fused_processes_phase(fa, reference, device="cuda", vit=DP_VIT) -> dict:
+    """Phase 26c: two children over gloo, each under a hard timeout and
+    killed in ``finally``; their lines and params checked
+    (``check_fused_processes``, the pieces and launches on the card only)
+    and printed. The kernels are built (phase 1) before the children
+    start, which load them."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    shards = MESH_SHARDS // FUSED_PROCESSES
+    print(f"phase 26c: two processes on the one card over gloo ({coordinator}), {shards} shards "
+          f"of {device} each of a clients axis of {MESH_SHARDS}: run_rounds_fused as two captured "
+          f"pieces around the round's all-reduce against run_rounds, on 26a's cohort; then "
+          f"phase 19's DP case ({DP_MESH_COHORT[0]} clients in waves of {DP_MESH_COHORT[1]})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"bert": reference["config"], "vit": vit}, Path(work) / "fused_ctx.pt")
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--fused-child",
+                                   coordinator, str(rank), device, work],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for rank in range(FUSED_PROCESSES)]
+        done = []
+        try:
+            done = [p.communicate(timeout=FUSED_CHILD_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        check(all(p.returncode == 0 for p in procs), "26c: the children exited "
+              f"{[p.returncode for p in procs]}:\n" + "\n".join(
+                  f"rank {rank}:\n{err[-3000:]}" for rank, (_, err) in enumerate(done)))
+        outs = [json.loads(out.strip().splitlines()[-1]) for out, _ in done]
+        params = [torch.load(Path(work) / f"fused_rank{rank}.pt")
+                  for rank in range(FUSED_PROCESSES)]
+    band = check_fused_processes(outs, params, reference, kernels=device == "cuda")
+    for o in outs:
+        r = o["last_fused"]
+        replays = r.get("replays") or 0
+        per = (lambda key: f"{r[key] / replays:.4f}" if replays and r.get(key) else "n/a")
+        print(f"  rank {o['rank']} (shards {o['local_shards']}): run_rounds "
+              f"{o['s_per_round_loop']:.4f} s/round, fused {o['s_per_round_fused']:.4f} s/round "
+              f"over the call; replays on the device {per('replay_s')} s/round, piece A "
+              f"{per('replay_a_s')}, piece B {per('replay_b_s')}; all-reduce host s a round "
+              f"{[round(x, 4) for x in r.get('all_reduce_s', [])]} of "
+              f"{o['all_reduce_bytes']:,} B; max |param diff| {o['param_err']:.3e}, losses "
+              f"{o['loss_err']:.3e} (tol {FUSED_TOL}), bit-equal {o['bit_equal']}; flash "
+              f"launches a round {o['launches_per_round']}, in the fused run {o['by_design']}; "
+              f"last_fused {r}")
+        dp = o["dp"]
+        print(f"  rank {o['rank']} DP-SGD (sigma {CONFIG5_SIGMA}), 2-layer ViT, "
+              f"{DP_MESH_COHORT[0]} clients in waves of {DP_MESH_COHORT[1]}, 3 rounds: max |param "
+              f"diff| {dp['param_err']:.3e}, losses {dp['loss_err']:.3e} (tol {FUSED_TOL}; max "
+              f"|param change| {dp['moved']:.3e}), bit-equal {dp['bit_equal']}; "
+              f"{dp['last_fused']}")
+    print(f"  the two processes' params equal; against 26a's one-process fused params "
+          f"{band['max_gap']:.3e} ({band['gap_over_change']:.3e} of the largest change "
+          f"{band['largest_change']:.3e}; band rtol = atol = {MESH_BAND}); the two processes "
+          f"took {time.perf_counter() - t0:.1f} s, start to exit")
+    return {"ranks": outs, "band": band}
+
+
+def fused_mesh_phase(fa) -> dict:
+    """Phase 26 (a)-(c): returns the stats with 26a's launches (the fused
+    run's and a round's), 26b's a round and each 26c rank's a round."""
+    torch.cuda.empty_cache()
+    bert, launched, per_round, reference = timed_phase("26a", fused_mesh_bert_phase, fa)
+    torch.cuda.empty_cache()
+    hybrid, hybrid_per_round = timed_phase("26b", fused_hybrid_phase, fa)
+    torch.cuda.empty_cache()
+    processes = timed_phase("26c", fused_processes_phase, fa, reference)
+    return {"bert_mesh": bert, "hybrid_bert": hybrid, "processes": processes,
+            "launches_fused_mesh_bert": launched, "launches_per_round_fused_mesh_bert": per_round,
+            "launches_per_round_fused_hybrid_bert": hybrid_per_round}
+
+
 def timed_phase(label, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``label``."""
     t0 = time.perf_counter()
@@ -6112,6 +6421,7 @@ def main() -> int:
     del ring_reference
     processes_stats["lint"] = timed_phase("25c", lint_phase)
     print(f"phase 25 took {time.perf_counter() - slice17:.1f} s")
+    fused_mesh_stats = timed_phase("26", fused_mesh_phase, fa)
     ranks = processes_stats["ring"]["ranks"]
     for row in rows:  # the bf16 (mma) kernels' other paths
         counter = row["pass"]
@@ -6138,6 +6448,13 @@ def main() -> int:
             counter]
         row["launches_ring_processes_bf16"] = [o["small"]["flash bf16"]["launches"][counter]
                                                for o in ranks]
+        row["launches_fused_mesh_bert"] = fused_mesh_stats["launches_fused_mesh_bert"][counter]
+        row["launches_per_round_fused_mesh_bert"] = fused_mesh_stats[
+            "launches_per_round_fused_mesh_bert"][counter]
+        row["launches_per_round_fused_hybrid_bert"] = fused_mesh_stats[
+            "launches_per_round_fused_hybrid_bert"][counter]
+        row["launches_per_round_fused_processes"] = [
+            o["launches_per_round"][counter] for o in fused_mesh_stats["processes"]["ranks"]]
     rows += fp32_rows(fa, ring_rows, errs["ring_block_float32"], ring_launches, ring_per_step)
     for row in rows[-3:]:  # the fp32 (tf32x3) kernels across processes, 25a
         row["launches_per_step_ring_processes"] = [
@@ -6153,7 +6470,7 @@ def main() -> int:
                       "examples": examples_stats, "sequence_parallel": ring_stats,
                       "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats,
                       "operations_planes": operations_stats,
-                      "across_processes": processes_stats}))
+                      "across_processes": processes_stats, "fused_meshes": fused_mesh_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -6167,4 +6484,6 @@ if __name__ == "__main__":
         sys.exit(psum_child(*sys.argv[2:3], int(sys.argv[3]), *sys.argv[4:5]))
     if sys.argv[1:2] == ["--ring-child"]:
         sys.exit(ring_child(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--fused-child"]:
+        sys.exit(fused_child(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -40,8 +40,11 @@ the console's and the scenario run's checks each failing a broken input;
 the loadgen scenario and its SLO reader on a short run on the CPU); phase
 25's (its two children over gloo at a tiny size on the CPU; its checks
 failing a doubled gradient, a process that ran a shard it does not hold
-and a lint that exits 1 or imports JAX); and ``main`` with every phase, the card and nvidia-smi stubbed: it runs
-phases 2-25 in order and ends with the card's name and power limit, the kernels line
+and a lint that exits 1 or imports JAX); phase 26c's (its two children
+over gloo at a tiny size on the CPU; its check failing one piece, a wrong
+launch count, a DP gap, ranks that differ and params outside the band);
+and ``main`` with every phase, the card and nvidia-smi stubbed: it runs
+phases 2-26 in order and ends with the card's name and power limit, the kernels line
 (with its config-4, ring and mesh launches, the ring's counted a step)
 and the ok/device line; a failing phase from 6 on fails it before any
 result line."""
@@ -226,7 +229,7 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "lstm_phase", "zoo_parity_phase", "crossover_phase", "config5_phase",
           "config5_timing_phase", "auto_wave_phase", "fused_phase", "examples_phase",
           "sequence_parallel_phase", "mesh_phase", "hybrid_phase", "ring_processes_phase",
-          "lint_phase")
+          "lint_phase", "fused_mesh_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -260,6 +263,12 @@ PROCESS_BF16 = [{"fwd": 10, "bwd_dkv": 10, "bwd_dq": 10}, {"fwd": 26, "bwd_dkv":
 PROCESS_RANKS = [{"long_context": {"launches_per_step": [per_step] * 2},
                   "small": {"flash bf16": {"launches": bf16}}}
                  for per_step, bf16 in zip(PROCESS_PER_STEP, PROCESS_BF16)]
+# phase 26: BERT-base's 12 layers on 4 shards, the eager round 0 and 3
+# replays (a); 23b's forward on 2 x 2 (b); 2 shards a process (c)
+FUSED_MESH = {"launches_fused_mesh_bert": {k: 4 * n for k, n in MESH_COUNTS.items()},
+              "launches_per_round_fused_mesh_bert": MESH_COUNTS,
+              "launches_per_round_fused_hybrid_bert": HYBRID_BERT_COUNTS,
+              "processes": {"ranks": [{"launches_per_round": {k: 24 for k in COUNTS}}] * 2}}
 
 
 def _stub_main(monkeypatch, tmp_path, fail=None):
@@ -300,6 +309,7 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "sequence_parallel_phase": (RING_COUNTS, [RING_PER_STEP] * 5,
                                                 dict.fromkeys(RING_ERRS, RING_ROW), {}, {}),
                     "ring_processes_phase": {"ranks": PROCESS_RANKS}, "lint_phase": {},
+                    "fused_mesh_phase": FUSED_MESH,
                     "mesh_phase": (MESH_COUNTS,
                                    {"bert": {"meshless": {"launches": MESHLESS_COUNTS}}}),
                     }.get(phase)
@@ -356,7 +366,9 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_fused_bert": 48, "launches_per_round_fused_bert": 12,
         "ring_block_shape": RING_ROW["bfloat16"], "launches_per_round_mesh_bert": 48,
         "launches_per_round_meshless_bert": 12, "launches_per_round_hybrid_config4": 1024,
-        "launches_per_round_hybrid_bert": 192, "launches_ring_processes_bf16": [10, 26]},
+        "launches_per_round_hybrid_bert": 192, "launches_ring_processes_bf16": [10, 26],
+        "launches_fused_mesh_bert": 192, "launches_per_round_fused_mesh_bert": 48,
+        "launches_per_round_fused_hybrid_bert": 192, "launches_per_round_fused_processes": [24, 24]},
         *fp32_rows]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
@@ -385,7 +397,7 @@ def test_kernels_line_has_a_row_per_launch_key():
                                      "fused_phase", "examples_phase",
                                      "sequence_parallel_phase", "mesh_phase",
                                      "hybrid_config4_phase", "hybrid_phase",
-                                     "ring_processes_phase", "lint_phase"])
+                                     "ring_processes_phase", "lint_phase", "fused_mesh_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -1745,3 +1757,87 @@ def test_lint_check():
         with pytest.raises(RuntimeError, match="25c"):
             chip_smoke.check_lint(rc, report)
 
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the fused rounds on meshes
+
+# phase 19's DP ViT cut for the CPU
+TINY_VIT = dict(image_size=16, patch=8, d_model=16, n_layers=1, n_heads=2, d_ff=32, n_classes=10)
+
+
+@pytest.fixture(scope="module")
+def fused_processes_on_the_cpu():
+    """Phase 26c with its children's shards on the CPU at a tiny size (a
+    tiny BERT for 26a's cohort, a tiny ViT for the DP case; no graph and
+    no kernel launches there, so the pieces and launches are the card's
+    checks), against 26a's reference made the same way on 4 CPU shards."""
+    import dataclasses
+
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.models.bert import BertConfig
+    from baton_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, model, data, n_samples = chip_smoke.bert_base_cohort(cfg=BertConfig.tiny())
+    sim = FedSim(model, batch_size=32, learning_rate=0.01,
+                 mesh=make_mesh(4, devices=[torch.device("cpu")] * 4))
+    start = sim.init(torch.Generator().manual_seed(0))
+    fused, _ = sim.run_rounds_fused(start, data, n_samples, torch.Generator().manual_seed(1),
+                                    n_rounds=chip_smoke.FUSED_ROUNDS)
+    reference = {"config": dataclasses.asdict(cfg), "start": start, "fused": fused}
+    return reference, chip_smoke.fused_processes_phase(fa, reference, device="cpu",
+                                                       vit=TINY_VIT)
+
+
+def test_fused_processes_on_the_cpu(fused_processes_on_the_cpu):
+    _, out = fused_processes_on_the_cpu
+    assert [o["local_shards"] for o in out["ranks"]] == [[0, 1], [2, 3]]
+    for o in out["ranks"]:
+        assert o["bit_equal"] and o["dp"]["bit_equal"] and o["backend"] == "gloo"
+        assert o["last_fused"] == {"graph": False, "rounds": chip_smoke.FUSED_ROUNDS}
+        assert o["all_reduce_bytes"] == 4 * (sum(v.numel() for v in
+                                                 fused_processes_on_the_cpu[0]["start"].values())
+                                             + 2)
+    assert out["band"]["inside"]
+
+
+def _fused_card_lines(outs):
+    """The CPU children's lines as the card's would read: two pieces
+    replayed, 2 x 2 layers of launches a round on mma."""
+    import copy
+
+    outs = copy.deepcopy(outs)
+    for o in outs:
+        o["last_fused"] = {"graph": True, "rounds": 4, "replays": 3, "pieces": 2}
+        o["dp"]["last_fused"] = {"graph": True, "rounds": 3, "replays": 2, "pieces": 2}
+        o["launches_per_round"] = {k: 2 * o["n_layers"] for k in COUNTS}
+        o["by_design"] = {f"{k}_mma": 4 * o["n_layers"] for k in COUNTS}
+    return outs
+
+
+@pytest.mark.parametrize("fault", [None, "one_piece", "launches", "dp_gap", "ranks_differ",
+                                   "outside_band"])
+def test_fused_processes_check(fused_processes_on_the_cpu, fault):
+    """Phase 26c's check passes the children's lines as the card's would
+    read and fails a run of one piece, a rank that launched another count,
+    a DP gap over the tolerance, ranks whose params differ and params
+    outside 22a's band of 26a's."""
+    reference, out = fused_processes_on_the_cpu
+    outs = _fused_card_lines(out["ranks"])
+    params = [dict(reference["fused"]) for _ in range(2)]
+    name = next(iter(params[1]))
+    if fault == "one_piece":
+        del outs[1]["last_fused"]["pieces"]
+    elif fault == "launches":
+        outs[0]["launches_per_round"]["fwd"] += 1
+    elif fault == "dp_gap":
+        outs[1]["dp"]["param_err"] = 2 * chip_smoke.FUSED_TOL
+    elif fault == "ranks_differ":
+        params[1][name] = params[1][name] + 1e-6
+    elif fault == "outside_band":
+        params = [{k: v + 1.0 for k, v in p.items()} for p in params]
+    if fault is None:
+        assert chip_smoke.check_fused_processes(outs, params, reference)["inside"]
+    else:
+        with pytest.raises(RuntimeError, match="26c"):
+            chip_smoke.check_fused_processes(outs, params, reference)

@@ -393,6 +393,35 @@ def test_a_mesh_is_refused_naming_its_roadmap_item():
     assert FedSim(linear_regression_model(), mesh=make_mesh(4, devices=["cpu"] * 4)).mesh
 
 
+def test_fused_rounds_refuse_only_a_process_whose_shards_lie_on_several_cards(monkeypatch):
+    """``run_rounds_fused`` captures CUDA graphs on one card: a mesh whose
+    shards lie on two cards of this process is refused on a CUDA device
+    (CUDA stubbed, the refusal comes before any tensor reaches a card) with
+    its reason, while a CPU mesh across two processes runs its fused rounds
+    (the all-reduce stubbed as the other process's same sums)."""
+    from baton_tpu_torch.ops import aggregation as agg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    data = {"x": torch.ones(4, 2, 2), "y": torch.zeros(4, 2)}
+    n = torch.tensor([2, 1, 2, 2])
+    params = {"w": torch.zeros(2), "b": torch.zeros(())}
+    two_cards = make_mesh(2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+    sim = FedSim(linear_regression_model(2), batch_size=2, mesh=two_cards)
+    with pytest.raises(NotImplementedError, match="one CUDA graph belongs to one card") as exc:
+        sim.run_rounds_fused(params, data, n, torch.Generator().manual_seed(1), n_rounds=2)
+    assert "cuda:1" in str(exc.value) and "initialize_multihost" in str(exc.value)
+    across = Mesh(np.array([torch.device("cpu")] * 4, dtype=object), ("clients",),
+                  process_ids=[0, 0, 1, 1], process_index=0)
+    assert across.spans_processes
+    monkeypatch.setattr(agg, "_all_reduce", lambda flat, group: flat.mul_(2))
+    sim = FedSim(linear_regression_model(2), batch_size=2, mesh=across)
+    _, history = sim.run_rounds_fused(params, data, n, torch.Generator().manual_seed(1),
+                                      n_rounds=2)
+    assert len(history) == 2 and all(np.isfinite(history))
+    assert sim.last_fused == {"graph": False, "rounds": 2}
+
+
 def test_chip_smoke_fails_without_a_gpu():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env,
