@@ -242,14 +242,19 @@ class LocalTrainer:
                              perm: Optional[torch.Tensor] = None,
                              generator: Optional[torch.Generator] = None):
         """``train`` from a given optimizer state (a stateful local
-        optimizer kept across rounds)."""
+        optimizer kept across rounds). ``params`` and ``opt_state`` enter
+        :meth:`train_stacked` as views along a client axis of 1, not as
+        copies (the counterpart of the reference donating ``opt_state``):
+        it writes none of its inputs, so the caller's tensors stay as they
+        were and the state is not held twice while it runs."""
         device = next(iter(params.values())).device
         n = torch.as_tensor([n_samples], device=device)
         stacked = {k: v[None] for k, v in data.items()}
         perms = None if perm is None else perm[None]
+        view = lambda tree: optim.tree_map(lambda v: v[None], tree)  # noqa: E731
         p, state, losses = self.train_stacked(
-            stack_copies(params, 1), stack_copies(opt_state, 1), stacked, n, n_epochs, perms,
-            generator, anchor, frozen)
+            view(params), view(opt_state), stacked, n, n_epochs, perms, generator, anchor,
+            frozen)
         unstack = lambda tree: optim.tree_map(lambda v: v[0], tree)  # noqa: E731
         return unstack(p), unstack(state), losses[0]
 

@@ -71,6 +71,7 @@ Robust aggregators are refused on a hybrid mesh, as in JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
@@ -104,6 +105,7 @@ from baton_tpu_torch.parallel.mesh import (
     replicate,
     shard_client_arrays,
 )
+from baton_tpu_torch.parallel.partition import _flatten
 from baton_tpu_torch.parallel.tensor_parallel import (
     gather_params,
     is_sharded,
@@ -158,6 +160,56 @@ def federation_eval(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
     if "correct_sum" in totals:
         out["accuracy"] = totals["correct_sum"] / denom
     return out
+
+
+def _storage(t: torch.Tensor) -> tuple:
+    """The device and address of the storage ``t`` is a view of."""
+    return t.device, t.untyped_storage().data_ptr()
+
+
+def graph_buffers(trees, givens, device, donate: bool, frozen=()) -> tuple:
+    """The static buffers a captured round updates in place, a tree of
+    them for each tree of ``trees`` (None stays None), and the record of
+    how each was had: ``(buffers, record)``.
+
+    ``givens[i]`` holds the caller's leaves ``trees[i]`` came from (None:
+    none did). A leaf that is not its caller's, such as a leaf gathered
+    from its placement or a state the port initialised, is the port's own
+    temporary: it is its own buffer whatever ``donate`` says, and is never
+    cloned again. With ``donate`` a caller's leaf is donated (it is its own
+    buffer, and the round writes its result into it) where it can serve as
+    one: it lies on ``device``, is contiguous, does not require grad, and
+    its storage is no other leaf's and none of ``frozen`` (tensors the
+    round reads, such as the frozen params). Every other leaf is cloned.
+    The graph holds each leaf in its own dtype, as a clone does, so every
+    dtype serves. ``record`` counts the ``donated``, ``owned`` and
+    ``copied`` leaves and their bytes."""
+    leaves = [v for tree in trees if tree is not None for _, v in _flatten(tree)]
+    counts = collections.Counter(map(_storage, leaves))
+    shared = {s for s, n in counts.items() if n > 1} | set(map(_storage, frozen))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    record = dict.fromkeys(("donated", "donated_bytes", "owned", "owned_bytes", "copied",
+                            "copied_bytes"), 0)
+
+    def buffer(v, caller=None):
+        if v is not caller:
+            kind = "owned"
+        elif (donate and v.device == device and v.is_contiguous() and not v.requires_grad
+              and _storage(v) not in shared):
+            kind = "donated"
+        else:
+            kind, v = "copied", v.detach().to(device, copy=True)
+        record[kind] += 1
+        record[f"{kind}_bytes"] += v.numel() * v.element_size()
+        return v
+
+    buffers = [None if tree is None
+               else optim.tree_map(buffer, tree) if given is None
+               else optim.tree_map(buffer, tree, given)
+               for tree, given in zip(trees, givens)]
+    return buffers, record
 
 
 class FedSim:
@@ -754,10 +806,24 @@ class FedSim:
         replays) and each round's ``all_reduce_s`` (host seconds from A's
         end to the reduced buffer on the card).
 
-        ``donate_buffers`` is kept for the reference's signature and
-        changes nothing here: the port copies ``params`` (and any
-        ``server_opt_state``) into buffers of its own, so the caller's
-        tensors are never mutated or invalidated.
+        ``donate_buffers`` (default True) donates the caller's trainable
+        params and ``server_opt_state`` on the card, as the reference
+        donates them to XLA: each leaf that can serve as the graph's static
+        buffer (:func:`graph_buffers`: on ``device``, contiguous, not
+        requiring grad, its storage no other leaf's and no frozen one's)
+        *is* that buffer, so the globals are
+        never held twice. The run updates those tensors in place and
+        returns them: after the call the caller's ``params`` (and
+        ``server_opt_state``) hold the result, not the old globals. Pass
+        ``donate_buffers=False`` to keep them (e.g. to run again from the
+        same params); every other leaf is copied either way. A leaf
+        gathered from its placement on a hybrid mesh and a server state the
+        port initialises are the port's own and never copied again; the
+        frozen params are never donated (``partition.merge`` reads them
+        after the run). ``last_fused["donation"]`` counts the donated,
+        owned and copied leaves and their bytes. On
+        the CPU the flag is ignored, as the reference's CPU ignores
+        donation: the plain loop never writes the caller's tensors.
         """
         if self.aggregator[0] != "mean":
             raise NotImplementedError(
@@ -777,6 +843,7 @@ class FedSim:
         if wave_size == "auto":
             wave_size = self._auto_wave(params, data, n_samples, n_epochs)
         trainable, frozen = self._split(params)
+        given = trainable
         trainable = gather_params(trainable)
         # the frozen base placed once for every round (on a hybrid mesh,
         # tensor-parallel; views of the base, made before any capture)
@@ -796,6 +863,7 @@ class FedSim:
             perms.append(random_perms(c, n_epochs, capacity, g))
             round_gens.append(g)
             seeds.append([noise_seed(g) for _ in range(n_waves)] if derive else None)
+        given_sos = server_opt_state
         if self.server_optimizer is not None and server_opt_state is None:
             server_opt_state = self.server_optimizer.init(trainable)
         like = self._sums_like(trainable, n_epochs)
@@ -824,29 +892,31 @@ class FedSim:
                 history.extend(loss.tolist())
             self.last_fused = {"graph": False, "rounds": n_rounds}
         else:
-            p, sos, history = self._rounds_as_graph(fold, finish, agg.flat_size(like), trainable,
-                                                    server_opt_state, perms,
-                                                    seeds if derive else None, n_waves)
+            frozen_leaves = [t for v in (frozen or {}).values()
+                             for t in (v.shards if is_sharded(v) else (v,))]
+            (p, sos), donation = graph_buffers([trainable, server_opt_state], [given, given_sos],
+                                               self.device, donate_buffers, frozen_leaves)
+            p, sos, history = self._rounds_as_graph(fold, finish, agg.flat_size(like), p, sos,
+                                                    perms, seeds if derive else None, n_waves)
+            self.last_fused["donation"] = donation
         if self.partition is not None:
             p = self.partition.merge(p, frozen_shards[0] if self.is_hybrid else frozen)
         if return_server_opt_state:
             return p, history, sos
         return p, history
 
-    def _rounds_as_graph(self, fold, finish, flat_size, trainable, server_opt_state, perms,
-                         seeds, n_waves):
+    def _rounds_as_graph(self, fold, finish, flat_size, p, sos, perms, seeds, n_waves):
         """``run_rounds_fused`` on the card: round 0 eagerly on a side
         stream, then pieces A (``fold``) and B (``finish``) captured once,
         as one graph or, where the mesh spans processes, as two around the
-        eager all-reduce, and replayed for the other rounds. ``seeds[i]``
+        eager all-reduce, and replayed for the other rounds, each round
+        writing its params and server state into ``p`` and ``sos`` (the
+        static buffers, :func:`graph_buffers`). ``seeds[i]``
         seeds each wave's noise generators for round ``i`` (None: no
         noise). Returns the final params, server state and the loss
         history, read back in the run's one sync."""
         dev = self.device
         mesh = self._clients_mesh
-        p = {k: v.clone() for k, v in trainable.items()}
-        sos = (None if server_opt_state is None
-               else optim.tree_map(lambda v: v.clone(), server_opt_state))
         perm_buf = torch.empty_like(perms[0], device=dev)
         # the round's sums, allocated before any capture: A writes them, the
         # all-reduce adds them across processes in place, B reads them
@@ -894,6 +964,8 @@ class FedSim:
 
         losses = []
         side = torch.cuda.Stream(dev)
+        # round 0 writes the buffers (the caller's tensors where donated)
+        # on the side stream: after the caller's pending work on them
         side.wait_stream(stream(dev))
         with torch.cuda.stream(side):
             start_round(0)

@@ -328,6 +328,24 @@ exits non-zero:
    all-reduce's host seconds and bytes a round; then phase 19's DP case
    (8 clients in waves of 4) on the same processes within 1e-5. Both
    children run under a hard timeout and are killed in ``finally``.
+   Phases 19, 26a and 26b time ``run_rounds_fused`` with donation on from
+   clones of their params (every trainable leaf donated or the port's own,
+   none copied, the donated ones the result's) and profile it with
+   ``donate_buffers=False``, since their params start the profiled runs
+   again; 26c's children run it last with donation on;
+27. buffer donation (``run_rounds_fused(donate_buffers=)``) on phase 3's
+   BERT-base cohort with phase 9's FedAdam server (``optim.adam(1e-2)``),
+   3 fused rounds with donation on and off from identical clones of the
+   params and the server state: bit-equal params, server state and losses;
+   with donation every leaf of the caller's is the result's (``data_ptr``)
+   and ``last_fused["donation"]`` counts them all donated, without it none
+   is and every leaf is copied, the caller's clones unchanged; each run 2
+   replays and 2 x 12 counted launches a kernel, all mma (the counts set to
+   0 just before each run), and under the profiler 3 x 12 launches a
+   kernel ran on the device (round 0 and the replays). Then ``fedsim_fused_donation_plan`` on the
+   same case: its ``delta_gb`` (the allocator's peak, off minus on) at
+   least 0.9 of the trainable params' and server state's bytes, printed
+   beside them; and ``configure_torch_for_bench()``'s record.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
 21's fp32 times at the ring block (the forward and the backward pair): the
@@ -342,7 +360,9 @@ launches on its path, its error in phase 2, and its times and bounds at
 that path's shape; the fp32 rows add each process's launches a step in
 25a, the bf16 rows each process's launches in 25b's bf16 ring and their
 launches in phase 26 (26a's fused run and round, 26b's round, each 26c
-process's round). The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+process's round) and those the profiler saw in phase 27's fused run with
+donation (``launches_donation``). The last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -4453,7 +4473,11 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
     ``FUSED_ROUNDS`` rounds from the same params and generator (after a
     warm-up round; ``kw`` to both, such as ``n_epochs``): timed, then each
     profiled; params (a leaf placed over a model axis gathered) and losses
-    within ``FUSED_TOL``. The fused run's steady s/round is its replays'
+    within ``FUSED_TOL``. The timed fused run donates (the default) from
+    clones of ``params``: every trainable leaf of theirs donated or the
+    port's own, none copied, the donated ones the result's (``data_ptr``);
+    the profiled one keeps ``params`` (``donate_buffers=False``). The fused
+    run's steady s/round is its replays'
     span on the device over the replays, and its busy share the profiled
     device time a round over that. Returns the stats, the flash launches
     the fused run made (the eager round 0 plus the captured ones times the
@@ -4464,16 +4488,28 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
     timed(lambda: sim.run_rounds(params, data, n_samples, gen, n_rounds=1, **kw))  # warm-up
     (p_loop, h_loop), dt_loop = timed(lambda: sim.run_rounds(params, data, n_samples, gen,
                                                              n_rounds=FUSED_ROUNDS, **kw))
+    # donation on (the default) from clones, since params start the
+    # profiled runs below again: the clones' trainable leaves are the result's
+    start = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in params.items()}
     before = launch_counts(fa)
     (p_fused, h_fused), dt_fused = timed(lambda: sim.run_rounds_fused(
-        params, data, n_samples, gen, n_rounds=FUSED_ROUNDS, **kw))
-    p_loop, p_whole = gather_params(p_loop), gather_params(p_fused)
+        start, data, n_samples, gen, n_rounds=FUSED_ROUNDS, **kw))
     # the Python counters saw the eager round 0 and the capture; each replay
     # re-runs the captured launches without Python
     seen, _ = launches_since(fa, before)
     record = dict(sim.last_fused)
     check(record["graph"] and record["replays"] == FUSED_ROUNDS - 1,
           f"{label}: the fused run did not replay a graph: {record}")
+    donation = record["donation"]
+    trainable = sim._split(start)[0]
+    shared = sum(isinstance(v, torch.Tensor) and p_fused[k].data_ptr() == v.data_ptr()
+                 for k, v in trainable.items())
+    check(donation["copied"] == 0 and 0 < donation["donated"] == shared
+          and donation["donated"] + donation["owned"] == len(trainable),
+          f"{label}: donation {donation}, {shared} of {len(trainable)} trainable leaves the "
+          "result's")
+    p_loop, p_whole = gather_params(p_loop), gather_params(p_fused)
+    del start
     per_round = {k: n // 2 for k, n in seen.items()}
     launched = {k: per_round[k] * (1 + record["replays"]) for k in per_round}
     err = max((p_loop[k].float() - p_whole[k].float()).abs().max().item() for k in p_loop)
@@ -4484,7 +4520,8 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
                                                    n_rounds=FUSED_ROUNDS, **kw),
                             f"{label} run_rounds")
     _, fused_prof = profiled(lambda: sim.run_rounds_fused(params, data, n_samples, gen,
-                                                          n_rounds=FUSED_ROUNDS, **kw),
+                                                          n_rounds=FUSED_ROUNDS,
+                                                          donate_buffers=False, **kw),
                              f"{label} run_rounds_fused")
     # the profiler sees the kernels a graph replays: its flash count must be
     # the eager round's plus the captured launches times the replays
@@ -4503,7 +4540,9 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
           f" s), replays {replay_round_s:.4f} s/round on the device (busy {fused_busy}: the "
           f"profiled device time a round over that); max |param diff| {err:.3e}, losses "
           f"{loss_err:.3e} (tol {FUSED_TOL}), bit-equal {bit_equal}; flash launches per round "
-          f"{per_round}, in the fused run {launched} (the profiler saw {traced})")
+          f"{per_round}, in the fused run {launched} (the profiler saw {traced}); the timed "
+          f"fused run donated {donation['donated']} of {len(trainable)} trainable leaves "
+          f"({donation['donated_bytes']:,} B), owned {donation['owned']}, copied 0")
     check(err <= FUSED_TOL and loss_err <= FUSED_TOL,
           f"{label}: fused and run_rounds differ: params {err:.3e}, losses {loss_err:.3e}")
     return {"s_per_round_loop": dt_loop / FUSED_ROUNDS, "s_per_round_fused": dt_fused / FUSED_ROUNDS,
@@ -4512,7 +4551,7 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
             "busy_loop": loop_prof and loop_prof["busy_share"], "busy_replays": busy_replays,
             "device_ms_loop": loop_prof and loop_prof["device_ms"],
             "device_ms_fused": fused_prof and fused_prof["device_ms"],
-            "flash_launches_traced": traced}, launched, per_round, p_fused
+            "flash_launches_traced": traced, "donation": donation}, launched, per_round, p_fused
 
 
 def fused_phase(fa):
@@ -4576,7 +4615,7 @@ def fused_dp_round(fa, mesh=None, n_clients=4, wave=2, vit=DP_VIT):
     gen = torch.Generator().manual_seed(1)
     p_loop, h_loop = sim.run_rounds(params, data, n_samples, gen, n_rounds=3, wave_size=wave)
     p_fused, h_fused = sim.run_rounds_fused(params, data, n_samples, gen, n_rounds=3,
-                                            wave_size=wave)
+                                            wave_size=wave, donate_buffers=False)
     record = dict(sim.last_fused)
     err = max((p_loop[k] - p_fused[k]).abs().max().item() for k in p_loop)
     loss_err = max(abs(a - b) for a, b in zip(h_loop, h_fused))
@@ -6303,6 +6342,190 @@ def fused_mesh_phase(fa) -> dict:
             "launches_per_round_fused_hybrid_bert": hybrid_per_round}
 
 
+# phase 27: buffer donation on the card. Phase 3's BERT-base cohort with
+# phase 9's FedAdam server, run_rounds_fused with donation on and off from
+# identical clones, then the donation probe on the same case.
+
+DONATION_ROUNDS = 3
+DONATION_SHARE = 0.9  # the probe's delta at least this share of the donated bytes
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of nested dicts, in order."""
+    from baton_tpu_torch.parallel.partition import _flatten
+
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def traced_flash(prof) -> dict:
+    """The flash kernels' launches a profiled block ran on the device, by
+    pass, from the kernels' names (a graph's replays included); None where
+    the profiler saw no device event."""
+    totals = event_totals(prof)
+    if not totals:
+        return None
+    passes = {"fwd": "fwd", "dkv": "bwd_dkv", "dq": "bwd_dq"}
+    out = dict.fromkeys(PASSES, 0)
+    for name, (count, _) in totals.items():
+        m = re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_tf32x3)?_kernel", name.lower())
+        if m:
+            out[passes[m.group(2)]] += count
+    return out
+
+
+def donation_run(fa, sim, params, sos, data, n_samples, donate: bool) -> dict:
+    """``run_rounds_fused`` for ``DONATION_ROUNDS`` rounds with
+    ``donate_buffers=donate`` from clones of ``params`` and ``sos``, the
+    flash counts set to 0 just before it and read just after, and on the
+    card under the profiler (``traced_flash``; None elsewhere). Returns the
+    result, the clones it started from, their leaves' addresses before the
+    run, the seconds, the launches counted and traced and ``last_fused``."""
+    from baton_tpu_torch.core.optim import tree_map
+
+    start, start_sos = (tree_map(torch.clone, tree) for tree in (params, sos))
+    ptrs = [t.data_ptr() for t in tree_leaves(start) + tree_leaves(start_sos)]
+    gen = torch.Generator().manual_seed(1)
+
+    def run():
+        return sim.run_rounds_fused(start, data, n_samples, gen, n_rounds=DONATION_ROUNDS,
+                                    server_opt_state=start_sos, return_server_opt_state=True,
+                                    donate_buffers=donate)
+
+    fa.reset_launches()
+    traced = None
+    if sim.device.type == "cuda":
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            (p, history, out_sos), seconds = timed(run)
+        traced = traced_flash(prof)
+    else:
+        (p, history, out_sos), seconds = timed(run)
+    launched, by_design = fa.launches(), {k: n for k, n in fa.launches_by_design.items() if n}
+    return {"params": p, "sos": out_sos, "history": history, "start": start,
+            "start_sos": start_sos, "ptrs": ptrs, "seconds": seconds, "launched": launched,
+            "by_design": by_design, "traced": traced, "last_fused": dict(sim.last_fused)}
+
+
+def check_donation(on: dict, off: dict, params, sos, n_layers: int) -> dict:
+    """Phase 27's checks: donation on and off bit-equal (params, server
+    state, losses); with donation on every leaf of the caller's is the
+    result's (the same storage, ``data_ptr``) and counted donated, none
+    copied; with it off none is, every leaf copied and the caller's clones
+    still equal to the params they were made from; each run replayed
+    ``DONATION_ROUNDS - 1`` times, counted ``2 x n_layers`` launches a
+    kernel (the eager round 0 and the capture), all on mma, and, where the
+    profiler saw the device, ran ``DONATION_ROUNDS x n_layers`` a kernel
+    (round 0 and the replays). Returns the counts."""
+    n_leaves = len(params) + len(tree_leaves(sos))
+    equal = (all(torch.equal(on["params"][k], off["params"][k]) for k in params)
+             and all(torch.equal(a, b) for a, b in zip(tree_leaves(on["sos"]),
+                                                       tree_leaves(off["sos"])))
+             and on["history"] == off["history"])
+    check(equal, "27: donation on and off differ")
+    results = {name: [t.data_ptr() for t in tree_leaves(run["params"]) + tree_leaves(run["sos"])]
+               for name, run in (("on", on), ("off", off))}
+    shared_on = sum(a == b for a, b in zip(on["ptrs"], results["on"]))
+    shared_off = sum(a == b for a, b in zip(off["ptrs"], results["off"]))
+    don_on, don_off = on["last_fused"]["donation"], off["last_fused"]["donation"]
+    check(shared_on == n_leaves and don_on["donated"] == n_leaves and don_on["copied"] == 0,
+          f"27: with donation {shared_on} of {n_leaves} caller's leaves are the result's, "
+          f"{don_on['donated']} counted donated, {don_on['copied']} copied")
+    check(shared_off == 0 and don_off["donated"] == 0 and don_off["copied"] == n_leaves,
+          f"27: without donation {shared_off} caller's leaves are the result's, "
+          f"{don_off['donated']} donated, {don_off['copied']} of {n_leaves} copied")
+    kept = (all(torch.equal(off["start"][k], params[k]) for k in params)
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(off["start_sos"]),
+                                                      tree_leaves(sos))))
+    check(kept, "27: a run without donation changed the caller's tensors")
+    want = {k: 2 * n_layers for k in PASSES}
+    ran = {k: DONATION_ROUNDS * n_layers for k in PASSES}
+    for name, run in (("on", on), ("off", off)):
+        record = run["last_fused"]
+        check(record["graph"] and record["replays"] == DONATION_ROUNDS - 1,
+              f"27 donation {name}: not replayed: {record}")
+        check(run["launched"] == want
+              and run["by_design"] == {f"{k}_mma": n for k, n in want.items()},
+              f"27 donation {name}: launches {run['launched']} ({run['by_design']}), want {want}"
+              " all on mma")
+        check(run["traced"] is None or run["traced"] == ran,
+              f"27 donation {name}: the profiler saw {run['traced']} flash launches, want {ran}")
+    return {"n_leaves": n_leaves, "shared_on": shared_on, "shared_off": shared_off,
+            "bit_equal": equal, "launches_traced": on["traced"]}
+
+
+def check_donation_probe(plan: dict, donated_bytes: int) -> float:
+    """The probe's ``delta_gb`` (GiB) against the bytes donation leaves
+    unheld: at least ``DONATION_SHARE`` of them. Returns the share."""
+    from baton_tpu_torch.utils.profiling import GIB
+
+    share = plan["delta_gb"] * GIB / donated_bytes
+    check(share >= DONATION_SHARE, f"27: the donation probe's delta {plan['delta_gb']:.4f} GiB is "
+          f"{share:.3f} of the {donated_bytes:,} B donated (want >= {DONATION_SHARE})")
+    return share
+
+
+def donation_phase(fa) -> tuple:
+    """Phase 27: buffer donation on the card at BERT-base width: phase 3's
+    cohort (8 clients x 32, bf16) with phase 9's FedAdam server
+    (``optim.adam(1e-2)``), ``DONATION_ROUNDS`` fused rounds with donation
+    on and off from identical clones (``check_donation``), the donation
+    probe ``fedsim_fused_donation_plan`` on the same case
+    (``check_donation_probe``) and ``configure_torch_for_bench``. Returns
+    the stats and the kernels line's entries of the donation-on run's flash
+    launches: ``launches_donation``, those the profiler saw (round 0 and
+    the replays), or without a trace ``launches_donation_eager_and_capture``
+    (those the counters saw)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core import optim
+    from baton_tpu_torch.utils.profiling import (
+        GIB,
+        configure_torch_for_bench,
+        fedsim_fused_donation_plan,
+    )
+
+    setup = configure_torch_for_bench()
+    cfg, model, data, n_samples = bert_base_cohort()
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    sim = FedSim(model, batch_size=32, learning_rate=0.01, server_optimizer=optim.adam(1e-2))
+    params = sim.init(torch.Generator().manual_seed(0))
+    sos = sim.init_server_opt_state(params)
+    donated_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params) + tree_leaves(sos))
+    print(f"phase 27: buffer donation, run_rounds_fused(donate_buffers=True | False) on phase 3's "
+          f"BERT-base cohort ({len(n_samples)} clients x 32, bf16) with FedAdam (adam 1e-2), "
+          f"{DONATION_ROUNDS} rounds from identical clones; configure_torch_for_bench(): {setup}")
+    on = donation_run(fa, sim, params, sos, data, n_samples, True)
+    off = donation_run(fa, sim, params, sos, data, n_samples, False)
+    stats = check_donation(on, off, params, sos, cfg.n_layers)
+    # the kernels line takes the launches the profiler saw the donation-on
+    # run make; without a trace, only the eager round's and the capture's
+    launched = ({"launches_donation": on["traced"]} if on["traced"] is not None
+                else {"launches_donation_eager_and_capture": on["launched"]})
+    del on["params"], on["sos"], on["start"], on["start_sos"], off["params"], off["sos"]
+    del off["start"], off["start_sos"]
+    torch.cuda.empty_cache()
+    plan = fedsim_fused_donation_plan(sim, params, data, n_samples,
+                                      torch.Generator().manual_seed(1), n_rounds=DONATION_ROUNDS)
+    share = check_donation_probe(plan, donated_bytes)
+    for name, run in (("on", on), ("off", off)):
+        print(f"  donation {name}: {run['seconds']:.3f} s for {DONATION_ROUNDS} rounds (capture "
+              f"{run['last_fused']['capture_s']:.3f} s); donation record "
+              f"{run['last_fused']['donation']}; flash launches counted {run['by_design']}, "
+              f"seen by the profiler {run['traced']}")
+    print(f"  on and off bit-equal {stats['bit_equal']} (params, server state, losses); with "
+          f"donation {stats['shared_on']} of {stats['n_leaves']} caller's leaves are the "
+          f"result's (data_ptr), without {stats['shared_off']}; flash launches in the "
+          f"donation-on run {launched}")
+    print(f"  fedsim_fused_donation_plan: peak above in-use on "
+          f"{plan['donate_on']['plan_gb']:.4f} GiB, off {plan['donate_off']['plan_gb']:.4f} GiB, "
+          f"delta {plan['delta_gb']:.4f} GiB ({plan['delta_gb'] * GIB:,.0f} B) against the "
+          f"trainable params and server state's {donated_bytes:,} B "
+          f"({donated_bytes / GIB:.4f} GiB): {share:.3f} of them (want >= {DONATION_SHARE})")
+    stats.update(setup=setup, plan=plan, donated_bytes=donated_bytes, delta_share=share,
+                 seconds={"on": on["seconds"], "off": off["seconds"]},
+                 last_fused={"on": on["last_fused"], "off": off["last_fused"]})
+    return stats, launched
+
+
 def timed_phase(label, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``label``."""
     t0 = time.perf_counter()
@@ -6422,6 +6645,8 @@ def main() -> int:
     processes_stats["lint"] = timed_phase("25c", lint_phase)
     print(f"phase 25 took {time.perf_counter() - slice17:.1f} s")
     fused_mesh_stats = timed_phase("26", fused_mesh_phase, fa)
+    torch.cuda.empty_cache()
+    donation_stats, donation_launches = timed_phase("27", donation_phase, fa)
     ranks = processes_stats["ring"]["ranks"]
     for row in rows:  # the bf16 (mma) kernels' other paths
         counter = row["pass"]
@@ -6455,6 +6680,7 @@ def main() -> int:
             "launches_per_round_fused_hybrid_bert"][counter]
         row["launches_per_round_fused_processes"] = [
             o["launches_per_round"][counter] for o in fused_mesh_stats["processes"]["ranks"]]
+        row.update({key: n[counter] for key, n in donation_launches.items()})
     rows += fp32_rows(fa, ring_rows, errs["ring_block_float32"], ring_launches, ring_per_step)
     for row in rows[-3:]:  # the fp32 (tf32x3) kernels across processes, 25a
         row["launches_per_step_ring_processes"] = [
@@ -6470,7 +6696,8 @@ def main() -> int:
                       "examples": examples_stats, "sequence_parallel": ring_stats,
                       "clients_mesh": mesh_stats, "hybrid_mesh": hybrid_stats,
                       "operations_planes": operations_stats,
-                      "across_processes": processes_stats, "fused_meshes": fused_mesh_stats}))
+                      "across_processes": processes_stats, "fused_meshes": fused_mesh_stats,
+                      "donation": donation_stats}))
     print(f"the smoke took {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -43,8 +43,13 @@ failing a doubled gradient, a process that ran a shard it does not hold
 and a lint that exits 1 or imports JAX); phase 26c's (its two children
 over gloo at a tiny size on the CPU; its check failing one piece, a wrong
 launch count, a DP gap, ranks that differ and params outside the band);
-and ``main`` with every phase, the card and nvidia-smi stubbed: it runs
-phases 2-26 in order and ends with the card's name and power limit, the kernels line
+phase 27's (the donation runs on the CPU at a tiny size, made to read as
+the card's; its check failing runs that differ, a caller's leaf that is not
+the result's, a leaf counted copied, a run without donation that changed
+the caller's tensors and a wrong launch count; the probe's check failing a
+delta under 0.9 of the donated bytes); and ``main`` with every phase, the
+card and nvidia-smi stubbed: it runs
+phases 2-27 in order and ends with the card's name and power limit, the kernels line
 (with its config-4, ring and mesh launches, the ring's counted a step)
 and the ok/device line; a failing phase from 6 on fails it before any
 result line."""
@@ -229,7 +234,7 @@ PHASES = ("kernel_phase", "bert_round_phase", "in_context_phase", "timing_phase"
           "lstm_phase", "zoo_parity_phase", "crossover_phase", "config5_phase",
           "config5_timing_phase", "auto_wave_phase", "fused_phase", "examples_phase",
           "sequence_parallel_phase", "mesh_phase", "hybrid_phase", "ring_processes_phase",
-          "lint_phase", "fused_mesh_phase")
+          "lint_phase", "fused_mesh_phase", "donation_phase")
 COUNTS = {"fwd": 48, "bwd_dkv": 48, "bwd_dq": 48}
 VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 # config 4 with remat: the forward twice a layer a step, 32 layers, 4 steps a round
@@ -265,6 +270,8 @@ PROCESS_RANKS = [{"long_context": {"launches_per_step": [per_step] * 2},
                  for per_step, bf16 in zip(PROCESS_PER_STEP, PROCESS_BF16)]
 # phase 26: BERT-base's 12 layers on 4 shards, the eager round 0 and 3
 # replays (a); 23b's forward on 2 x 2 (b); 2 shards a process (c)
+# phase 27: BERT-base's 12 layers, the eager round 0 and 2 replays
+DONATION_COUNTS = {"fwd": 36, "bwd_dkv": 36, "bwd_dq": 36}
 FUSED_MESH = {"launches_fused_mesh_bert": {k: 4 * n for k, n in MESH_COUNTS.items()},
               "launches_per_round_fused_mesh_bert": MESH_COUNTS,
               "launches_per_round_fused_hybrid_bert": HYBRID_BERT_COUNTS,
@@ -310,6 +317,7 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                                                 dict.fromkeys(RING_ERRS, RING_ROW), {}, {}),
                     "ring_processes_phase": {"ranks": PROCESS_RANKS}, "lint_phase": {},
                     "fused_mesh_phase": FUSED_MESH,
+                    "donation_phase": ({}, {"launches_donation": DONATION_COUNTS}),
                     "mesh_phase": (MESH_COUNTS,
                                    {"bert": {"meshless": {"launches": MESHLESS_COUNTS}}}),
                     }.get(phase)
@@ -368,7 +376,8 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
         "launches_per_round_meshless_bert": 12, "launches_per_round_hybrid_config4": 1024,
         "launches_per_round_hybrid_bert": 192, "launches_ring_processes_bf16": [10, 26],
         "launches_fused_mesh_bert": 192, "launches_per_round_fused_mesh_bert": 48,
-        "launches_per_round_fused_hybrid_bert": 192, "launches_per_round_fused_processes": [24, 24]},
+        "launches_per_round_fused_hybrid_bert": 192, "launches_per_round_fused_processes": [24, 24],
+        "launches_donation": 36},
         *fp32_rows]}
     assert lines[-3] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
@@ -397,7 +406,8 @@ def test_kernels_line_has_a_row_per_launch_key():
                                      "fused_phase", "examples_phase",
                                      "sequence_parallel_phase", "mesh_phase",
                                      "hybrid_config4_phase", "hybrid_phase",
-                                     "ring_processes_phase", "lint_phase", "fused_mesh_phase"])
+                                     "ring_processes_phase", "lint_phase", "fused_mesh_phase",
+                                     "donation_phase"])
 def test_a_failing_vision_phase_fails_the_smoke(monkeypatch, tmp_path, capsys, failing):
     called = _stub_main(monkeypatch, tmp_path, fail=failing)
     with pytest.raises(RuntimeError, match=failing):
@@ -1841,3 +1851,132 @@ def test_fused_processes_check(fused_processes_on_the_cpu, fault):
     else:
         with pytest.raises(RuntimeError, match="26c"):
             chip_smoke.check_fused_processes(outs, params, reference)
+
+
+# ---------------------------------------------------------------------------
+# phase 27: buffer donation
+
+
+@pytest.fixture(scope="module")
+def donation_runs_on_the_cpu():
+    """Phase 27's two runs on the CPU at a tiny size (a tiny BERT for phase
+    3's cohort, FedAdam on the server): the CPU's fused rounds are a plain
+    loop that donates nothing, so each test makes them read as the card's
+    (``_donation_card_runs``)."""
+    from baton_tpu_torch import FedSim
+    from baton_tpu_torch.core import optim
+    from baton_tpu_torch.models.bert import BertConfig
+
+    cfg, model, data, n_samples = chip_smoke.bert_base_cohort(cfg=BertConfig.tiny())
+    sim = FedSim(model, batch_size=32, learning_rate=0.01, server_optimizer=optim.adam(1e-2),
+                 device="cpu")
+    params = sim.init(torch.Generator().manual_seed(0))
+    sos = sim.init_server_opt_state(params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "synchronize", lambda *a: None)
+        runs = [chip_smoke.donation_run(fa, sim, params, sos, data, n_samples, donate)
+                for donate in (True, False)]
+    return cfg, params, sos, runs
+
+
+def _donation_card_runs(runs, n_layers):
+    """Copies of the CPU runs as the card's would read: with donation the
+    result written into the clones it started from, which it returns;
+    ``last_fused`` a replayed graph with its donation record; 2 x
+    ``n_layers`` launches a kernel on mma counted, 3 x ``n_layers`` traced."""
+    import copy
+
+    runs = copy.deepcopy(runs)
+    for run, donate in zip(runs, (True, False)):
+        start = chip_smoke.tree_leaves(run["start"]) + chip_smoke.tree_leaves(run["start_sos"])
+        run["ptrs"] = [t.data_ptr() for t in start]
+        if donate:
+            result = chip_smoke.tree_leaves(run["params"]) + chip_smoke.tree_leaves(run["sos"])
+            for dst, src in zip(start, result):
+                dst.copy_(src)
+            run["params"], run["sos"] = run["start"], run["start_sos"]
+        run["last_fused"] = {"graph": True, "rounds": 3, "replays": 2, "capture_s": 0.1,
+                             "donation": {"donated": len(start) if donate else 0,
+                                          "copied": 0 if donate else len(start)}}
+        run["launched"] = {k: 2 * n_layers for k in chip_smoke.PASSES}
+        run["by_design"] = {f"{k}_mma": 2 * n_layers for k in chip_smoke.PASSES}
+        run["traced"] = {k: chip_smoke.DONATION_ROUNDS * n_layers for k in chip_smoke.PASSES}
+    return runs
+
+
+def test_traced_flash_counts_the_kernels_by_pass(monkeypatch):
+    """The profiler's flash launches by pass, from the kernels' names, each
+    design under its pass; other kernels left out; None without a device
+    event."""
+    totals = {"void fwd_mma_kernel<64, 64>(Params)": [12, 5.0], "dkv_mma_kernel": [12, 9.0],
+              "dq_mma_kernel(float*)": [10, 7.0], "dq_tf32x3_kernel": [2, 1.0],
+              "sm90_xmma_gemm_bf16": [40, 30.0], "Memcpy DtoD (Device -> Device)": [3, 0.5]}
+    monkeypatch.setattr(chip_smoke, "event_totals", lambda prof: totals)
+    assert chip_smoke.traced_flash(None) == {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}
+    monkeypatch.setattr(chip_smoke, "event_totals", lambda prof: {})
+    assert chip_smoke.traced_flash(None) is None
+
+
+def test_donation_runs_on_the_cpu(donation_runs_on_the_cpu):
+    """On the CPU both runs leave the caller's clones as they were and agree
+    bit for bit; the plain loop records no graph."""
+    _, params, sos, (on, off) = donation_runs_on_the_cpu
+    for run in (on, off):
+        assert run["last_fused"] == {"graph": False, "rounds": chip_smoke.DONATION_ROUNDS}
+        assert run["traced"] is None  # profiled on the card only
+        assert all(torch.equal(run["start"][k], params[k]) for k in params)
+        assert len(run["history"]) == chip_smoke.DONATION_ROUNDS
+    assert all(torch.equal(on["params"][k], off["params"][k]) for k in params)
+    assert int(on["sos"]["count"]) == chip_smoke.DONATION_ROUNDS
+
+
+@pytest.mark.parametrize("fault", [None, "differ", "not_shared", "counted_copied",
+                                   "caller_changed", "launches", "traced", "not_replayed",
+                                   "not_traced"])
+def test_donation_check(donation_runs_on_the_cpu, fault):
+    """Phase 27's check passes the runs as the card's would read, and runs
+    the profiler did not see, and fails runs whose results differ, a
+    caller's leaf that is not the result's under donation, a donation
+    record that counts a copied leaf, a run without donation that changed
+    the caller's tensors, a wrong launch count, a traced count without the
+    replays' launches and a run that replayed no graph."""
+    cfg, params, sos, runs = donation_runs_on_the_cpu
+    on, off = _donation_card_runs(runs, cfg.n_layers)
+    name = next(iter(params))
+    if fault == "differ":
+        off["params"][name] = off["params"][name] + 1e-6
+    elif fault == "not_shared":
+        on["params"][name] = on["params"][name].clone()
+    elif fault == "counted_copied":
+        on["last_fused"]["donation"]["copied"] = 1
+    elif fault == "caller_changed":
+        off["start"][name].add_(1.0)
+    elif fault == "launches":
+        on["launched"]["bwd_dq"] += 1
+    elif fault == "traced":
+        on["traced"]["fwd"] = 2 * cfg.n_layers  # the replays' launches missing
+    elif fault == "not_replayed":
+        off["last_fused"]["replays"] = 0
+    elif fault == "not_traced":
+        on["traced"] = off["traced"] = None
+    if fault in (None, "not_traced"):
+        stats = chip_smoke.check_donation(on, off, params, sos, cfg.n_layers)
+        n_leaves = len(params) + len(chip_smoke.tree_leaves(sos))
+        assert stats == {"n_leaves": n_leaves, "shared_on": n_leaves, "shared_off": 0,
+                         "bit_equal": True, "launches_traced": on["traced"]}
+    else:
+        with pytest.raises(RuntimeError, match="27"):
+            chip_smoke.check_donation(on, off, params, sos, cfg.n_layers)
+
+
+@pytest.mark.parametrize("delta_share,ok", [(1.0, True), (0.95, True), (0.5, False)])
+def test_donation_probe_check(delta_share, ok):
+    from baton_tpu_torch.utils.profiling import GIB
+
+    donated = 1_309_824_052
+    plan = {"delta_gb": delta_share * donated / GIB}
+    if ok:
+        assert chip_smoke.check_donation_probe(plan, donated) == pytest.approx(delta_share)
+    else:
+        with pytest.raises(RuntimeError, match="27: the donation probe"):
+            chip_smoke.check_donation_probe(plan, donated)

@@ -17,6 +17,7 @@ its reason (both packages read with ``ast``, neither imported)."""
 import ast
 import asyncio
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -443,7 +444,9 @@ PALLAS_INTERPRET = "Pallas interpret mode: on the CPU the port's wrapper runs th
 XLA_PLAN = ("XLA's compile-time memory plan: the port measures the allocator instead "
             "(utils/profiling.fedsim_wave_footprint_gb, obs/compute.peak_memory_gb)")
 TPU_BUDGET = "TPU memory budgets: the port's budget is the card's own memory (device_budget_gb)"
-BENCH = "owed: bench.py's helper, ported with bench.py in the benchmark PR"
+TPU_BUDGET_TIER = ("picks a tier of the TPU's plan budget (hbm_budget_gb): the card's budget is "
+                   "its own memory and has one tier (device_budget_gb)")
+RENAMED = "renamed to "  # a reason "renamed to <port's name>: <why>"
 
 # (module of baton_tpu, name or None for the module, parameter or None) -> reason
 EXEMPT = {
@@ -525,11 +528,11 @@ EXEMPT = {
     ("utils/profiling.py", "DEFAULT_HBM_BUDGET_GB", None): TPU_BUDGET,
     ("utils/profiling.py", "ANCHORED_DIRECT_CONV_BUDGET_GB", None): TPU_BUDGET,
     ("utils/profiling.py", "hbm_budget_gb", None): TPU_BUDGET,
-    ("utils/profiling.py", "configure_jax_for_bench", None): BENCH,
-    ("utils/profiling.py", "resolve_artifact_path", None): BENCH,
-    ("utils/profiling.py", "conv_kernel_class", None): BENCH,
-    ("utils/profiling.py", "ANCHORED_CONV_KERNEL", None): BENCH,
-    ("utils/profiling.py", "fedsim_fused_donation_plan", None): BENCH,
+    ("utils/profiling.py", "configure_jax_for_bench", None):
+        RENAMED + "configure_torch_for_bench: the port sets up torch and its kernels, not JAX",
+    ("utils/profiling.py", "conv_kernel_class", None): TPU_BUDGET_TIER,
+    ("utils/profiling.py", "ANCHORED_CONV_KERNEL", None): TPU_BUDGET_TIER,
+    ("utils/profiling.py", "fedsim_fused_donation_plan", "key"): KEY,
 }
 
 
@@ -618,7 +621,27 @@ def test_every_exemption_has_a_reason_and_is_still_missing():
         assert entry in gaps, (f"{entry} is not a gap of the port: ported (take it out of "
                                "EXEMPT), or its whole name is missing")
         assert isinstance(reason, str) and reason.strip() and "\n" not in reason, entry
-    assert sum(r.startswith("owed") for r in EXEMPT.values()) == 5
+
+
+def test_no_exemption_is_owed():
+    """Every name of the JAX package is ported or exempt for good: no
+    entry waits for a later port."""
+    assert not [entry for entry, reason in EXEMPT.items() if re.search(r"\bowed\b", reason)]
+
+
+def test_a_renamed_name_has_its_counterpart_in_the_port():
+    """An entry that says the port renamed a name names a counterpart that
+    the port's module has, and the JAX package's module does not."""
+    renamed = {entry: reason[len(RENAMED):].split(":")[0].strip()
+               for entry, reason in EXEMPT.items() if reason.startswith(RENAMED)}
+    assert renamed
+    for (module, name, parameter), counterpart in renamed.items():
+        have = module_surface(PORT_PACKAGE / module, public_only=False)
+        if parameter is None:
+            assert counterpart in have, (module, name, counterpart)
+        else:
+            assert counterpart in have[name], (module, name, parameter, counterpart)
+        assert counterpart not in module_surface(REF_PACKAGE / module, public_only=True)
 
 
 def test_the_parity_guard_catches_a_missing_module_name_method_and_parameter(tmp_path):
