@@ -33,6 +33,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # ResNet-18 (CIFAR-10 variant, 32x32 input): 0.557 GMAC forward per image
 # = 1.11 GFLOP; training ~3x forward (forward + 2x backward).
@@ -286,10 +287,46 @@ class ComputeProbe:
         else:
             self.model_family, self.model_family_reason = None, "no model attached to probe"
         self.tracker = CompileTracker(storm_window, storm_threshold)
+        # the process's device and the run's device count do not change
+        # while it runs; resolve them once a probe
+        self._cached_device: Optional[torch.device] = None
+        self._cached_n_chips: Optional[int] = None
+
+    @staticmethod
+    def _device() -> torch.device:
+        """The device this process's work runs on: its current card when
+        CUDA is up, else the CPU (``jax.devices()[0]`` in the JAX
+        package). The probe only names it; nothing runs there."""
+        if torch.cuda.is_available():
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    @staticmethod
+    def _n_chips(device: torch.device) -> int:
+        """The run's device count (``jax.device_count()`` in the JAX
+        package): the process group's world size when one is up, else
+        the cards of this process when the device is a card, else 1."""
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        if device.type == "cuda":
+            return torch.cuda.device_count()
+        return 1
 
     def record_round(self, *, key: Any, signature: Any, train_s: float, n_samples: float,
-                     device: torch.device, n_epochs: int = 1,
-                     steps: Optional[int] = None, n_chips: int = 1) -> dict:
+                     n_epochs: int = 1, steps: Optional[int] = None,
+                     device: Optional[torch.device] = None,
+                     n_chips: Optional[int] = None) -> dict:
+        """One round's record. ``device`` and ``n_chips`` default to the
+        process's device and the run's device count, each resolved once
+        a probe; explicit values are used as given."""
+        if device is None:
+            if self._cached_device is None:
+                self._cached_device = self._device()
+            device = self._cached_device
+        if n_chips is None:
+            if self._cached_n_chips is None:
+                self._cached_n_chips = self._n_chips(device)
+            n_chips = self._cached_n_chips
         gb, source, reason = peak_memory_gb(device)
         return build_record(
             train_s=train_s,

@@ -962,6 +962,26 @@ def bert_base_cohort(n_clients=8, batch=32, cfg=None):
     return cfg, model, data, n_samples
 
 
+PEAK_SOURCE = "torch.cuda.max_memory_allocated"  # a record's peak on the card
+
+
+def check_default_record(label, rec, kind, n_chips) -> dict:
+    """A compute record from ``ComputeProbe.record_round`` called with
+    neither ``device`` nor ``n_chips``: valid, naming ``kind`` (the card's
+    CUDA name, or ``cpu``), counting ``n_chips`` (the process group's world
+    size, else the cards) and reading the allocator's peak on a card (null
+    with a reason on the CPU). Returns the three fields."""
+    from baton_tpu_torch.obs.compute import validate_record
+
+    got = {key: rec.get(key) for key in ("device_kind", "n_chips", "peak_hbm_gb_source")}
+    want = {"device_kind": kind, "n_chips": n_chips,
+            "peak_hbm_gb_source": None if kind == "cpu" else PEAK_SOURCE}
+    bad = validate_record(rec)
+    check(got == want and not bad, f"{label}: record_round's defaults gave {got}, want {want}"
+          + (f"; {bad}" if bad else ""))
+    return got
+
+
 def bert_round_phase(fa):
     from baton_tpu_torch import FedSim
 
@@ -1024,11 +1044,19 @@ def bert_round_phase(fa):
         ratio = breakdown["device_ms"] / 1e3 / s_median
         print(f"  profiled device time over the unprofiled median wall: {ratio:.3f} (not a busy "
               "share: the profiler lengthens kernels)")
+    # the probe's defaults: this process's card, the run's cards, the
+    # allocator's peak (a fresh signature: the rounds' records stand)
+    defaults = check_default_record(
+        "phase 3", sim.compute_probe.record_round(
+            key="smoke_defaults", signature=("phase 3", "defaults"), train_s=s_median,
+            n_samples=float(n_samples.sum())),
+        torch.cuda.get_device_name(), torch.cuda.device_count())
+    print(f"  record_round without device or n_chips: {defaults}")
     return main_launches, per_round, {"breakdown": breakdown, "round_s": times,
                            "s_per_round": s_round, "s_per_round_median": s_median,
                            "samples_per_s": n_clients * batch / s_round,
                            "peak_memory_gb": peak_gb, "losses": losses,
-                           "eval": ev, "n_params": n_params}
+                           "eval": ev, "n_params": n_params, "default_record": defaults}
 
 
 def in_context_phase(fa):
@@ -1444,6 +1472,7 @@ def vision_parity_phase():
 # server optimizers, trainable partitions)
 
 CONFIG3_HEAD = ("pooler/", "head/")
+CONFIG3_TIMED_ROUNDS = 3  # phase 8: after a warm-up, before the profiled round (cut from 5)
 
 
 def mean_client_drift(sim, params, data, n_samples, n_epochs, perms):
@@ -1516,7 +1545,7 @@ def fedprox_bert_phase(fa):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     times, losses, breakdown = [], [], None
-    n_timed = 5
+    n_timed = CONFIG3_TIMED_ROUNDS
     profiled = n_timed + 1
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for r in range(profiled + 1):
@@ -1736,7 +1765,9 @@ LOCAL_ADAM_EPS = 1e-5
 
 def option_variants(trainable_prefixes):
     """Phase 10's options, each alone and then all at once: name ->
-    (FedSim keyword arguments, whether the card-vs-CPU gap is held)."""
+    (FedSim keyword arguments, whether the card-vs-CPU gap is held, the
+    rounds run). All at once runs two rounds, so the server optimizer's
+    state threads from one to the next; every option alone runs one."""
     from baton_tpu_torch.core import optim
     from baton_tpu_torch.core.regularizers import fedprox
 
@@ -1744,36 +1775,34 @@ def option_variants(trainable_prefixes):
         return name.startswith(trainable_prefixes)
 
     return {
-        "local momentum 0.9": (dict(optimizer=optim.sgd(0.01, momentum=0.9)), True),
+        "local momentum 0.9": (dict(optimizer=optim.sgd(0.01, momentum=0.9)), True, 1),
         "local adam(1e-3, eps 1e-5)": (dict(optimizer=optim.adam(1e-3, eps=LOCAL_ADAM_EPS)),
-                                       True),
-        "local adam(1e-3, eps 1e-8)": (dict(optimizer=optim.adam(1e-3)), False),
-        "fedprox mu 0.1": (dict(regularizer=fedprox(0.1)), True),
+                                       True, 1),
+        "local adam(1e-3, eps 1e-8)": (dict(optimizer=optim.adam(1e-3)), False, 1),
+        "fedprox mu 0.1": (dict(regularizer=fedprox(0.1)), True, 1),
         "fedadam server adam(1e-2, eps 1e-3)": (
-            dict(server_optimizer=optim.adam(1e-2, eps=FEDADAM_TAU)), True),
-        "trainable " + "+".join(trainable_prefixes): (dict(trainable=trainable), True),
+            dict(server_optimizer=optim.adam(1e-2, eps=FEDADAM_TAU)), True, 1),
+        "trainable " + "+".join(trainable_prefixes): (dict(trainable=trainable), True, 1),
         "all together": (dict(optimizer=optim.sgd(0.01, momentum=0.9),
                               regularizer=fedprox(0.1),
                               server_optimizer=optim.adam(1e-2, eps=FEDADAM_TAU),
-                              trainable=trainable), True),
+                              trainable=trainable), True, 2),
     }
 
 
 def options_against_cpu(label, model, params, data, n_samples, perms, batch, lr,
                         trainable_prefixes, device="cuda"):
     """Every option of ``option_variants`` on ``device`` against the same
-    rounds on the CPU: two rounds where a server optimizer's state threads
-    from one to the next, one round for the options that keep nothing
-    across rounds."""
+    rounds on the CPU, as many as the option runs."""
     from baton_tpu_torch import FedSim
 
     errs = {}
-    for name, (kw, hold) in option_variants(trainable_prefixes).items():
+    for name, (kw, hold, n_rounds) in option_variants(trainable_prefixes).items():
         results = []
         for dev in (device, "cpu"):
             sim = FedSim(model, batch_size=batch, learning_rate=lr, device=dev, **kw)
             p, state = {k: v.to(dev) for k, v in params.items()}, None
-            for _ in range(2 if "server_optimizer" in kw else 1):
+            for _ in range(n_rounds):
                 res = sim.run_round(p, data, n_samples, n_epochs=perms.shape[1], perms=perms,
                                     server_opt_state=state)
                 p, state = res.params, res.server_opt_state
@@ -1791,7 +1820,7 @@ def options_parity_phase():
     from baton_tpu_torch.models.resnet import resnet_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
 
-    print("phase 10: the options, fp32, rounds of one epoch (two with a server optimizer), "
+    print("phase 10: the options, fp32, a round of one epoch (two rounds all together), "
           "card against the CPU (tol 1e-4)")
     cfg = BertConfig(vocab_size=30522, max_len=128, d_model=768, n_layers=2, n_heads=12,
                      d_ff=3072, n_classes=4)
@@ -2736,7 +2765,8 @@ SECURE_QUANTUM = 2.0 ** -16  # the fixed point of DEFAULT_SCALE_BITS = 16
 SECURE_TOL = SECURE_QUANTUM + HTTP_REPLAY_TOL  # a secure round against its fp32 replay
 RESUME_TOL = 1e-6  # config 1 stopped after 2 rounds and resumed, against 4 rounds in one go
 CONFIG1_FULL_ROUNDS = 1  # of the full preset's 20: the smoke's time limit
-BANDWIDTH_ROUNDS = 2  # phase 12 (a), before the restart: cut from 3 (PERF.md §4)
+CONFIG1_FULL_EPOCHS = 2  # of the full preset's 4 a round (cut from 4, PERF.md §4)
+BANDWIDTH_ROUNDS = 1  # phase 12 (a), before the restart: cut from 3, then 2 (PERF.md §4)
 
 
 def fold_of_compressed_uploads(bodies, anchor):
@@ -2809,9 +2839,9 @@ def resnet_workers_data(seed, sizes):
 
 def bandwidth_phase(fa):
     """Phase 12: phase 11's federation with the bandwidth options and a
-    manager restart. (a) 3 rounds: every worker uploads top-k (10%) int8
-    round deltas with error feedback, the manager broadcasts int8 weights
-    and checkpoints every round. (b) The manager stops; a new one on the
+    manager restart. (a) ``BANDWIDTH_ROUNDS`` rounds: every worker uploads
+    top-k (10%) int8 round deltas with error feedback, the manager
+    broadcasts int8 weights and checkpoints every round. (b) The manager stops; a new one on the
     same port and checkpoint directory, broadcasting top-k int8 deltas
     against the previous round's blob, runs 2 rounds with the same workers
     (they register again after a 401): the first pulls the full blob (no
@@ -3070,8 +3100,9 @@ def config1_phase(fa):
     cuDNN's deterministic algorithms for this phase); and the 4 rounds on
     the CPU (within 1e-4). Then the example's ``--scale full`` preset, 4 x
     15,000 samples and 4 epochs a round, cut from 20 rounds to
-    ``CONFIG1_FULL_ROUNDS``, timed apart from making its data, and held to
-    the example's own check (accuracy above 0.5)."""
+    ``CONFIG1_FULL_ROUNDS`` of ``CONFIG1_FULL_EPOCHS`` epochs, timed apart
+    from making its data, and held to the example's own check (accuracy
+    above 0.5)."""
     import tempfile
 
     from baton_tpu_torch.examples import cnn_mnist_fedavg as config1
@@ -3079,8 +3110,8 @@ def config1_phase(fa):
     print("phase 14: BASELINE config 1 (2-layer CNN, 4 clients of the synthetic MNIST "
           "fallback, SGD 0.01 momentum 0.9, batch 32); the tiny preset's gate (64 samples a "
           "client, 2 epochs, 4 rounds) with torch.backends.cudnn.deterministic = True, then "
-          f"the full preset (15,000 samples a client, 4 epochs) for {CONFIG1_FULL_ROUNDS} of "
-          "its 20 rounds")
+          f"the full preset (15,000 samples a client) for {CONFIG1_FULL_ROUNDS} of its 20 rounds "
+          f"of {CONFIG1_FULL_EPOCHS} of its 4 epochs")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -3117,7 +3148,7 @@ def config1_phase(fa):
     check(cpu_gap <= TOL[torch.float32] and loss_cpu_gap <= TOL[torch.float32],
           f"the card and the CPU differ by {cpu_gap:.3e} / {loss_cpu_gap:.3e}")
 
-    n_per_client, n_epochs = 15000, 4
+    n_per_client, n_epochs = 15000, CONFIG1_FULL_EPOCHS
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3254,10 +3285,14 @@ def variants_against_cpu(model, params, second, data, n_samples, batch, lr, perm
     run on the CPU: params and losses within 1e-4, the CPU run moved, the
     bookkeeping (clustered assignments, FedBuff's version and staleness)
     equal. ``shards``: the clients meshes (card, CPU) of phase 22c."""
+    t0 = time.perf_counter()
     card = variant_runs(model, params, second, data, n_samples, batch, lr, perms, device,
                         shards[0], buffer)
+    t1 = time.perf_counter()
     cpu = variant_runs(model, params, second, data, n_samples, batch, lr, perms, "cpu",
                        shards[1], buffer)
+    print(f"  the runs on {device} took {t1 - t0:.1f} s, on the CPU "
+          f"{time.perf_counter() - t1:.1f} s")
     gaps = {}
     for name, (got, losses) in card.items():
         want, want_losses = cpu[name]
@@ -3324,6 +3359,31 @@ def profiled(fn, label):
         out, dt = timed(fn)
     print(f"  {label} under the profiler:")
     return out, device_breakdown(prof, dt)
+
+
+def short_of(got, want) -> bool:
+    """Whether a profiler's count ``got`` (an int or ``{pass: n}``) is below
+    ``want`` and nowhere above it: what a dropped activity record gives."""
+    if isinstance(want, dict):
+        return (all(got.get(k, 0) <= n for k, n in want.items()) and set(got) <= set(want)
+                and got != want)
+    return got < want
+
+
+def observed(run, traced_of, want, label):
+    """``run()`` under the profiler, and once more if the flash launches it
+    saw (``traced_of`` of the result; None without a trace) fall short of
+    ``want``: the profiler's activity buffers may drop a record of the tens
+    of thousands a fused run makes, while the launches are the same in every
+    run. A second short count, or any count above ``want``, is left to the
+    caller's exact check. Returns the last result."""
+    out = run()
+    got = traced_of(out)
+    if got is not None and short_of(got, want):
+        print(f"  {label}: the profiler saw {got} flash launches, want {want}: a record "
+              "dropped; profiling the same run once more")
+        out = run()
+    return out
 
 
 def variants_phase(fa, phase3_peak_gb):
@@ -4519,13 +4579,18 @@ def fused_against_loop(fa, label, sim, params, data, n_samples, **kw):
     _, loop_prof = profiled(lambda: sim.run_rounds(params, data, n_samples, gen,
                                                    n_rounds=FUSED_ROUNDS, **kw),
                             f"{label} run_rounds")
-    _, fused_prof = profiled(lambda: sim.run_rounds_fused(params, data, n_samples, gen,
-                                                          n_rounds=FUSED_ROUNDS,
-                                                          donate_buffers=False, **kw),
-                             f"{label} run_rounds_fused")
     # the profiler sees the kernels a graph replays: its flash count must be
     # the eager round's plus the captured launches times the replays
-    traced = fused_prof and fused_prof["by_kind_count"].get("flash attention (this port)", 0)
+    def flash_seen(prof):
+        return prof and prof["by_kind_count"].get("flash attention (this port)", 0)
+
+    _, fused_prof = observed(
+        lambda: profiled(lambda: sim.run_rounds_fused(params, data, n_samples, gen,
+                                                      n_rounds=FUSED_ROUNDS,
+                                                      donate_buffers=False, **kw),
+                         f"{label} run_rounds_fused"),
+        lambda out: flash_seen(out[1]), sum(launched.values()), label)
+    traced = flash_seen(fused_prof)
     if traced is not None:
         check(traced == sum(launched.values()),
               f"{label}: the profiler saw {traced} flash launches in the fused run, the "
@@ -5041,7 +5106,7 @@ MESH_BAND = 5e-2  # the reference's cross-layout band (tests/test_mesh_equivalen
 MESH_GAP_SHARE = 1e-2
 MESH_TIMED_ROUNDS = 3  # (a): after a warm-up, each side
 CONFIG2 = dict(n_clients=128, n_total=50_000, alpha=0.5, batch_size=32, wave_size=32, lr=0.05)
-CONFIG2_ROUNDS = 2  # cut from the preset's 100 (PERF.md §4)
+CONFIG2_ROUNDS = 1  # cut from the preset's 100 to 2, then 1 (PERF.md §4)
 VARIANT_SHARDS = (2, 8)  # (c): shards of the card, of the CPU
 VARIANT_BUFFER = (8, 12)  # (c): FedBuff's buffer (a multiple of both) and concurrency
 PSUM_CHILD_TIMEOUT_S = 180  # (d): each child process
@@ -5230,9 +5295,10 @@ def config2_phase(fa):
     """Phase 22b: BASELINE config 2 at full width (example 02's ``--scale
     full``: ResNet-18, 128 Dirichlet(0.5) clients of 50,000 CIFAR-shaped
     images from the loader's synthetic fallback, batch 32, waves of 32,
-    bf16) on 4 shards of the card, 2 of its 100 rounds; then round 0
-    meshless on the same inputs, in waves of 8 (each the clients one shard
-    holds in a wave), against the mesh's round 0."""
+    bf16) on 4 shards of the card, ``CONFIG2_ROUNDS`` of its 100 rounds,
+    the loss after them evaluated below round 0's; then round 0 meshless
+    on the same inputs, in waves of 8 (each the clients one shard holds in
+    a wave), against the mesh's round 0."""
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.examples import resnet_cifar_dirichlet as ex02
     from baton_tpu_torch.ops.padding import stack_client_datasets
@@ -5273,11 +5339,14 @@ def config2_phase(fa):
               f"peak {rounds[-1]['peak_memory_gb']:.2f} GB, loss {rounds[-1]['loss']}")
         first = first or res
         p = res.params
+    ev, ev_s = timed(lambda: sim.evaluate_round(p, data, n_samples, wave_size=cfg["wave_size"]))
+    print(f"  evaluated after {CONFIG2_ROUNDS} round(s) in {ev_s:.3f} s: {ev}")
     by_pass, _ = launches_since(fa, before)
     check(not any(by_pass.values()), f"22b: ResNet-18 launched flash kernels {by_pass}")
     check(all(math.isfinite(x) for r in rounds for x in r["loss"])
-          and rounds[-1]["loss"][-1] < rounds[0]["loss"][0],
-          f"22b: the loss did not fall: {[r['loss'] for r in rounds]}")
+          and ev["loss"] < rounds[0]["loss"][0],
+          f"22b: the loss did not fall: rounds {[r['loss'] for r in rounds]}, then evaluated "
+          f"{ev['loss']}")
     check(all(torch.isfinite(v).all() for v in p.values()), "22b: non-finite params")
     plain = FedSim(model, batch_size=cfg["batch_size"], learning_rate=cfg["lr"])
     ref, ref_s = timed(lambda: plain.run_round(params, data, n_samples, round_generator(gen, 0),
@@ -5288,8 +5357,9 @@ def config2_phase(fa):
           f"({band['gap_over_change']:.3e} of the largest change), loss {loss_gap:.3e}")
     del data, sim, plain
     torch.cuda.empty_cache()
-    return {"rounds": rounds, "n_images": n_real, "capacity": capacity, "data_s": data_s,
-            "meshless_round0_s": ref_s, "band": band, "loss_gap": loss_gap}
+    return {"rounds": rounds, "eval": ev, "eval_s": ev_s, "n_images": n_real,
+            "capacity": capacity, "data_s": data_s, "meshless_round0_s": ref_s, "band": band,
+            "loss_gap": loss_gap}
 
 
 def mesh_variants_phase():
@@ -6205,6 +6275,10 @@ def fused_child(coordinator: str, rank: int, device: str, work: str) -> int:
             runs.append((result, time.perf_counter() - t0, launches_since(fa, before)))
         ((p_loop, h_loop), loop_s, _), ((p_fused, h_fused), fused_s, (launched, by_design)) = runs
         record = dict(sim.last_fused)
+        # the probe's defaults in a process group: its world size
+        defaults = sim.compute_probe.record_round(
+            key="smoke_defaults", signature=("26c", "defaults"), train_s=fused_s,
+            n_samples=float(n_samples.sum()))
         err = max((p_loop[k].float() - p_fused[k].float()).abs().max().item() for k in p_loop)
         torch.save({k: v.cpu() for k, v in p_fused.items()}, Path(work) / f"fused_rank{rank}.pt")
         # the round's sums all-reduced as one fp32 buffer: every param, the
@@ -6212,7 +6286,7 @@ def fused_child(coordinator: str, rank: int, device: str, work: str) -> int:
         n_sums = sum(v.numel() for v in params.values()) + 2
         out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
                "local_shards": [j for j, _ in mesh.local_shards()], "n_layers": cfg.n_layers,
-               "last_fused": record, "param_err": err,
+               "last_fused": record, "default_record": defaults, "param_err": err,
                "loss_err": max(abs(a - b) for a, b in zip(h_loop, h_fused)),
                "bit_equal": all(torch.equal(p_loop[k], p_fused[k]) for k in p_loop)
                and h_loop == h_fused, "losses": h_fused,
@@ -6231,11 +6305,12 @@ def fused_child(coordinator: str, rank: int, device: str, work: str) -> int:
             dist.destroy_process_group()
 
 
-def check_fused_processes(outs, params, reference, kernels=True) -> dict:
+def check_fused_processes(outs, params, reference, kernels=True, kind="cpu") -> dict:
     """Phase 26c's checks of its two children's lines and fused params:
-    each holds its 2 shards of the 4; its fused rounds within ``FUSED_TOL``
-    of ``run_rounds`` on the same two-process mesh (the DP case too); both
-    ranks' params equal and within 22a's band of 26a's one-process fused
+    each holds its 2 shards of the 4; ``record_round``'s defaults name
+    ``kind`` and count the group's 2 processes; its fused rounds within
+    ``FUSED_TOL`` of ``run_rounds`` on the same two-process mesh (the DP
+    case too); both ranks' params equal and within 22a's band of 26a's one-process fused
     params (``reference``). With ``kernels`` (on the card) each ran two
     captured pieces, replayed ``FUSED_ROUNDS - 1`` times, and launched each
     kernel 2 x 12 times a round, all on mma. Returns the band."""
@@ -6244,6 +6319,7 @@ def check_fused_processes(outs, params, reference, kernels=True) -> dict:
           f"26c: ranks, worlds or shards {[(o['rank'], o['local_shards']) for o in outs]}")
     for o in outs:
         record = o["last_fused"]
+        check_default_record(f"26c rank {o['rank']}", o["default_record"], kind, FUSED_PROCESSES)
         check(o["param_err"] <= FUSED_TOL and o["loss_err"] <= FUSED_TOL
               and o["dp"]["param_err"] <= FUSED_TOL and o["dp"]["loss_err"] <= FUSED_TOL,
               f"26c rank {o['rank']}: fused and run_rounds differ: params {o['param_err']:.3e}, "
@@ -6301,7 +6377,8 @@ def fused_processes_phase(fa, reference, device="cuda", vit=DP_VIT) -> dict:
         outs = [json.loads(out.strip().splitlines()[-1]) for out, _ in done]
         params = [torch.load(Path(work) / f"fused_rank{rank}.pt")
                   for rank in range(FUSED_PROCESSES)]
-    band = check_fused_processes(outs, params, reference, kernels=device == "cuda")
+    kind = torch.cuda.get_device_name() if device == "cuda" else "cpu"
+    band = check_fused_processes(outs, params, reference, kernels=device == "cuda", kind=kind)
     for o in outs:
         r = o["last_fused"]
         replays = r.get("replays") or 0
@@ -6312,7 +6389,10 @@ def fused_processes_phase(fa, reference, device="cuda", vit=DP_VIT) -> dict:
               f"{per('replay_a_s')}, piece B {per('replay_b_s')}; all-reduce host s a round "
               f"{[round(x, 4) for x in r.get('all_reduce_s', [])]} of "
               f"{o['all_reduce_bytes']:,} B; max |param diff| {o['param_err']:.3e}, losses "
-              f"{o['loss_err']:.3e} (tol {FUSED_TOL}), bit-equal {o['bit_equal']}; flash "
+              f"{o['loss_err']:.3e} (tol {FUSED_TOL}), bit-equal {o['bit_equal']}; "
+              f"record_round without device or n_chips: n_chips "
+              f"{o['default_record']['n_chips']} of world {o['world']}, "
+              f"{o['default_record']['device_kind']}; flash "
               f"launches a round {o['launches_per_round']}, in the fused run {o['by_design']}; "
               f"last_fused {r}")
         dp = o["dp"]
@@ -6493,8 +6573,11 @@ def donation_phase(fa) -> tuple:
     print(f"phase 27: buffer donation, run_rounds_fused(donate_buffers=True | False) on phase 3's "
           f"BERT-base cohort ({len(n_samples)} clients x 32, bf16) with FedAdam (adam 1e-2), "
           f"{DONATION_ROUNDS} rounds from identical clones; configure_torch_for_bench(): {setup}")
-    on = donation_run(fa, sim, params, sos, data, n_samples, True)
-    off = donation_run(fa, sim, params, sos, data, n_samples, False)
+    ran = {k: DONATION_ROUNDS * cfg.n_layers for k in PASSES}
+    on = observed(lambda: donation_run(fa, sim, params, sos, data, n_samples, True),
+                  lambda run: run["traced"], ran, "27 donation on")
+    off = observed(lambda: donation_run(fa, sim, params, sos, data, n_samples, False),
+                   lambda run: run["traced"], ran, "27 donation off")
     stats = check_donation(on, off, params, sos, cfg.n_layers)
     # the kernels line takes the launches the profiler saw the donation-on
     # run make; without a trace, only the eager round's and the capture's

@@ -11,7 +11,9 @@ parent; the data made here from a seed, one batch a client) runs
 ``make_hybrid_mesh([], dcn_axis="clients")``, a clients axis of 8 across
 both processes (the LoRA case on ``make_hybrid_mesh([("model", 2)],
 dcn_axis="clients")``: clients 4 x model 2), and both results go to
-``out.pt``, the frozen leaves gathered. Prints one JSON line; the process
+``out.pt``, the frozen leaves gathered. Last, a compute record from
+``ComputeProbe.record_round`` with neither ``device`` nor ``n_chips``,
+which counts the group's processes. Prints one JSON line; the process
 group is destroyed on every exit. The parent imports :func:`cohort` and
 :func:`mesh_of` to run the same cases in one process."""
 
@@ -27,6 +29,7 @@ from baton_tpu_torch.core import optim
 from baton_tpu_torch.core.regularizers import fedprox
 from baton_tpu_torch.models.linear import linear_regression_model
 from baton_tpu_torch.models.mlp import mlp_classifier_model
+from baton_tpu_torch.obs.compute import ComputeProbe
 from baton_tpu_torch.ops import aggregation as agg
 from baton_tpu_torch.ops.padding import stack_client_datasets
 from baton_tpu_torch.ops.privacy import DPConfig
@@ -132,9 +135,11 @@ def main() -> None:
         params = torch.load(params_path)
         results = {case: both_runs(case, params[case], CPU4) for case in CASES}
         torch.save(results, out_path)
+        record = ComputeProbe("linear").record_round(key="defaults", signature=(rank,),
+                                                     train_s=0.5, n_samples=8)
         print(json.dumps({"rank": rank, "world": dist.get_world_size(), "split_psum": split_ok,
                           "last_fused": {c: r["last_fused"] for c, r in results.items()},
-                          "ok": True}), flush=True)
+                          "default_record": record, "ok": True}), flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

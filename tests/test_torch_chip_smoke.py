@@ -516,6 +516,20 @@ def test_options_against_cpu_at_a_tiny_size():
     assert all(e == 0.0 for e in errs.values())
 
 
+def test_option_variants_thread_a_server_state_all_together():
+    """Phase 10 runs each option alone for one round and all of them at
+    once for two, so a server optimizer's state still threads from one
+    round to the next on the card; every option stands alone and in the
+    combination, whose gap is held."""
+    variants = chip_smoke.option_variants(("pooler/", "head/"))
+    rounds = {name: n for name, (_, _, n) in variants.items()}
+    assert rounds.pop("all together") == 2 and set(rounds.values()) == {1}
+    together, hold, _ = variants["all together"]
+    assert hold and {"optimizer", "regularizer", "server_optimizer", "trainable"} == set(together)
+    alone = {key for name, (kw, _, _) in variants.items() if name != "all together" for key in kw}
+    assert alone == set(together)
+
+
 @pytest.mark.parametrize("gap", [5e-5, 2e-4])
 def test_compare_rounds_holds_the_tolerance(gap):
     """The card-against-CPU comparator passes a gap within 1e-4 and fails
@@ -851,6 +865,39 @@ def _config4_record(flops_per_sample, train_s=8.4, family=chip_smoke.LLAMA_FAMIL
 H100 = "NVIDIA H100 80GB HBM3"
 
 
+@pytest.mark.parametrize("fault", [None, "cpu", "another_card", "chips", "no_peak", "null"])
+def test_default_record_check(fault):
+    """The check of phases 3 and 26c on ``record_round``'s defaults passes
+    the card's record (its name, the run's cards, the allocator's peak) and
+    the CPU's (null peak with a reason), and fails another device, another
+    count, a card's record without the allocator's peak and a null
+    without its reason."""
+    from baton_tpu_torch.obs import compute
+
+    kind, chips = (("cpu", 2) if fault == "cpu" else (H100, 1))
+    card = kind != "cpu"
+    rec = compute.build_record(train_s=0.5, n_samples=8, device_kind=kind, n_chips=chips,
+                               peak_hbm_gb=1.5 if card else None,
+                               peak_hbm_source=chip_smoke.PEAK_SOURCE if card else None,
+                               peak_hbm_reason=None if card else "no allocator statistics")
+    if fault in (None, "cpu"):
+        assert chip_smoke.check_default_record("t", rec, kind, chips) == {
+            "device_kind": kind, "n_chips": chips,
+            "peak_hbm_gb_source": chip_smoke.PEAK_SOURCE if card else None}
+        return
+    if fault == "another_card":
+        rec["device_kind"] = "NVIDIA H100 PCIe"
+    elif fault == "chips":
+        rec["n_chips"] = 8
+    elif fault == "no_peak":
+        rec.update(peak_hbm_gb=None, peak_hbm_gb_reason="none")
+        del rec["peak_hbm_gb_source"]
+    elif fault == "null":
+        rec["mfu"], rec["mfu_reason"] = None, None
+    with pytest.raises(RuntimeError, match="record_round's defaults"):
+        chip_smoke.check_default_record("t", rec, H100, 1)
+
+
 def test_config4_record_mfu_checks():
     """16a's checks: a registered round's record carries 4·P·tokens over its
     train_s within 1e-3; an unregistered one is null with its reasons."""
@@ -883,6 +930,26 @@ def test_event_totals_sum_the_raw_events_as_key_averages_does():
         assert want[name][0] == count and want[name][1] == pytest.approx(us, rel=1e-6), name
     assert chip_smoke.event_totals(prof) == {}  # no device events on the CPU
     assert y.shape == (32, 32)
+
+
+@pytest.mark.parametrize("seen,want,runs", [
+    ([767, 768], 768, 2),  # one record dropped: profiled once more, which sees them all
+    ([767, 767], 768, 2),  # short twice: the second count is the caller's to fail
+    ([769], 768, 1),  # above the count: never profiled again
+    ([768], 768, 1),
+    ([None], 768, 1),  # no trace
+    ([{"fwd": 12, "bwd_dkv": 11, "bwd_dq": 12}, {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}],
+     {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}, 2),
+    ([{"fwd": 13, "bwd_dkv": 11, "bwd_dq": 12}], {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12}, 1),
+])
+def test_observed_profiles_again_only_when_the_profiler_falls_short(capsys, seen, want, runs):
+    """``observed`` repeats a profiled run once when the profiler saw fewer
+    flash launches than the count, and otherwise returns the first run: the
+    exact check after it sees the last count."""
+    counts = iter(seen)
+    out = chip_smoke.observed(lambda: next(counts), lambda got: got, want, "case")
+    assert out == seen[runs - 1] and next(counts, "done") == "done"
+    assert ("once more" in capsys.readouterr().out) == (runs == 2)
 
 
 @pytest.mark.parametrize("flash_ms,crossover", [((9.0, 1.5, 1.0), 256), ((9.0, 9.0, 9.0), None),
@@ -1804,6 +1871,9 @@ def test_fused_processes_on_the_cpu(fused_processes_on_the_cpu):
     assert [o["local_shards"] for o in out["ranks"]] == [[0, 1], [2, 3]]
     for o in out["ranks"]:
         assert o["bit_equal"] and o["dp"]["bit_equal"] and o["backend"] == "gloo"
+        # record_round's defaults in a group of 2 CPU processes
+        assert o["default_record"]["n_chips"] == o["world"] == 2
+        assert o["default_record"]["device_kind"] == "cpu"
         assert o["last_fused"] == {"graph": False, "rounds": chip_smoke.FUSED_ROUNDS}
         assert o["all_reduce_bytes"] == 4 * (sum(v.numel() for v in
                                                  fused_processes_on_the_cpu[0]["start"].values())
@@ -1822,16 +1892,19 @@ def _fused_card_lines(outs):
         o["dp"]["last_fused"] = {"graph": True, "rounds": 3, "replays": 2, "pieces": 2}
         o["launches_per_round"] = {k: 2 * o["n_layers"] for k in COUNTS}
         o["by_design"] = {f"{k}_mma": 4 * o["n_layers"] for k in COUNTS}
+        o["default_record"].update(device_kind=H100, peak_hbm_gb=0.5,
+                                   peak_hbm_gb_source=chip_smoke.PEAK_SOURCE)
+        del o["default_record"]["peak_hbm_gb_reason"]
     return outs
 
 
 @pytest.mark.parametrize("fault", [None, "one_piece", "launches", "dp_gap", "ranks_differ",
-                                   "outside_band"])
+                                   "outside_band", "one_chip"])
 def test_fused_processes_check(fused_processes_on_the_cpu, fault):
     """Phase 26c's check passes the children's lines as the card's would
     read and fails a run of one piece, a rank that launched another count,
-    a DP gap over the tolerance, ranks whose params differ and params
-    outside 22a's band of 26a's."""
+    a DP gap over the tolerance, ranks whose params differ, params outside
+    22a's band of 26a's and a default record that counts one chip."""
     reference, out = fused_processes_on_the_cpu
     outs = _fused_card_lines(out["ranks"])
     params = [dict(reference["fused"]) for _ in range(2)]
@@ -1846,11 +1919,13 @@ def test_fused_processes_check(fused_processes_on_the_cpu, fault):
         params[1][name] = params[1][name] + 1e-6
     elif fault == "outside_band":
         params = [{k: v + 1.0 for k, v in p.items()} for p in params]
+    elif fault == "one_chip":
+        outs[0]["default_record"]["n_chips"] = 1
     if fault is None:
-        assert chip_smoke.check_fused_processes(outs, params, reference)["inside"]
+        assert chip_smoke.check_fused_processes(outs, params, reference, kind=H100)["inside"]
     else:
         with pytest.raises(RuntimeError, match="26c"):
-            chip_smoke.check_fused_processes(outs, params, reference)
+            chip_smoke.check_fused_processes(outs, params, reference, kind=H100)
 
 
 # ---------------------------------------------------------------------------

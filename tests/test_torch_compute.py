@@ -271,3 +271,101 @@ def test_fedsim_records_the_flops_of_a_registered_family(fresh_registries):
     assert rec["model_family"] == "linear_test" and rec["flops_per_sample"] == 24.0
     assert rec["mfu"] is None and "cpu" in rec["mfu_reason"]
     assert math.isfinite(rec["samples_per_sec"])
+
+
+# Fields each side reads from its own run: the device it names, the chips it
+# counts and the allocator it asks. The per-chip rate and the MFU divide by
+# that side's ``n_chips`` and are checked against it.
+_OWN_RUN = {"n_chips", "device_kind", "peak_hbm_gb", "peak_hbm_gb_source", "peak_hbm_gb_reason",
+            "samples_per_sec_per_chip", "mfu", "mfu_reason"}
+
+
+class _TPU:
+    """A JAX device with a peak in the reference's table and no allocator."""
+    device_kind = "TPU v5 lite"
+    platform = "tpu"
+
+    def memory_stats(self):
+        return None
+
+
+def _default_records(monkeypatch, kinds):
+    """The same round through both probes with neither ``device`` nor
+    ``n_chips`` given; ``kinds`` "card" names an H100 in the port and a
+    TPU in the reference, so both MFUs are measured."""
+    if kinds == "card":
+        monkeypatch.setattr(compute, "device_kind_of", lambda device: H100_SXM)
+        monkeypatch.setattr(jcompute.ComputeProbe, "_device", staticmethod(lambda: _TPU()))
+    kw = dict(key="run_round", signature=("defaults",), train_s=0.37, n_samples=96, n_epochs=2,
+              steps=6)
+    probe = compute.ComputeProbe("resnet18_cifar")
+    ref = jcompute.ComputeProbe("resnet18_cifar")
+    return probe, probe.record_round(**kw), ref.record_round(**kw), kw
+
+
+def _divides_by_its_own_chips(mod, rec, kw):
+    sps = kw["n_samples"] * kw["n_epochs"] / kw["train_s"]
+    assert rec["samples_per_sec"] == round(sps, 3)
+    assert rec["samples_per_sec_per_chip"] == round(sps / rec["n_chips"], 3)
+    peak, _ = mod.peak_flops_for(rec["device_kind"])
+    if peak is None:
+        assert rec["mfu"] is None and rec["mfu_reason"]
+    else:
+        assert rec["mfu"] == round(sps / rec["n_chips"] * rec["flops_per_sample"] / peak, 6)
+
+
+@pytest.mark.parametrize("kinds", ["cpu", "card"])
+def test_record_round_defaults_follow_each_packages_rule(monkeypatch, kinds):
+    """``record_round`` with neither ``device`` nor ``n_chips``: the port
+    names this process's device and counts 1 chip without a process group;
+    the reference counts ``jax.device_count()`` (8 forced CPU devices here).
+    Every other field agrees, and each side's per-chip rate and MFU divide
+    by the ``n_chips`` it reports."""
+    import jax
+
+    _, rec, want, kw = _default_records(monkeypatch, kinds)
+    assert compute.validate_record(rec) == []
+    assert rec["n_chips"] == 1
+    assert want["n_chips"] == jax.device_count()
+    assert rec["device_kind"] == (H100_SXM if kinds == "card" else "cpu")
+    assert rec["peak_hbm_gb"] is None and "cpu" in rec["peak_hbm_gb_reason"]
+    assert set(rec) - _OWN_RUN == set(want) - _OWN_RUN
+    for key in set(rec) - _OWN_RUN:
+        assert rec[key] == want[key], key
+    _divides_by_its_own_chips(compute, rec, kw)
+    _divides_by_its_own_chips(jcompute, want, kw)
+    if kinds == "card":
+        assert rec["mfu"] is not None and want["mfu"] is not None
+
+
+def test_record_round_counts_the_process_groups_world_size(monkeypatch):
+    """In a process group the default ``n_chips`` is its world size, read
+    once a probe as the reference caches ``jax.device_count()``."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    probe, rec, want, kw = _default_records(monkeypatch, "cpu")
+    assert compute.validate_record(rec) == []
+    assert rec["n_chips"] == 2 and rec["device_kind"] == "cpu"
+    for key in set(rec) - _OWN_RUN:
+        assert rec[key] == want[key], key
+    _divides_by_its_own_chips(compute, rec, kw)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    kw["signature"] = ("again",)
+    assert probe.record_round(**kw)["n_chips"] == 2
+    assert compute.ComputeProbe().record_round(**kw)["n_chips"] == 4
+
+
+def test_explicit_device_and_chips_win_over_the_defaults(monkeypatch):
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    probe = compute.ComputeProbe("resnet18_cifar")
+    rec = probe.record_round(key="k", signature=1, train_s=0.5, n_samples=9,
+                             device=torch.device("cpu"), n_chips=3)
+    assert compute.validate_record(rec) == []
+    assert rec["n_chips"] == 3 and rec["device_kind"] == "cpu"
+    assert rec["samples_per_sec_per_chip"] == round(9 / 0.5 / 3, 3)
+    assert probe.record_round(key="k", signature=1, train_s=0.5, n_samples=9)["n_chips"] == 2

@@ -185,6 +185,20 @@ def test_split_psum_across_two_processes(runs):
     assert all(o["ok"] and o["world"] == 2 and o["split_psum"] for o in lines)
 
 
+def test_record_round_defaults_count_the_process_group(runs):
+    """``record_round`` with neither ``device`` nor ``n_chips`` in each of
+    the two gloo processes: the CPU, and the group's world size as the
+    run's count, which the per-chip rate divides by."""
+    from baton_tpu_torch.obs.compute import validate_record
+
+    for line in runs["lines"]:
+        rec = line["default_record"]
+        assert validate_record(rec) == []
+        assert rec["n_chips"] == line["world"] == 2 and rec["device_kind"] == "cpu"
+        assert rec["samples_per_sec_per_chip"] == round(8 / 0.5 / 2, 3)
+        assert rec["peak_hbm_gb"] is None and rec["peak_hbm_gb_reason"]
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_fused_rounds_across_processes_equal_run_rounds(runs, case):
     for line, res in zip(runs["lines"], runs["ranks"]):

@@ -12,7 +12,9 @@ smoke test has no CPU fallback. And the port is complete name by name:
 every public name of every module of the JAX package, each public method
 of its public classes and each parameter of those functions has its
 counterpart in the same module of the port, or stands in ``EXEMPT`` with
-its reason (both packages read with ``ast``, neither imported)."""
+its reason, and each parameter both have takes the same default, or
+stands in ``DEFAULTS_DIFFER`` with its reason (both packages read with
+``ast``, neither imported)."""
 
 import ast
 import asyncio
@@ -223,7 +225,7 @@ def test_http_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize("kw", [{"secure_agg": True}, {"broadcast_quantize_bits": 8},
                                 {"broadcast_delta": "q8"}, {"checkpoint_dir": "ckpt"}],
                          ids=lambda kw: next(iter(kw)))
-def test_unported_manager_options_are_refused(kw, tmp_path):
+def test_manager_options_build_an_experiment_on_the_cpu(kw, tmp_path):
     """Refused until the second ring was ported; each option now builds an
     experiment on the CPU."""
     if "checkpoint_dir" in kw:
@@ -249,7 +251,7 @@ def test_incompatible_manager_options_raise_value_errors(kw):
         _in_loop(lambda: _experiment(device="cpu", **kw))
 
 
-def test_unported_worker_options_are_refused():
+def test_worker_compress_option_builds_its_compressor():
     """Refused until the second ring was ported; ``compress=`` now builds
     a worker with its error-feedback compressor."""
     worker = _in_loop(lambda: _worker(device="cpu", compress="topk:0.05"))
@@ -275,7 +277,7 @@ def test_unported_demo_flags_are_refused_with_the_usage(flags, capsys):
     assert "python -m baton_tpu_torch.demo" in capsys.readouterr().err
 
 
-def test_unported_options_are_refused():
+def test_every_fedsim_option_runs_on_the_cpu():
     """No option is refused now: a hybrid clients x model mesh, a clients
     mesh, ``dp=``, ``auto_wave_size``, ``wave_size="auto"`` and
     ``run_rounds_fused`` run on the CPU."""
@@ -363,7 +365,7 @@ def _not_implemented_messages(path):
                            if isinstance(c, ast.Constant) and isinstance(c.value, str))
 
 
-def test_the_only_refusal_left_is_a_mesh_with_a_model_axis():
+def test_no_refusal_names_a_slice_or_an_unported_option():
     """No ``NotImplementedError`` in the port names a next slice, ROADMAP or
     an option as not ported; the refusals left are JAX's own (the robust
     aggregators on a hybrid mesh among them)."""
@@ -377,7 +379,7 @@ def test_the_only_refusal_left_is_a_mesh_with_a_model_axis():
             assert name not in m, m
 
 
-def test_a_mesh_is_refused_naming_its_roadmap_item():
+def test_both_meshes_run_a_round_and_a_hybrid_one_refuses_a_robust_aggregator():
     """A clients mesh and a hybrid clients x model mesh both run a round;
     on the hybrid mesh a robust aggregator is refused with JAX's reason."""
     data = {"x": torch.ones(4, 2, 10), "y": torch.zeros(4, 2)}
@@ -553,12 +555,24 @@ def _module_level(stmts):
             yield node
 
 
-def module_surface(path, public_only: bool) -> dict:
-    """``{name: parameters}`` of a module: its functions, classes, each
-    class's methods (``Class.method``) and annotated fields, its assigned
-    names, and the names it imports (only an ``__init__.py``'s are public
-    re-exports). ``public_only`` keeps the names without a leading
-    underscore, and ``__init__``."""
+def _defaults(fn) -> dict:
+    """``{parameter: its default's source text, or None if required}``;
+    ``jnp.`` reads as ``torch.``, so the dtypes of both packages compare."""
+    a = fn.args
+    positional = a.posonlyargs + a.args
+    pairs = list(zip(positional, [None] * (len(positional) - len(a.defaults)) + a.defaults))
+    pairs += list(zip(a.kwonlyargs, a.kw_defaults))
+    return {x.arg: None if d is None else re.sub(r"\bjnp\.", "torch.", ast.unparse(d))
+            for x, d in pairs if x.arg not in ("self", "cls")}
+
+
+def module_surface(path, public_only: bool, of=_params) -> dict:
+    """``{name: of(function) or set()}`` of a module: its functions,
+    classes, each class's methods (``Class.method``) and annotated fields,
+    its assigned names, and the names it imports (only an
+    ``__init__.py``'s are public re-exports). ``of`` is what is kept of a
+    function (its parameters by default); ``public_only`` keeps the names
+    without a leading underscore, and ``__init__``."""
     def wanted(name):
         return not public_only or all(not part.startswith("_") or part == "__init__"
                                       for part in name.split("."))
@@ -566,12 +580,12 @@ def module_surface(path, public_only: bool) -> dict:
     out = {}
     for node in _module_level(ast.parse(path.read_text(), filename=str(path)).body):
         if isinstance(node, FUNCTIONS):
-            out[node.name] = _params(node)
+            out[node.name] = of(node)
         elif isinstance(node, ast.ClassDef):
             out[node.name] = set()
             for sub in node.body:
                 if isinstance(sub, FUNCTIONS):
-                    out[f"{node.name}.{sub.name}"] = _params(sub)
+                    out[f"{node.name}.{sub.name}"] = of(sub)
                 elif isinstance(sub, ast.AnnAssign) and isinstance(sub.target, ast.Name):
                     out[f"{node.name}.{sub.target.id}"] = set()
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
@@ -601,6 +615,38 @@ def parity_gaps(ref_package, port_package, module: str) -> set:
     return gaps
 
 
+def default_gaps(ref_package, port_package, module: str) -> set:
+    """``(module, name, parameter)`` for each parameter of a function or
+    method that both packages' ``module`` have whose defaults differ: a
+    default changed, dropped, or given by the port alone."""
+    port = port_package / module
+    if not port.exists():
+        return set()
+    want = module_surface(ref_package / module, public_only=True, of=_defaults)
+    have = module_surface(port, public_only=False, of=_defaults)
+    gaps = set()
+    for name, defaults in want.items():
+        theirs = have.get(name) or {}
+        gaps |= {(module, name, p) for p in set(defaults or {}) & set(theirs)
+                 if defaults[p] != theirs[p]}
+    return gaps
+
+
+GENERATOR_FIRST = ("required in the JAX package; the port's generator stands before it, so the "
+                   "count takes a default: every call the reference accepts runs")
+
+# (module of baton_tpu, name, parameter) -> why the port's default differs
+DEFAULTS_DIFFER = {
+    ("core/partition.py", "ParamPartition.__init__", "paths"):
+        "the reference defaults it to (); the port has no treedef (EXEMPT), so the paths are "
+        "its only key and required",
+    ("core/training.py", "LocalTrainer.train", "n_epochs"): GENERATOR_FIRST,
+    ("core/training.py", "LocalTrainer.train_with_opt_state", "n_epochs"): GENERATOR_FIRST,
+    ("parallel/engine.py", "FedSim.run_rounds", "n_rounds"): GENERATOR_FIRST,
+    ("parallel/fedbuff.py", "FedBuff.run", "n_steps"): GENERATOR_FIRST,
+}
+
+
 REF_MODULES = sorted(p.relative_to(REF_PACKAGE).as_posix() for p in REF_PACKAGE.rglob("*.py"))
 
 
@@ -620,6 +666,29 @@ def test_every_exemption_has_a_reason_and_is_still_missing():
         assert entry[0] in REF_MODULES, entry
         assert entry in gaps, (f"{entry} is not a gap of the port: ported (take it out of "
                                "EXEMPT), or its whole name is missing")
+        assert isinstance(reason, str) and reason.strip() and "\n" not in reason, entry
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_default_of_the_jax_package_is_the_ports(module):
+    """Each parameter that a function or method of ``baton_tpu/<module>``
+    and its port both have takes the same default on both sides (the
+    dtype's module mapped), or stands in ``DEFAULTS_DIFFER`` with its
+    reason: a default the reference gives is never dropped or changed
+    silently, and the port gives a default the reference lacks only where
+    the table says why."""
+    differ = default_gaps(REF_PACKAGE, PORT_PACKAGE, module) - set(DEFAULTS_DIFFER)
+    assert not differ, f"defaults differ and not in DEFAULTS_DIFFER: {sorted(differ, key=str)}"
+
+
+def test_every_defaults_difference_has_a_reason_and_still_stands():
+    """No stale entry: each entry's defaults still differ (so its name and
+    parameter are on both sides), and its reason is one line."""
+    gaps = set().union(*(default_gaps(REF_PACKAGE, PORT_PACKAGE, m) for m in REF_MODULES))
+    for entry, reason in DEFAULTS_DIFFER.items():
+        assert entry[0] in REF_MODULES, entry
+        assert entry in gaps, (f"{entry}: the defaults agree now, or the name is gone: take "
+                               "it out of DEFAULTS_DIFFER")
         assert isinstance(reason, str) and reason.strip() and "\n" not in reason, entry
 
 
@@ -665,3 +734,17 @@ def test_the_parity_guard_catches_a_missing_module_name_method_and_parameter(tmp
     assert gaps == {("__init__.py", "C", None), ("sub/a.py", "f", "rng"),
                     ("sub/a.py", "C.n", None), ("sub/a.py", "C.__init__", "family"),
                     ("sub/a.py", "C.run", None), ("sub/b.py", None, None)}
+    assert not set().union(*(default_gaps(ref, port, m) for m in ("sub/a.py", "sub/b.py")))
+    # the defaults guard: a changed default, a dropped one, one the port
+    # alone gives; a dtype's module and a default under an ``if`` compare
+    (ref / "sub" / "a.py").write_text(
+        "import jax.numpy as jnp\n\ndef f(x, rng, *, scale=1.0, dtype=jnp.float32):\n"
+        "    pass\n\nclass C:\n    def __init__(self, model=None, family=None):\n"
+        "        pass\n\n    def run(self, a, n):\n        pass\n")
+    (port / "sub" / "a.py").write_text(
+        "import torch\n\nif True:\n    def f(x, *, scale=2.0, dtype=torch.float32):\n"
+        "        pass\n\nclass C:\n    def __init__(self, model, family=None):\n"
+        "        pass\n\n    def run(self, a, n=1):\n        pass\n")
+    assert default_gaps(ref, port, "sub/a.py") == {
+        ("sub/a.py", "f", "scale"), ("sub/a.py", "C.__init__", "model"),
+        ("sub/a.py", "C.run", "n")}
