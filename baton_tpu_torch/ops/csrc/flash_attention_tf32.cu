@@ -105,16 +105,6 @@ constexpr int NT = 128;    // four warps, 16 tile rows each
 constexpr int PAD = 4;     // fp32 padding per shared-memory row (16 bytes)
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
 // rows [row0, row0 + TILE) of a row-major [L, D] fp32 matrix into a shared
 // tile of row stride D + PAD, 16 bytes a copy; rows past L are zero-filled
 template <int D>

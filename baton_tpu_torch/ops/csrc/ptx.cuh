@@ -1,6 +1,9 @@
 // The few PTX instructions the tensor-core flash kernels are built from
-// (flash_attention_mma.cu, flash_attention_tf32.cu), each behind a small
-// device function: 16- and 4-byte asynchronous copies into shared memory
+// (flash_attention_mma.cu, flash_attention_tf32.cu; flash_attention_wgmma.cu
+// takes the shared-memory address and the fragment helpers, and keeps its
+// Hopper instructions to itself), each behind a small device function: the
+// bf16 packing and quad reductions of the fragments, 16- and 4-byte
+// asynchronous copies into shared memory
 // (cp.async, zero-filling when the source is out of range), ldmatrix of
 // four 8 x 8 bf16 tiles (plain and transposed), the warp-wide bf16 product
 // mma.sync.m16n8k16 with fp32 accumulators, and fp32 products in 3xTF32
@@ -16,10 +19,30 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include <cstdint>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two floats rounded to bf16 (round to nearest even) in one register, the
+// first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// max / sum over the four lanes of a quad (the lanes that share a row of an
+// accumulator fragment)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // 16 bytes from src to shared memory, or 16 zero bytes when !ok

@@ -2,26 +2,32 @@
 each beside a plain PyTorch version of the same function (counterpart of
 ``baton_tpu/ops/flash_attention.py``).
 
-Two designs, chosen by dtype (``_design``), not as a fallback:
+Three designs, chosen by dtype and pass (``_design``), not as a fallback:
 
+- ``wgmma`` (``csrc/flash_attention_wgmma.cu``): Hopper's design, for the
+  bf16 forward and dkv. Tiles land in shared memory by TMA under
+  ``mbarrier`` stages kept full by one producer thread; two consumer
+  warpgroups run the products as ``wgmma`` (ping-ponged, so one's softmax
+  overlaps the other's products), with p and ds fed back from registers.
+  Persistent: one block an SM walks its share of the work items.
 - ``mma`` (``csrc/flash_attention_mma.cu``): bf16 tiles in shared memory
   filled by ``cp.async``, products on the tensor cores (``mma.sync``).
-  Every bf16 pass.
+  The bf16 dq.
 - ``tf32x3`` (``csrc/flash_attention_tf32.cu``): fp32 tiles by
   ``cp.async``, every product on the TF32 tensor cores in three parts
   (each operand split into two TF32 values; fp32 accuracy). Every fp32
   pass: the forward and both passes of the backward.
 
-=================  ==================================  ===========================
-wrapper            CUDA kernel (design)                TPU kernel it replaces
-=================  ==================================  ===========================
-``_fwd``           ``fwd_mma_kernel`` (mma, bf16)      ``_fwd_kernel`` (:65-131)
+=================  ====================================  ===========================
+wrapper            CUDA kernel (design)                  TPU kernel it replaces
+=================  ====================================  ===========================
+``_fwd``           ``fwd_wgmma_kernel`` (wgmma, bf16)    ``_fwd_kernel`` (:65-131)
                    ``fwd_tf32x3_kernel`` (tf32x3, fp32)
-``_bwd_dkv``       ``dkv_mma_kernel`` (mma, bf16)      ``_bwd_dkv_kernel`` (:203-250)
+``_bwd_dkv``       ``dkv_wgmma_kernel`` (wgmma, bf16)    ``_bwd_dkv_kernel`` (:203-250)
                    ``dkv_tf32x3_kernel`` (tf32x3, fp32)
-``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)       ``_bwd_dq_kernel`` (:253-290)
+``_bwd_dq``        ``dq_mma_kernel`` (mma, bf16)         ``_bwd_dq_kernel`` (:253-290)
                    ``dq_tf32x3_kernel`` (tf32x3, fp32)
-=================  ==================================  ===========================
+=================  ====================================  ===========================
 
 ``flash_block_fwd`` and ``flash_block_bwd`` expose one k/v block's
 passes (out with its lse; the gradients against a global out and lse)
@@ -67,22 +73,22 @@ import torch
 NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("flash_attention_mma.cu", "flash_attention_tf32.cu")
+_SOURCES = ("flash_attention_mma.cu", "flash_attention_wgmma.cu", "flash_attention_tf32.cu")
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches on CUDA tensors, by pass and design ("<pass>_<design>");
 # chip_smoke.py resets them before the path it counts
-launches_by_design = {"fwd_mma": 0, "fwd_tf32x3": 0, "bwd_dkv_mma": 0, "bwd_dkv_tf32x3": 0,
-                      "bwd_dq_mma": 0, "bwd_dq_tf32x3": 0}
+launches_by_design = {"fwd_wgmma": 0, "fwd_tf32x3": 0, "bwd_dkv_wgmma": 0,
+                      "bwd_dkv_tf32x3": 0, "bwd_dq_mma": 0, "bwd_dq_tf32x3": 0}
 
 # the C entry points and their ctypes argument types: a pointer (tensors,
 # the stream) is c_void_p, an int c_int, a float c_float
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "flash_fwd_mma": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dkv_mma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "flash_fwd_wgmma": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dkv_wgmma": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_fwd_tf32x3": [_I] + [_P] * 6 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_tf32x3": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
     "flash_bwd_dq_mma": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -166,8 +172,9 @@ def _on_cpu(*xs) -> bool:
 
 def _design(dtype: torch.dtype, d: int, pass_: str) -> str:
     """The kernel design for a dtype, head dim and pass (``"fwd"``,
-    ``"bwd_dkv"``, ``"bwd_dq"``): ``"mma"`` (bf16 tensor cores) for every
-    bf16 pass, ``"tf32x3"`` (TF32 tensor cores, three products) for every
+    ``"bwd_dkv"``, ``"bwd_dq"``): ``"wgmma"`` (Hopper's warpgroup products
+    fed by TMA) for the bf16 forward and dkv, ``"mma"`` (``mma.sync``) for
+    the bf16 dq, ``"tf32x3"`` (TF32 tensor cores, three products) for every
     fp32 pass. Raises for anything else."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take fp32 or bf16, got {dtype}")
@@ -175,7 +182,9 @@ def _design(dtype: torch.dtype, d: int, pass_: str) -> str:
         raise ValueError(f"flash kernels take head dim 64 or 128, got {d}")
     if pass_ not in ("fwd", "bwd_dkv", "bwd_dq"):
         raise ValueError(f"no flash pass {pass_!r}")
-    return "mma" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "mma" if pass_ == "bwd_dq" else "wgmma"
 
 
 def _kernel_args(q, k, v, pass_):
@@ -190,7 +199,8 @@ def _kernel_args(q, k, v, pass_):
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (the mma and tf32x3 kernels
-    copy rows in 16-byte pieces); a view at an odd offset is copied."""
+    copy rows in 16-byte pieces, and TMA reads only 16-byte aligned
+    tensors); a view at an odd offset is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -270,7 +280,7 @@ def _fwd(q, k, v, bias2d, causal, scale):
         return _fwd_plain(q, k, v, bias2d, causal, scale)
     design, d = _kernel_args(q, k, v, "fwd")
     q, k, v = _dense(q), _dense(k), _dense(v)
-    bias2d = bias2d.float().contiguous()
+    bias2d = _dense(bias2d.float())
     b, hq, lq, _ = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -284,11 +294,12 @@ def _fwd(q, k, v, bias2d, causal, scale):
 
 def _bwd_inputs(q, k, v, bias2d, dout, lse, delta):
     """The backward kernels' inputs as they read them: q, k, v, dout
-    contiguous and aligned in one dtype; bias, lse, delta contiguous fp32."""
+    contiguous and aligned in one dtype; bias, lse, delta contiguous and
+    aligned fp32."""
     if dout.dtype != q.dtype:
         raise TypeError("dout must have q's dtype")
-    return ([_dense(t) for t in (q, k, v)] + [bias2d.float().contiguous()]
-            + [_dense(dout)] + [t.float().contiguous() for t in (lse, delta)])
+    return ([_dense(t) for t in (q, k, v)] + [_dense(bias2d.float())]
+            + [_dense(dout)] + [_dense(t.float()) for t in (lse, delta)])
 
 
 def _bwd_dkv(q, k, v, bias2d, dout, lse, delta, causal, scale):

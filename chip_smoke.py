@@ -7,13 +7,16 @@ one CUDA card and ``nvcc``; it builds the flash-attention kernels from
 exits non-zero:
 
 1. the card's name and power limit, and the kernels' build time with
-   ptxas's registers, shared memory and spills for each kernel;
+   ptxas's registers, shared memory and spills for each kernel, and the
+   HGMMA (wgmma) instructions of each (``cuobjdump -sass``): both wgmma
+   kernels at both head dims must have some;
 2. each kernel against its plain PyTorch version on the card: bf16 and
    fp32, causal or not, fully masked rows, GQA, ragged L (a single
    partial tile at L=40, L=200), D 64 and 128, BERT-base's own shape and
    each model shard's shape on phase 23's hybrid meshes (tolerance fp32
    1e-4, bf16 2e-2); every bf16 call must go through
-   the tensor-core design (mma), every fp32 call (the forward and both
+   its pass's design (``BF16_KEYS``: wgmma forward and dkv, mma dq),
+   every fp32 call (the forward and both
    passes of the backward) through the 3xTF32 tensor-core one (tf32x3);
    in every bf16 case each element of the dkv and dq kernels' gaps from
    their plain versions must lie within what bf16 rounding flips of p and
@@ -29,7 +32,7 @@ exits non-zero:
    round under torch.profiler (device time by kind of kernel, and the
    device's busy share) and a federated evaluation; every kernel must
    launch exactly once per layer per round (the client axis folds into
-   one launch), every launch the mma design;
+   one launch), every launch its pass's bf16 design (wgmma, wgmma, mma);
 4. a 2-layer fp32 BERT-base-width round on the card against the same
    round of the port on the CPU (plain path), same weights and shuffles,
    params within 1e-4;
@@ -135,7 +138,7 @@ exits non-zero:
    each chosen cluster the sample-weighted mean of its clients' trained
    params, 1e-5), then two equal clusters (every client to the first,
    the empty one bit-equal). Every training step launches each flash
-   kernel once per layer, on mma, and the clustered loss grid (a vmap
+   kernel once per layer, on its bf16 design, and the clustered loss grid (a vmap
    over clients of a vmap over clusters) one forward per layer for the
    whole grid. Seconds per round or step (the median after a warm-up),
    peak memory beside its estimate and the device time by kind of one
@@ -151,7 +154,7 @@ exits non-zero:
    what fits: a warm-up, a timed round and a profiled one; the host copy
    of the frozen base taken for phase 23a (which continues from these
    params and checks the base bit-equal after both), the
-   adapters moved, each flash kernel on mma once per layer per step (the
+   adapters moved, each flash kernel on its bf16 design once per layer per step (the
    forward twice: remat runs it again in the backward); s/round,
    tokens/s, the 4·P·tokens MFU, peak memory against its estimate, device
    time by kind and the busy share. (b) Remat at Llama width, 2 layers:
@@ -173,7 +176,7 @@ exits non-zero:
    clients x 128 images (2 steps a client): a warm-up, 2 timed rounds and
    a profiled one, each wave sized by ``wave_size="auto"`` (the sizing
    timed apart); s/round, images/s, peak memory, device time by kind,
-   busy share; each flash kernel on mma once per layer per wave-step (the
+   busy share; each flash kernel on its bf16 design once per layer per wave-step (the
    forward twice: remat), the accountant's epsilon, the example's secure
    aggregation of every client's delta (``err < 1e-3``), the noise
    replayed from its generator (noised minus sigma-0 gradients equal
@@ -212,16 +215,16 @@ exits non-zero:
    padding bias (half the shards all padding), bf16 and fp32, forward and
    the q, k, v and bias gradients against one ``flash_attention`` call
    shard by shard (fp32 1e-4, bf16 2e-2), every launch's design checked;
-   times of both and of SDPA on the whole sequence; each kernel's time at
-   the ring block's shape (B 1, 8/4 heads, L 4,096, D 64) in fp32 and
-   bf16 beside its bound (fp32: the CUDA cores' and the 3xTF32 tensor
-   cores' bound), and the fp32 backward pair's against SDPA's fp32
-   backward; (d) the dense ring, Ulysses (N = 4) and the striped fn
+   times of both and of SDPA on the whole sequence, and of each kernel
+   alone on it; each kernel's time at the ring block's shape (B 1, 8/4
+   heads, L 4,096, D 64) in fp32 and bf16 beside its bound (fp32: the
+   CUDA cores' and the 3xTF32 tensor cores' bound), and each dtype's
+   backward pair against SDPA's backward; (d) the dense ring, Ulysses (N = 4) and the striped fn
    against the flash call at L 8,192 in fp32.
 22. the clients mesh on the one card (a mesh may repeat ``cuda:0``):
    (a) phase 3's BERT-base round on 4 shards against the same round
    meshless (same weights and shuffles): each flash kernel 4 x 12 launches
-   a round, each forward over a quarter of the meshless batch, all mma;
+   a round, each forward over a quarter of the meshless batch, all bf16 designs;
    params and loss in the reference's band (rtol = atol = 5e-2); the psum
    of the trained client contributions against float64 within the
    worst-case fp32 error of the sum; s/round, peak memory, one psum's
@@ -246,7 +249,7 @@ exits non-zero:
    second profiled) on the same shuffles: the base comes back placed (wq
    column-, wo row-parallel) and, gathered, bit-equal to 16a's host copy;
    each kernel's launches a round what the shapes give (1024 / 512 / 512:
-   4x the meshless, all mma); the hybrid peak at or under the meshless
+   4x the meshless, all bf16 designs); the hybrid peak at or under the meshless
    one; the adapters' gap from the meshless round in the reference's band
    and at most ``HYBRID_GAP_SHARE`` of the round's change; s/round,
    tokens/s, the 4·P·tokens MFU, peak memory, busy share. (b) BERT-base
@@ -300,7 +303,7 @@ exits non-zero:
    4-7, on tf32x3); s/step against 21a's, the bytes each process sent
    across the boundary a step, its transport's seconds a step and its
    peak memory. (b) In the same processes, the dense ring and the striped
-   fn over the 8 shards, Ulysses over 4 and ring x flash in bf16 (the mma
+   fn over the 8 shards, Ulysses over 4 and ring x flash in bf16 (the bf16
    kernels, launches counted) at B 2, 8/4 heads, L 4,096, D 64, causal,
    shards 5-7 all padding, forward and the q, k, v and bias gradients,
    each within 1e-5 of the same fn over as many shards in one process.
@@ -322,7 +325,7 @@ exits non-zero:
    (``make_hybrid_mesh([], dcn_axis="clients")``), (a)'s cohort: a
    warm-up round, then ``run_rounds`` and ``run_rounds_fused`` as two
    captured pieces around the round's eager all-reduce (``pieces`` 2,
-   3 replays, 2 x 12 launches a round a process, all mma), the two
+   3 replays, 2 x 12 launches a round a process, all bf16 designs), the two
    processes' params equal and within 22a's band of (a)'s fused params;
    each prints replay A and B seconds a round (CUDA events), the
    all-reduce's host seconds and bytes a round; then phase 19's DP case
@@ -340,7 +343,7 @@ exits non-zero:
    with donation every leaf of the caller's is the result's (``data_ptr``)
    and ``last_fused["donation"]`` counts them all donated, without it none
    is and every leaf is copied, the caller's clones unchanged; each run 2
-   replays and 2 x 12 counted launches a kernel, all mma (the counts set to
+   replays and 2 x 12 counted launches a kernel, all bf16 designs (the counts set to
    0 just before each run), and under the profiler 3 x 12 launches a
    kernel ran on the device (round 0 and the replays). Then ``fedsim_fused_donation_plan`` on the
    same case: its ``delta_gb`` (the allocator's peak, off minus on) at
@@ -348,12 +351,13 @@ exits non-zero:
    beside them; and ``configure_torch_for_bench()``'s record.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1, 2 and 5 alone, and
-21's fp32 times at the ring block (the forward and the backward pair): the
-short first call after a kernel changes (build, ptxas report, comparison at
-real widths, times). It prints no result line.
+the times of config 5's shape (a wave of 3) and of 21's ring block in both
+dtypes (each pass and the backward pair): the short first call after a
+kernel changes (build, ptxas and HGMMA report, comparison at real widths,
+times). It prints no result line.
 
 Before the last line comes the ``kernels`` line: one row a hand-written
-kernel, by its launch key (``fwd_mma``, ``bwd_dkv_mma``, ``bwd_dq_mma`` on
+kernel, by its launch key (``fwd_wgmma``, ``bwd_dkv_wgmma``, ``bwd_dq_mma`` on
 the main path, phase 3's BERT-base round; ``fwd_tf32x3``, ``bwd_dkv_tf32x3``,
 ``bwd_dq_tf32x3`` on example 06's ring x flash, phase 21a), each with its
 launches on its path, its error in phase 2, and its times and bounds at
@@ -376,6 +380,7 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -391,15 +396,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the TPU kernel each pass replaces, and each hand-written kernel's source by
 # its launch key ("<pass>_<design>", as counted in fa.launches_by_design);
 # the kernels line has one row a key, named after its C entry point
-# ("flash_" + key): bf16 (mma) on the main path, phase 3's BERT-base round,
+# ("flash_" + key): bf16 (wgmma, wgmma, mma) on the main path, phase 3's BERT-base round,
 # fp32 (tf32x3) on example 06's ring x flash, phase 21a
 CSRC = "baton_tpu_torch/ops/csrc/"
 TPU_KERNELS = {"fwd": "baton_tpu/ops/flash_attention.py:65",
                "bwd_dkv": "baton_tpu/ops/flash_attention.py:203",
                "bwd_dq": "baton_tpu/ops/flash_attention.py:253"}
 KERNELS = {
-    "fwd_mma": CSRC + "flash_attention_mma.cu",
-    "bwd_dkv_mma": CSRC + "flash_attention_mma.cu",
+    "fwd_wgmma": CSRC + "flash_attention_wgmma.cu",
+    "bwd_dkv_wgmma": CSRC + "flash_attention_wgmma.cu",
     "bwd_dq_mma": CSRC + "flash_attention_mma.cu",
     "fwd_tf32x3": CSRC + "flash_attention_tf32.cu",
     "bwd_dkv_tf32x3": CSRC + "flash_attention_tf32.cu",
@@ -442,6 +447,10 @@ def timed(fn):
 
 
 PASSES = ("fwd", "bwd_dkv", "bwd_dq")
+# each bf16 pass's launch key on every path the smoke drives, as fa._design
+# chooses it (phase 2 checks that the two agree): the forward and dkv on
+# wgmma fed by TMA, dq on mma.sync
+BF16_KEYS = {"fwd": "fwd_wgmma", "bwd_dkv": "bwd_dkv_wgmma", "bwd_dq": "bwd_dq_mma"}
 
 
 def design_keys(fa, dtype, d=64) -> dict:
@@ -451,8 +460,8 @@ def design_keys(fa, dtype, d=64) -> dict:
 
 
 def design_names(fa, dtype) -> str:
-    """The designs of the three passes, as printed: "mma" or "tf32x3" (or
-    "a/b/c" were they to differ)."""
+    """The designs of the three passes, as printed: "tf32x3" where they
+    agree, "a/b/c" (bf16: "wgmma/wgmma/mma") where they differ."""
     designs = [key[len(p) + 1:] for p, key in design_keys(fa, dtype).items()]
     return designs[0] if len(set(designs)) == 1 else "/".join(designs)
 
@@ -480,7 +489,7 @@ NORM_TOKENS = ("groupnorm", "group_norm", "rowwisemoments", "fusedparams",
 
 def kernel_kind(name: str) -> str:
     n = name.lower()
-    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_tf32x3)?_kernel", n):
+    if re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_wgmma|_tf32x3)?_kernel", n):
         return "flash attention (this port)"
     # before matmul: cuDNN's implicit-GEMM conv kernels carry gemm/xmma too
     if any(t in n for t in CONV_TOKENS):
@@ -766,7 +775,7 @@ def kernel_phase(fa):
         ("llama3_8b", 8, 32, 8, 1024, 128, bf16, True, None),
         ("vit_b16", 16, 12, 12, 197, 64, bf16, False, None),
         # phase 21's ring block (B 1, 8/4 heads, L/N = 4,096, D 64): the fp32
-        # kernels of example 06's full preset and the bf16 mma kernels of
+        # kernels of example 06's full preset and the bf16 kernels of
         # 21c, past blocks and the causal diagonal, with and without padding
         *((f"ring_block_{str(dtype)[6:]}{tag}", *RING_BLOCK, dtype, causal, bias_kind)
           for dtype in (f32, bf16)
@@ -774,6 +783,10 @@ def kernel_phase(fa):
                                          ("_padded", False, "lengths"))),
     ]
     print("phase 2: kernels against their plain versions")
+    for d in (64, 128):
+        check(design_keys(fa, bf16, d) == BF16_KEYS,
+              f"fa._design's bf16 keys at D {d} {design_keys(fa, bf16, d)}, the smoke's "
+              f"{BF16_KEYS}")
     results = {c[0]: compare_case(fa, seed, *c) for seed, c in enumerate(cases)}
     masked_row_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
     masked_row_forward_oracle_case(fa, len(cases), *MASKED_ROW_CASE)
@@ -1020,9 +1033,9 @@ def bert_round_phase(fa):
         check(all(math.isfinite(x) for x in loss), f"round {r}: non-finite loss")
         check(all(n == cfg.n_layers for n in delta.values()),
               f"round {r}: launches {delta}, want {cfg.n_layers} of each kernel")
-        check(by_design == {"fwd_mma": cfg.n_layers, "bwd_dkv_mma": cfg.n_layers,
-                            "bwd_dq_mma": cfg.n_layers},
-              f"round {r}: launches by design {by_design}, want every launch on mma")
+        check(by_design == dict.fromkeys(BF16_KEYS.values(), cfg.n_layers),
+              f"round {r}: launches by design {by_design}, want every launch on "
+              f"{'/'.join(BF16_KEYS.values())}")
     per_round = delta  # every round's count was checked equal
     ev = sim.evaluate_round(params, data, n_samples)
     main_launches = fa.launches()
@@ -3340,13 +3353,14 @@ def small_variant_cohort():
 
 def check_step_launches(name, by_pass, by_design, n_layers, steps, fwd_extra=0) -> dict:
     """Each flash kernel once per layer per training step (``fwd_extra``
-    more forward launches, the clustered grid's), every one on mma.
-    Returns ``by_pass``."""
+    more forward launches, the clustered grid's), every one on its pass's
+    bf16 design (``BF16_KEYS``). Returns ``by_pass``."""
     want = {"fwd": n_layers * (steps + fwd_extra), "bwd_dkv": n_layers * steps,
             "bwd_dq": n_layers * steps}
     check(by_pass == want, f"{name}: launches {by_pass}, want {want}")
-    check(set(by_design) <= {"fwd_mma", "bwd_dkv_mma", "bwd_dq_mma"},
-          f"{name}: launches by design {by_design}, want every launch on mma")
+    check(set(by_design) <= set(BF16_KEYS.values()),
+          f"{name}: launches by design {by_design}, want every launch on "
+          f"{'/'.join(BF16_KEYS.values())}")
     return by_pass
 
 
@@ -3959,7 +3973,7 @@ def remat_phase():
 def vit_phase(fa):
     """Phase 16c: ViT-B/16 (100 classes, bf16), 4 clients x 16 images of
     224 px, batch 16 (the suite's non-DP shape): a warm-up and 3 timed
-    rounds, flash once per layer per step on mma at L = 197."""
+    rounds, flash once per layer per step on its bf16 design at L = 197."""
     from baton_tpu_torch import FedSim
     from baton_tpu_torch.models.vit import ViTConfig, vit_model
     from baton_tpu_torch.ops.padding import stack_client_datasets
@@ -4154,8 +4168,9 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
     kernels skip tiles wholly in the future). The operations bound is the
     FLOPs over bf16's peak, or for fp32 the lesser of the CUDA cores' time
     and that of three TF32 products on the tensor cores (3xTF32: fp32's
-    accuracy), each kept beside it; an fp32 call adds a row ``bwd_pair``:
-    the two backward kernels called back to back against SDPA's backward."""
+    accuracy), each kept beside it. A row ``bwd_pair`` times the two
+    backward kernels called back to back against SDPA's backward (dq, dk
+    and dv in one call), so both dtypes compare like with like."""
     import torch.nn.functional as F
 
     from baton_tpu_torch.obs.compute import card_peaks
@@ -4194,11 +4209,10 @@ def attention_times(fa, name, label, b, hq, hkv, l, d, causal, bias_kind, seed,
         "flash_bwd_dq": (el * (2 * q_el + 2 * kv_el) + bias_b + 8 * rows + 4 * q_el,
                          6 * pairs * d),
     }
-    if dtype == torch.float32:
-        timed_fns["bwd_pair"] = (lambda: (fa._bwd_dkv(*args), fa._bwd_dq(*args)),
-                                 lambda: (fa._bwd_dkv_plain(*args), fa._bwd_dq_plain(*args)),
-                                 sdpa_bwd)
-        work["bwd_pair"] = tuple(map(sum, zip(work["flash_bwd_dkv"], work["flash_bwd_dq"])))
+    timed_fns["bwd_pair"] = (lambda: (fa._bwd_dkv(*args), fa._bwd_dq(*args)),
+                             lambda: (fa._bwd_dkv_plain(*args), fa._bwd_dq_plain(*args)),
+                             sdpa_bwd)
+    work["bwd_pair"] = tuple(map(sum, zip(work["flash_bwd_dkv"], work["flash_bwd_dq"])))
     bw, bf16_peak = card_peaks(name)
     print(f"times at {label}'s shape: B={b}, Hq={hq}, Hkv={hkv}, L={l}, D={d}, "
           f"{'causal' if causal else 'not causal'}, bias {bias_kind}, {str(dtype)[6:]}"
@@ -4236,6 +4250,15 @@ def llama_timing_phase(fa, name):
     32/8 heads, L 1024, D 128, causal, no bias, bf16) and the card's bound."""
     return attention_times(fa, name, "Llama", *LLAMA_ATTENTION, causal=True, bias_kind=None,
                            seed=13)
+
+
+def llama_rows(fa, name, rows, extra):
+    """``llama_timing_phase`` into the bf16 rows of the kernels line (each
+    row's ``llama_shape``) and its backward pair into ``extra``."""
+    llama = llama_timing_phase(fa, name)
+    extra["llama_bwd_pair_bf16"] = llama.pop("bwd_pair")
+    for row in rows:
+        row["llama_shape"] = llama[f"flash_{row['pass']}"]
 
 
 # phases 17-20: BASELINE config 5 (ViT-B/16 with DP-SGD and secure
@@ -4656,7 +4679,7 @@ DP_VIT = dict(image_size=64, patch=16, d_model=128, n_layers=2, n_heads=2, d_ff=
 
 def fused_dp_round(fa, mesh=None, n_clients=4, wave=2, vit=DP_VIT):
     """The fused rounds under DP-SGD with noise: a 2-layer ViT (D 64, bf16,
-    flash on mma) on ``n_clients`` clients x 16 images in waves of
+    flash on its bf16 designs) on ``n_clients`` clients x 16 images in waves of
     ``wave``, each wave's noise from device generators registered with the
     graph (one a shard) and seeded before every replay; against
     ``run_rounds`` within ``FUSED_TOL``. ``mesh``: a clients mesh (26c's
@@ -4949,7 +4972,8 @@ def striped_phase(fa):
 def ring_flash_alone_phase(fa):
     """Phase 21c: ring × flash at (a)'s attention shape against one
     ``flash_attention`` call, causal, with and without a ragged padding
-    bias, bf16 and fp32; times of both and of SDPA on the whole sequence."""
+    bias, bf16 and fp32; times of both and of SDPA on the whole sequence,
+    and of each kernel alone on it (bf16: beside its operations bound)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -5004,6 +5028,23 @@ def ring_flash_alone_phase(fa):
              "flash_fwd_bwd": time_ms(lambda: fwd_bwd(causal(flash_attention), q, k, v),
                                       iters=1, warmup=1),
              "sdpa_fwd_bwd": time_ms(lambda: fwd_bwd(sdpa, q, ke, ve), iters=1, warmup=1)}
+        # each kernel alone on the whole sequence, and (bf16) its operations bound
+        bias0 = torch.zeros(b, l, device=q.device)
+        scale = d ** -0.5
+        out, lse = fa._fwd(q, k, v, bias0, True, scale)
+        args = (q, k, v, bias0, dout, lse, (dout.float() * out.float()).sum(-1), True, scale)
+        t.update({"kernel_fwd": time_ms(lambda: fa._fwd(q, k, v, bias0, True, scale), iters=1,
+                                        warmup=1),
+                  "kernel_bwd_dkv": time_ms(lambda: fa._bwd_dkv(*args), iters=1, warmup=1),
+                  "kernel_bwd_dq": time_ms(lambda: fa._bwd_dq(*args), iters=1, warmup=1)})
+        if dtype == torch.bfloat16:
+            from baton_tpu_torch.obs.compute import card_peaks
+
+            pairs = b * hq * l * (l + 1) // 2  # the (query, key) pairs a causal mask keeps
+            peak = card_peaks(torch.cuda.get_device_name(0))[1]
+            t.update({f"bound_{k}": m * pairs * d / peak * 1e3
+                      for k, m in (("kernel_fwd", 4), ("kernel_bwd_dkv", 8), ("kernel_bwd_dq", 6))})
+        del out, lse, args
         times[dname] = t
         print(f"  {dname} times (ms, median of 5 readings): " + ", ".join(
             f"{k} {ms:.3f}" for k, ms in t.items()) + " (SDPA on k, v repeated to 8 heads)")
@@ -5051,23 +5092,25 @@ def sequence_parallel_phase(fa, name):
     stats = {"long_context": stats, "striped": striped_phase(fa)}
     torch.cuda.empty_cache()
     stats["ring_flash_alone"] = ring_flash_alone_phase(fa)
-    block_rows, stats["ring_block_bwd_pair_fp32"] = ring_block_times(fa, name)
+    block_rows, pairs = ring_block_times(fa, name)
+    stats["ring_block_bwd_pair_fp32"] = pairs["float32"]
+    stats["ring_block_bwd_pair_bf16"] = pairs["bfloat16"]
     stats["seams"] = ring_seams_phase()
     return launches, per_step, block_rows, stats, reference
 
 
 def ring_block_times(fa, name, dtypes=(torch.float32, torch.bfloat16)):
     """``attention_times`` at the ring block's shape, not causal (28 of a
-    layer's 36 block calls), per dtype: ({kernel: {dtype: row}}, the fp32
-    backward pair's row)."""
-    block_rows, pair = {}, None
+    layer's 36 block calls), per dtype: ({kernel: {dtype: row}}, {dtype:
+    the backward pair's row})."""
+    block_rows, pairs = {}, {}
     for dtype in dtypes:
         rows = attention_times(fa, name, "the ring block", *RING_BLOCK, causal=False,
                                bias_kind=None, seed=31, dtype=dtype)
-        pair = rows.pop("bwd_pair", pair)
+        pairs[str(dtype)[6:]] = rows.pop("bwd_pair")
         for kname, row in rows.items():
             block_rows.setdefault(kname, {})[str(dtype)[6:]] = row
-    return block_rows, pair
+    return block_rows, pairs
 
 
 def fp32_rows(fa, block_rows, errs, launches=None, per_step=None) -> list:
@@ -5256,10 +5299,10 @@ def mesh_bert_phase(fa):
     layers = cfg.n_layers
     check(plain["launches"] == {k: layers for k in plain["launches"]}
           and meshed["launches"] == {k: MESH_SHARDS * layers for k in meshed["launches"]}
-          and meshed["by_design"] == {f"{p}_mma": MESH_SHARDS * layers
-                                      for p in ("fwd", "bwd_dkv", "bwd_dq")},
+          and meshed["by_design"] == {BF16_KEYS[p]: MESH_SHARDS * layers for p in PASSES},
           f"22a: launches {meshed['launches']} {meshed['by_design']} on the mesh, "
-          f"{plain['launches']} meshless; want {MESH_SHARDS} x {layers} of each, all mma")
+          f"{plain['launches']} meshless; want {MESH_SHARDS} x {layers} of each, on "
+          f"{'/'.join(BF16_KEYS.values())}")
     check(len(plain["batches"]) == 1 and meshed["batches"] == [plain["batches"][0] // MESH_SHARDS],
           f"22a: forward batches {meshed['batches']} on the mesh, {plain['batches']} meshless")
     band, loss_gap = hold_against_meshless("22a", meshed["res"], plain["res"], params)
@@ -5616,9 +5659,9 @@ def hybrid_config4_phase(fa, name, ctx):
         label = " (profiled)" if profile else ""
         print(f"  hybrid round {r}{label}: {dt:.3f} s, peak {peak:.2f} GB, launches {by_pass} "
               f"{by_design}, loss {res.loss_history.tolist()}")
-        check(by_pass == want_launches and set(by_design) <= {"fwd_mma", "bwd_dkv_mma",
-                                                                "bwd_dq_mma"},
-              f"23a round {r}: launches {by_pass} {by_design}, want {want_launches} on mma")
+        check(by_pass == want_launches and set(by_design) <= set(BF16_KEYS.values()),
+              f"23a round {r}: launches {by_pass} {by_design}, want {want_launches} on "
+              f"{'/'.join(BF16_KEYS.values())}")
         check_hybrid_peak(f"23a round {r}", peak, plain_peak)
         if profile:
             t0 = time.perf_counter()
@@ -6016,7 +6059,7 @@ def check_ring_processes(outs, reference, kernels=True) -> None:
     processes' params within ``RING_PARAM_TOL``; 25b's kernels within
     ``RING_SMALL_TOL`` of themselves in one process. With ``kernels`` (on
     the card), each step's launches and 25b's bf16 ring's are what this
-    process's shards make, on the fp32 and mma designs: a process that
+    process's shards make, on the fp32 and bf16 designs: a process that
     ran a shard it does not hold fails here."""
     n = reference["n"]
     layers = reference["config"]["n_layers"]
@@ -6053,9 +6096,10 @@ def check_ring_processes(outs, reference, kernels=True) -> None:
         flash = o["small"]["flash bf16"]
         calls = ring_block_calls(flash["n"], shards=flash["local_shards"])
         check(flash["launches"] == {"fwd": calls, "bwd_dkv": calls, "bwd_dq": calls}
-              and set(flash["launches_by_design"]) == {f"{k}_mma" for k in want},
+              and set(flash["launches_by_design"]) == {BF16_KEYS[k] for k in want},
               f"25b rank {rank}: bf16 ring launches {flash['launches']} "
-              f"{flash['launches_by_design']}, want {calls} each on mma")
+              f"{flash['launches_by_design']}, want {calls} each on "
+              f"{'/'.join(BF16_KEYS.values())}")
 
 
 def ring_processes_phase(fa, reference, device="cuda") -> dict:
@@ -6313,7 +6357,7 @@ def check_fused_processes(outs, params, reference, kernels=True, kind="cpu") -> 
     case too); both ranks' params equal and within 22a's band of 26a's one-process fused
     params (``reference``). With ``kernels`` (on the card) each ran two
     captured pieces, replayed ``FUSED_ROUNDS - 1`` times, and launched each
-    kernel 2 x 12 times a round, all on mma. Returns the band."""
+    kernel 2 x 12 times a round, all on their bf16 designs. Returns the band."""
     check([o["rank"] for o in outs] == [0, 1] and all(o["world"] == 2 for o in outs)
           and [o["local_shards"] for o in outs] == [[0, 1], [2, 3]],
           f"26c: ranks, worlds or shards {[(o['rank'], o['local_shards']) for o in outs]}")
@@ -6332,9 +6376,10 @@ def check_fused_processes(outs, params, reference, kernels=True, kind="cpu") -> 
                   f"26c rank {o['rank']}: not two pieces replayed: {record}, DP "
                   f"{o['dp']['last_fused']}")
             check(o["launches_per_round"] == want
-                  and o["by_design"] == {f"{p}_mma": 2 * n for p, n in want.items()},
+                  and o["by_design"] == {BF16_KEYS[p]: 2 * n for p, n in want.items()},
                   f"26c rank {o['rank']}: launches {o['launches_per_round']} a round, "
-                  f"{o['by_design']} in the fused run; want {want} a round, all mma")
+                  f"{o['by_design']} in the fused run; want {want} a round, on "
+                  f"{'/'.join(BF16_KEYS.values())}")
     check(sorted(params[0]) == sorted(params[1])
           and all(torch.equal(params[0][k], params[1][k]) for k in params[0]),
           "26c: the two processes' fused params differ")
@@ -6447,7 +6492,7 @@ def traced_flash(prof) -> dict:
     passes = {"fwd": "fwd", "dkv": "bwd_dkv", "dq": "bwd_dq"}
     out = dict.fromkeys(PASSES, 0)
     for name, (count, _) in totals.items():
-        m = re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_tf32x3)?_kernel", name.lower())
+        m = re.search(r"(^|[^a-z_])(fwd|dkv|dq)(_mma|_wgmma|_tf32x3)?_kernel", name.lower())
         if m:
             out[passes[m.group(2)]] += count
     return out
@@ -6492,7 +6537,7 @@ def check_donation(on: dict, off: dict, params, sos, n_layers: int) -> dict:
     copied; with it off none is, every leaf copied and the caller's clones
     still equal to the params they were made from; each run replayed
     ``DONATION_ROUNDS - 1`` times, counted ``2 x n_layers`` launches a
-    kernel (the eager round 0 and the capture), all on mma, and, where the
+    kernel (the eager round 0 and the capture), all on their bf16 designs, and, where the
     profiler saw the device, ran ``DONATION_ROUNDS x n_layers`` a kernel
     (round 0 and the replays). Returns the counts."""
     n_leaves = len(params) + len(tree_leaves(sos))
@@ -6523,9 +6568,9 @@ def check_donation(on: dict, off: dict, params, sos, n_layers: int) -> dict:
         check(record["graph"] and record["replays"] == DONATION_ROUNDS - 1,
               f"27 donation {name}: not replayed: {record}")
         check(run["launched"] == want
-              and run["by_design"] == {f"{k}_mma": n for k, n in want.items()},
+              and run["by_design"] == {BF16_KEYS[k]: n for k, n in want.items()},
               f"27 donation {name}: launches {run['launched']} ({run['by_design']}), want {want}"
-              " all on mma")
+              f" on {'/'.join(BF16_KEYS.values())}")
         check(run["traced"] is None or run["traced"] == ran,
               f"27 donation {name}: the profiler saw {run['traced']} flash launches, want {ran}")
     return {"n_leaves": n_leaves, "shared_on": shared_on, "shared_off": shared_off,
@@ -6609,6 +6654,22 @@ def donation_phase(fa) -> tuple:
     return stats, launched
 
 
+def hgmma_counts(library) -> dict:
+    """{kernel<D>: its HGMMA (wgmma) instructions} of every kernel of the
+    built library that has any, from ``cuobjdump -sass``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d((?:fwd|dkv|dq)_[a-z0-9]+_kernel)ILi(\d+)E", line)
+            kernel = f"{m.group(1)}<{m.group(2)}>" if m else None
+        elif kernel and "HGMMA" in line:
+            counts[kernel] = counts.get(kernel, 0) + 1
+    return counts
+
+
 def timed_phase(label, fn, *args):
     """``fn(*args)``, printing the seconds it took under ``label``."""
     t0 = time.perf_counter()
@@ -6646,15 +6707,27 @@ def main() -> int:
     for line in fa.library_path().with_suffix(".log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    hgmma = hgmma_counts(fa.library_path())
+    print("  HGMMA instructions a kernel (cuobjdump -sass): "
+          + ", ".join(f"{k} {n}" for k, n in hgmma.items()))
+    check(all(hgmma.get(f"{kernel}<{d}>", 0) > 0
+              for kernel in ("fwd_wgmma_kernel", "dkv_wgmma_kernel") for d in (64, 128)),
+          f"phase 1: a wgmma kernel without HGMMA instructions: {hgmma}")
 
     phases = time.perf_counter()
     errs = kernel_phase(fa)
     if kernels_only:
         rows, extra = timing_phase(fa, name, None, None, errs["bert_base"])
-        for row, llama in zip(rows, llama_timing_phase(fa, name).values()):
-            row["llama_shape"] = llama
-        block_rows, extra["ring_block_bwd_pair_fp32"] = ring_block_times(fa, name,
-                                                                         (torch.float32,))
+        llama_rows(fa, name, rows, extra)
+        # config 5's shape at a wave of 3 (B 192, the wave its full runs chose)
+        config5_times = config5_timing_phase(fa, name, 3)
+        extra["config5_bwd_pair_bf16"] = config5_times.pop("bwd_pair")
+        block_rows, pairs = ring_block_times(fa, name)
+        extra["ring_block_bwd_pair_fp32"] = pairs["float32"]
+        extra["ring_block_bwd_pair_bf16"] = pairs["bfloat16"]
+        for row in rows:
+            row["config5_shape"] = config5_times[f"flash_{row['pass']}"]
+            row["ring_block_shape"] = block_rows[f"flash_{row['pass']}"]["bfloat16"]
         rows += fp32_rows(fa, block_rows, errs["ring_block_float32"])
         print(json.dumps({"kernels": rows, "extra": extra}))
         print(f"phases 2 and 5 took {time.perf_counter() - phases:.1f} s; no result line "
@@ -6663,8 +6736,7 @@ def main() -> int:
     main_launches, per_round, round_stats = bert_round_phase(fa)
     in_context_phase(fa)
     rows, extra = timing_phase(fa, name, main_launches, per_round, errs["bert_base"])
-    for row, llama in zip(rows, llama_timing_phase(fa, name).values()):
-        row["llama_shape"] = llama
+    llama_rows(fa, name, rows, extra)
     print(f"phases 2-5 took {time.perf_counter() - phases:.1f} s")
     vision = time.perf_counter()
     resnet_stats = resnet_round_phase(fa)
@@ -6706,6 +6778,7 @@ def main() -> int:
     config5_launches, config5_per_round, config5_stats, config5_ctx = timed_phase(
         "17", config5_phase, fa, name)
     config5_times = config5_timing_phase(fa, name, config5_stats["wave"])
+    extra["config5_bwd_pair_bf16"] = config5_times.pop("bwd_pair")
     auto_stats = timed_phase("18", auto_wave_phase, config5_ctx)
     del config5_ctx
     fused_stats = timed_phase("19", fused_phase, fa)
@@ -6731,7 +6804,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     donation_stats, donation_launches = timed_phase("27", donation_phase, fa)
     ranks = processes_stats["ring"]["ranks"]
-    for row in rows:  # the bf16 (mma) kernels' other paths
+    for row in rows:  # the bf16 kernels' other paths
         counter = row["pass"]
         row["launches_config3"] = config3_launches[counter]
         row["launches_per_round_config3"] = config3_per_round[counter]

@@ -170,6 +170,10 @@ def test_dq_flip_check(b, hq, hkv, l, causal, bias_kind, p_error):
      "matmul (cuBLAS)"),
     ("nvjet_hsh_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul (cuBLAS)"),
     ("void fwd_mma_kernel<64, false>(FwdArgs)", "flash attention (this port)"),
+    ("void (anonymous namespace)::fwd_wgmma_kernel<128>(CUtensorMap, CUtensorMap)",
+     "flash attention (this port)"),
+    ("void (anonymous namespace)::dkv_wgmma_kernel<64>(CUtensorMap)",
+     "flash attention (this port)"),
     ("void (anonymous namespace)::dkv_tf32x3_kernel<64>(float const*, float const*)",
      "flash attention (this port)"),
     ("void at::native::elementwise_kernel<128, 2, ...>", "elementwise and other"),
@@ -241,6 +245,7 @@ VARIANT_COUNTS = {"fwd": 816, "bwd_dkv": 312, "bwd_dq": 312}
 CONFIG4_COUNTS = {"fwd": 1024, "bwd_dkv": 512, "bwd_dq": 512}
 CONFIG4_PER_ROUND = {"fwd": 256, "bwd_dkv": 128, "bwd_dq": 128}
 LLAMA_ROW = {"ms": 0.2, "bound_ms": 0.1}
+HGMMA = {f"{k}_wgmma_kernel<{d}>": 12 for k in ("fwd", "dkv") for d in (64, 128)}
 # config 5 with remat: 12 layers, 2 waves x 2 steps a round, 3 rounds
 CONFIG5_COUNTS = {"fwd": 288, "bwd_dkv": 144, "bwd_dq": 144}
 CONFIG5_PER_ROUND = {"fwd": 96, "bwd_dkv": 48, "bwd_dq": 48}
@@ -293,13 +298,13 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                 raise RuntimeError(f"check failed: {phase}")
             return {"kernel_phase": {"bert_base": {}, "ring_block_float32": RING_ERRS},
                     "bert_round_phase": ({"fwd": 1}, {"fwd": 1}, {"peak_memory_gb": 37.24}),
-                    "timing_phase": ([{"name": "flash_fwd_mma", "pass": "fwd"}], {}),
+                    "timing_phase": ([{"name": "flash_fwd_wgmma", "pass": "fwd"}], {}),
                     "resnet_round_phase": {},
                     "fedprox_bert_phase": (COUNTS, {k: 12 for k in COUNTS}, {}),
                     "resnet_optimizer_phase": {}, "options_parity_phase": {},
                     "http_round_phase": {}, "bandwidth_phase": {}, "secure_phase": {},
                     "config1_phase": {}, "variants_phase": {"launches": VARIANT_COUNTS},
-                    "llama_timing_phase": {"flash_fwd": LLAMA_ROW},
+                    "llama_timing_phase": {"flash_fwd": LLAMA_ROW, "bwd_pair": LLAMA_ROW},
                     "config4_phase": (CONFIG4_COUNTS, CONFIG4_PER_ROUND,
                                       {"steps_per_round": 4}, {}),
                     "hybrid_config4_phase": {"launches_per_round": HYBRID_COUNTS},
@@ -308,7 +313,8 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
                     "zoo_parity_phase": {}, "crossover_phase": {},
                     "config5_phase": (CONFIG5_COUNTS, CONFIG5_PER_ROUND,
                                       {"wave": 2, "per_step": CONFIG5_PER_STEP}, None),
-                    "config5_timing_phase": {"flash_fwd": CONFIG5_ROW},
+                    "config5_timing_phase": {"flash_fwd": CONFIG5_ROW,
+                                             "bwd_pair": CONFIG5_ROW},
                     "auto_wave_phase": {},
                     "fused_phase": {"launches_fused_bert": FUSED_COUNTS,
                                     "launches_per_round_fused_bert": {k: 12 for k in COUNTS}},
@@ -329,6 +335,7 @@ def _stub_main(monkeypatch, tmp_path, fail=None):
     library.with_suffix(".log").write_text("ptxas info: Used 128 registers\n")
     monkeypatch.setattr(fa, "load_library", lambda: None)
     monkeypatch.setattr(fa, "library_path", lambda: library)
+    monkeypatch.setattr(chip_smoke, "hgmma_counts", lambda lib: HGMMA)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "NVIDIA H100 80GB HBM3")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -365,7 +372,7 @@ def test_main_runs_the_vision_phases_and_ends_with_the_ok_line(monkeypatch, tmp_
                                         ("bwd_dkv", "tf32x3", "flash_attention_tf32.cu"),
                                         ("bwd_dq", "tf32x3", "flash_attention_tf32.cu"))]
     assert json.loads(lines[-2]) == {"kernels": [{
-        "name": "flash_fwd_mma", "pass": "fwd", "launches_config3": 48,
+        "name": "flash_fwd_wgmma", "pass": "fwd", "launches_config3": 48,
         "launches_per_round_config3": 12,
         "launches_variants": 816, "llama_shape": LLAMA_ROW, "launches_config4": 1024,
         "launches_per_round_config4": 256, "launches_per_step_config4": 64,
@@ -392,7 +399,9 @@ def test_kernels_line_has_a_row_per_launch_key():
     for dtype in (torch.float32, torch.bfloat16):
         assert set(chip_smoke.design_keys(fa, dtype).values()) <= set(chip_smoke.KERNELS)
     assert chip_smoke.design_names(fa, torch.float32) == "tf32x3"
-    assert chip_smoke.design_names(fa, torch.bfloat16) == "mma"
+    assert chip_smoke.design_names(fa, torch.bfloat16) == "wgmma/wgmma/mma"
+    for d in (64, 128):
+        assert chip_smoke.design_keys(fa, torch.bfloat16, d) == chip_smoke.BF16_KEYS
 
 
 @pytest.mark.parametrize("failing", ["resnet_round_phase", "vision_parity_phase",
@@ -763,17 +772,18 @@ def test_cluster_means_check(fault):
 
 
 def test_step_launch_check():
-    mma = {"fwd_mma": 24, "bwd_dkv_mma": 12, "bwd_dq_mma": 12}
+    bf16 = {"fwd_wgmma": 24, "bwd_dkv_wgmma": 12, "bwd_dq_mma": 12}
     counts = {"fwd": 24, "bwd_dkv": 12, "bwd_dq": 12}
-    assert chip_smoke.check_step_launches("grid + round", counts, mma, 12, 1,
+    assert chip_smoke.check_step_launches("grid + round", counts, bf16, 12, 1,
                                           fwd_extra=1) == counts
     with pytest.raises(RuntimeError, match="launches"):  # the grid launched per client
         chip_smoke.check_step_launches("grid", {"fwd": 96, "bwd_dkv": 0, "bwd_dq": 0},
-                                       {"fwd_mma": 96}, 12, 0, fwd_extra=1)
-    with pytest.raises(RuntimeError, match="mma"):
-        chip_smoke.check_step_launches("round", {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12},
-                                       {"fwd_mma": 12, "bwd_dkv_tf32x3": 12, "bwd_dq_mma": 12},
-                                       12, 1)
+                                       {"fwd_wgmma": 96}, 12, 0, fwd_extra=1)
+    for wrong in ({"fwd_wgmma": 12, "bwd_dkv_tf32x3": 12, "bwd_dq_mma": 12},  # an fp32 kernel
+                  {"fwd_mma": 12, "bwd_dkv_wgmma": 12, "bwd_dq_mma": 12}):  # the old forward
+        with pytest.raises(RuntimeError, match="wgmma"):
+            chip_smoke.check_step_launches("round", {"fwd": 12, "bwd_dkv": 12, "bwd_dq": 12},
+                                           wrong, 12, 1)
 
 
 def test_variants_against_cpu_at_a_tiny_size():
@@ -1784,7 +1794,7 @@ def _card_lines(outs):
                                    for k, c in per_step.items()}
         flash = o["small"]["flash bf16"]
         flash["launches"] = dict(bf16)
-        flash["launches_by_design"] = {f"{k}_mma": c for k, c in bf16.items()}
+        flash["launches_by_design"] = {chip_smoke.BF16_KEYS[k]: c for k, c in bf16.items()}
     return outs
 
 
@@ -1891,7 +1901,7 @@ def _fused_card_lines(outs):
         o["last_fused"] = {"graph": True, "rounds": 4, "replays": 3, "pieces": 2}
         o["dp"]["last_fused"] = {"graph": True, "rounds": 3, "replays": 2, "pieces": 2}
         o["launches_per_round"] = {k: 2 * o["n_layers"] for k in COUNTS}
-        o["by_design"] = {f"{k}_mma": 4 * o["n_layers"] for k in COUNTS}
+        o["by_design"] = {chip_smoke.BF16_KEYS[k]: 4 * o["n_layers"] for k in COUNTS}
         o["default_record"].update(device_kind=H100, peak_hbm_gb=0.5,
                                    peak_hbm_gb_source=chip_smoke.PEAK_SOURCE)
         del o["default_record"]["peak_hbm_gb_reason"]
@@ -1974,16 +1984,39 @@ def _donation_card_runs(runs, n_layers):
                              "donation": {"donated": len(start) if donate else 0,
                                           "copied": 0 if donate else len(start)}}
         run["launched"] = {k: 2 * n_layers for k in chip_smoke.PASSES}
-        run["by_design"] = {f"{k}_mma": 2 * n_layers for k in chip_smoke.PASSES}
+        run["by_design"] = {chip_smoke.BF16_KEYS[k]: 2 * n_layers for k in chip_smoke.PASSES}
         run["traced"] = {k: chip_smoke.DONATION_ROUNDS * n_layers for k in chip_smoke.PASSES}
     return runs
+
+
+def test_hgmma_counts_reads_each_kernel_from_cuobjdump(monkeypatch, tmp_path):
+    """Phase 1's count of HGMMA (wgmma) instructions a kernel, from the
+    mangled names of ``cuobjdump -sass``; kernels without one are left out."""
+    import subprocess
+
+    sass = "\n".join([
+        "\t\tFunction : _ZN57_GLOBAL__N__885ad8ba_24_flash_attention_wgmma_cu_7fa12bd4"
+        "16fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_P13__nv_bfloat16Pfiiiiiiif",
+        "        /*1060*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT ;",
+        "        /*11a0*/  HGMMA.64x64x16.F32.BF16 R88, R24, gdesc[UR20], R88 ;",
+        "\t\tFunction : _ZN57_GLOBAL__N__885ad8ba_24_flash_attention_wgmma_cu_7fa12bd4"
+        "16dkv_wgmma_kernelILi128EEEv14CUtensorMap_st",
+        "        /*1060*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT ;",
+        "\t\tFunction : _ZN55_GLOBAL__N__9125a63c_22_flash_attention_mma_cu_c0d741b5"
+        "13dq_mma_kernelILi64EEEvPK13__nv_bfloat16",
+        "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"])
+    monkeypatch.setattr(subprocess, "run", lambda *a, **kw: subprocess.CompletedProcess(
+        a, 0, stdout=sass, stderr=""))
+    assert chip_smoke.hgmma_counts(tmp_path / "lib.so") == {
+        "fwd_wgmma_kernel<64>": 2, "dkv_wgmma_kernel<128>": 1}
 
 
 def test_traced_flash_counts_the_kernels_by_pass(monkeypatch):
     """The profiler's flash launches by pass, from the kernels' names, each
     design under its pass; other kernels left out; None without a device
     event."""
-    totals = {"void fwd_mma_kernel<64, 64>(Params)": [12, 5.0], "dkv_mma_kernel": [12, 9.0],
+    totals = {"void fwd_wgmma_kernel<64>(CUtensorMap)": [12, 5.0],
+              "dkv_wgmma_kernel<128>": [12, 9.0],
               "dq_mma_kernel(float*)": [10, 7.0], "dq_tf32x3_kernel": [2, 1.0],
               "sm90_xmma_gemm_bf16": [40, 30.0], "Memcpy DtoD (Device -> Device)": [3, 0.5]}
     monkeypatch.setattr(chip_smoke, "event_totals", lambda prof: totals)

@@ -1,8 +1,9 @@
 """The flash kernels' bindings and dispatch, without a GPU or ``nvcc``:
 every ctypes signature against the ``extern "C"`` entry points of the CUDA
-sources, and the Python side's choice of design (tensor-core ``mma`` for
-every bf16 pass, the 3xTF32 tensor-core ``tf32x3`` for every fp32 pass) and
-of entry point for each pass."""
+sources, and the Python side's choice of design (Hopper's ``wgmma`` fed by
+TMA for the bf16 forward and dkv, ``mma.sync`` for the bf16 dq, the 3xTF32
+tensor-core ``tf32x3`` for every fp32 pass) and of entry point for each
+pass."""
 
 import ctypes
 import re
@@ -83,9 +84,13 @@ def test_load_library_binds_every_signature(monkeypatch, tmp_path):
     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64), (torch.float32, 128),
 ])
 def test_design_by_dtype_and_head_dim(dtype, d, pass_):
-    """bf16 takes the mma design in every pass, fp32 the 3xTF32 one in
-    every pass (the forward included: no SIMT design is left)."""
-    want = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    """bf16 takes the wgmma design in the forward and dkv and mma in dq, at
+    both head dims and whatever the sequence; fp32 the 3xTF32 one in every
+    pass (no SIMT design is left)."""
+    if dtype == torch.float32:
+        want = "tf32x3"
+    else:
+        want = "mma" if pass_ == "bwd_dq" else "wgmma"
     assert fa._design(dtype, d, pass_) == want
 
 
@@ -105,7 +110,7 @@ def test_an_unknown_pass_is_refused():
         fa._design(torch.float32, 64, "bwd")
 
 
-@pytest.mark.parametrize("dtype,designs", [(torch.bfloat16, ("mma", "mma", "mma")),
+@pytest.mark.parametrize("dtype,designs", [(torch.bfloat16, ("wgmma", "wgmma", "mma")),
                                            (torch.float32, ("tf32x3", "tf32x3", "tf32x3"))])
 def test_wrappers_launch_the_entry_point_of_their_design(monkeypatch, dtype, designs):
     """With the kernel path forced for CPU tensors and the launch recorded,
@@ -145,3 +150,28 @@ def test_kernel_inputs_are_16_byte_aligned():
     assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
     aligned = torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16)
     assert fa._dense(aligned) is aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vector_inputs_reach_the_kernels_16_byte_aligned(monkeypatch, dtype):
+    """TMA reads only 16-byte aligned tensors, and the wgmma kernels copy
+    the bias (forward) and lse and delta (dkv) by TMA: views at an odd
+    offset reach every entry point as aligned copies with the same values."""
+    calls = []
+    monkeypatch.setattr(fa, "_on_cpu", lambda *xs: False)
+    monkeypatch.setattr(fa, "_launch", lambda name, device, *args: calls.append((name, args)))
+    b, hq, hkv, l, d = 1, 4, 2, 40, 64
+    q, dout = (torch.zeros(b, hq, l, d, dtype=dtype) for _ in range(2))
+    k, v = (torch.zeros(b, hkv, l, d, dtype=dtype) for _ in range(2))
+    flat = torch.arange(1 + 2 * b * hq * l, dtype=torch.float32)
+    bias = flat[1:1 + b * l].view(b, l)
+    lse = flat[1:1 + b * hq * l].view(b, hq, l)
+    delta = flat[1 + b * hq * l:].view(b, hq, l)
+    assert all(t.data_ptr() % 16 for t in (bias, lse, delta))
+    fa._fwd(q, k, v, bias, False, 0.125)
+    fa._bwd_dkv(q, k, v, bias, dout, lse, delta, False, 0.125)
+    fa._bwd_dq(q, k, v, bias, dout, lse, delta, False, 0.125)
+    for name, args in calls:
+        pointers = [a for a in args if isinstance(a, int) and a > 1 << 20]
+        assert all(p % 16 == 0 for p in pointers), name
+    fa.reset_launches()
